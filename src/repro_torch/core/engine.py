@@ -1,0 +1,665 @@
+"""Multi-segment CSR execution engine, device executor: plan / execute.
+
+The counterpart of ``repro.core.engine``.  A *segment* is a contiguous
+alpha-sorted run of database rows; a `SegmentPack` stacks an index's
+segments into (S, n_pad, d_pad) tensors on one device, built once and
+reused across query batches.  Every batch runs the two-pass exact CSR
+orchestration:
+
+1. **pass 1, count**: per-(segment, query) survivor counts, (S, m_pad);
+2. **prefix sums** on the device: the global CSR ``indptr`` and each
+   segment's per-query write base (an exclusive prefix over segments);
+3. **pass 2, compact**: every survivor is written into its flat CSR slot.
+
+The passes run through `kernels.registry`: the CUDA kernels for a pack on
+the card, their plain PyTorch versions for a pack on the CPU, with the same
+orchestration around them.  Both passes evaluate one predicate pipeline on
+identical float32 inputs, so pass-2 survivors are exactly the pass-1 counted
+pairs; a final ``>= 0`` check on the flat ids fails loudly if they ever
+disagree.  Segments whose alpha range meets no query window are skipped
+before any launch.
+
+Once a batch shape has run, the fused path chains count, prefix and compact
+with no host sync between them, under a speculated flat capacity that the
+compact kernel checks on the device; the result comes back in one
+device-to-host copy.  An overflow reruns the classic path with exact sizes
+and ratchets the capacity (power-of-two buckets).
+
+Not ported yet: the host-pruned oracle executors, the looped ``run_csr``,
+``warm_plan``, ``SegmentPack.concat``/``extend`` and ``segments_from_index``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from ..kernels import ops as _ops
+from ..kernels import ref as _ref
+from ..kernels import registry as _registry
+
+# Padding rows carry alpha = half_norm = +BIG; anything above this threshold
+# is sentinel, not data (used when recovering a segment's real alpha range).
+_REAL = _ops.BIG / 2
+
+
+# --------------------------------------------------------------------------- #
+# Dispatch instrumentation                                                     #
+# --------------------------------------------------------------------------- #
+_STAT_FIELDS = ("kernel_launches", "host_transfers", "jit_compiles",
+                "bytes_planned")
+
+
+class DispatchStats(threading.local):
+    """Per-thread counters of the engine's dispatch overhead.
+
+    ``kernel_launches`` counts the device passes the engine issues (count,
+    prefix, compact); ``host_transfers`` counts device-to-host copies (the
+    fused path's whole result is one copy); ``jit_compiles`` counts launch
+    signatures never seen before in this process
+    (`kernels.registry.note_launch_signature`); ``bytes_planned`` counts the
+    bytes of newly built `MemoryPlan`s.
+    """
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        for f in _STAT_FIELDS:
+            setattr(self, f, 0)
+
+    def snapshot(self) -> dict:
+        return {f: getattr(self, f) for f in _STAT_FIELDS}
+
+
+DISPATCH_STATS = DispatchStats()
+
+
+# --------------------------------------------------------------------------- #
+# Segments                                                                     #
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class Segment:
+    """One contiguous alpha-sorted run, padded and on its device.
+
+    Attributes:
+      xs, alphas, half_norms: padded float32 tensors (rows to a block
+        multiple with +BIG sentinels, features to the 128-lane multiple).
+      ids: (n,) host int64 original row ids of the local sorted positions;
+        sentinel rows inside ``n`` carry -1 and never survive the predicate.
+      alpha_lo/alpha_hi: range of the real alphas, the segment-level window
+        prune (lo > hi for an all-sentinel segment: always skipped).
+      block: the row-block size the arrays were padded to (the kernels' bn).
+      projs: optional (ke, n_pad) EXTRA projection components (+BIG in
+        padding and sentinel columns) for the k-dim box prune.
+      proj_lo/proj_hi: (ke,) float64 real ranges per component.
+      xnorm_max: max real row norm (float64), the host box slack's scale.
+    """
+
+    xs: torch.Tensor
+    alphas: torch.Tensor
+    half_norms: torch.Tensor
+    ids: np.ndarray
+    alpha_lo: float
+    alpha_hi: float
+    block: int
+    projs: torch.Tensor | None = None
+    proj_lo: np.ndarray | None = None
+    proj_hi: np.ndarray | None = None
+    xnorm_max: float = 0.0
+
+    @property
+    def n(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def ke(self) -> int:
+        """Number of extra projection components carried (0 = none)."""
+        return 0 if self.projs is None else int(self.projs.shape[0])
+
+
+def make_segment(xs, alphas, half_norms, ids, *, block: int = 512,
+                 projs=None, device=None) -> Segment:
+    """Pad one sorted run for the kernels and record its real ranges.
+
+    ``xs``/``alphas``/``half_norms`` (and ``projs``, the optional (ke, n)
+    EXTRA components) are tensors or arrays; the padded copies live on
+    ``device`` (default: the device of ``xs``).  Projection columns of
+    padding and sentinel rows hold +BIG, so no box interval selects them.
+    """
+    dev = torch.device(device) if device is not None else (
+        xs.device if isinstance(xs, torch.Tensor) else torch.device("cpu"))
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(dev)
+
+    xs_t, al_t, hn_t = on_dev(xs), on_dev(alphas), on_dev(half_norms)
+    xs_p, al_p, hn_p, _, _ = _ops.pad_database(xs_t, al_t, hn_t, bn=block)
+    al_host = al_t.cpu().numpy()
+    realm = al_host < _REAL
+    real = al_host[realm]
+    lo = float(real[0]) if real.size else float("inf")
+    hi = float(real[-1]) if real.size else float("-inf")
+    pj = plo = phi = None
+    xnorm_max = 0.0
+    if projs is not None:
+        big = np.float32(_ops.BIG)
+        pj_np = np.asarray(torch.as_tensor(projs, dtype=torch.float32).cpu())
+        pj_np = np.where(realm[None, :], pj_np, big)
+        n_pad = int(al_p.shape[0])
+        pj_full = np.concatenate(
+            [pj_np, np.full((pj_np.shape[0], n_pad - pj_np.shape[1]), big,
+                            np.float32)], axis=1)
+        pj = torch.from_numpy(np.ascontiguousarray(pj_full)).to(dev)
+        if realm.any():
+            p64 = pj_np[:, realm].astype(np.float64)
+            plo, phi = p64.min(axis=1), p64.max(axis=1)
+            hn_real = hn_t.cpu().numpy().astype(np.float64)[realm]
+            xnorm_max = float(np.sqrt(max(2.0 * float(hn_real.max()), 0.0)))
+        else:
+            plo = np.full(pj_np.shape[0], np.inf)
+            phi = np.full(pj_np.shape[0], -np.inf)
+    return Segment(xs_p, al_p, hn_p, np.asarray(ids, np.int64), lo, hi, block,
+                   pj, plo, phi, xnorm_max)
+
+
+def _index_extra_projs(index):
+    """The (ke, n) EXTRA projection rows of an index, or None (single-PC)."""
+    pj = getattr(index, "projs", None)
+    if pj is None or pj.shape[0] <= 1:
+        return None
+    return pj[1:]
+
+
+def segment_from_index(index, *, block: int = 512, device=None) -> Segment:
+    """The whole of one `SNNIndex` as a segment on ``device``."""
+    return make_segment(index.xs, index.alphas, index.half_norms, index.order,
+                        block=block, projs=_index_extra_projs(index),
+                        device=device)
+
+
+def _qnorm64(rp, thp, m: int) -> np.ndarray:
+    """(m,) float64 query norms recovered from the predicate pair, through
+    the kernels' own float32 expression first (`ref.norm_scales`)."""
+    r32 = np.asarray(rp, np.float32)[:m]
+    t32 = np.asarray(thp, np.float32)[:m]
+    with np.errstate(over="ignore", invalid="ignore"):
+        qn = np.sqrt(np.maximum(r32 * r32 - np.float32(2.0) * t32,
+                                np.float32(0.0)))
+    return qn.astype(np.float64)
+
+
+def _box_interval_radius(r64, qn64, xnorm_max) -> np.ndarray:
+    """Float64 SUPERSET of the kernels' per-pair box slack: the segment-wide
+    ``xnorm_max`` bounds every row norm, and the 1e-6 relative inflation
+    (+1e-30 absolute) dominates every float32 rounding of the device test."""
+    return (r64 + _ref.BOX_EPS * (xnorm_max + qn64 + np.abs(r64))) \
+        * (1.0 + 1e-6) + 1e-30
+
+
+# --------------------------------------------------------------------------- #
+# Static memory planning                                                       #
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class MemoryPlan:
+    """Static buffer-size ledger for one (pack, query-bucket) combination.
+
+    ``buffers`` maps each buffer the device executor touches to (name,
+    shape, dtype, nbytes), sized from the pack geometry, the bucketed batch
+    size and the worst-case survivor count; the total lands in
+    ``DISPATCH_STATS.bytes_planned`` when the plan is first built.
+    """
+
+    m_pad: int
+    query_tile: int
+    buffers: tuple
+    total_bytes: int
+
+
+def _build_memory_plan(pack: "SegmentPack", m_pad: int,
+                       query_tile: int) -> MemoryPlan:
+    """Derive every device-executor buffer size from the pack geometry."""
+    S = pack.n_segments
+    n_pad = pack.n_pad
+    d_pad = int(pack.segments[0].xs.shape[1]) if pack.segments else 0
+    ke = pack.ke
+    nb = n_pad // pack.block if pack.block else 0
+    n_real = int(sum(s.n for s in pack.segments))
+    bufs: list[tuple] = []
+
+    def add(name, shape, dtype):
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        bufs.append((name, tuple(int(v) for v in shape),
+                     np.dtype(dtype).name, int(nbytes)))
+
+    # device-resident pack representations (once per plan)
+    add("stacked_xs", (S, n_pad, d_pad), np.float32)
+    add("stacked_alphas", (S, n_pad), np.float32)
+    add("stacked_half_norms", (S, n_pad), np.float32)
+    add("stacked_ids", (S, n_pad), np.int64)
+    if ke:
+        add("stacked_projs", (S, ke, n_pad), np.float32)
+    # per-batch query operands at the bucketed size
+    add("queries", (m_pad, d_pad), np.float32)
+    add("query_alpha", (m_pad,), np.float32)
+    add("query_radius", (m_pad,), np.float32)
+    add("query_thresh", (m_pad,), np.float32)
+    if ke:
+        add("query_projs", (ke, m_pad), np.float32)
+    # pass-boundary buffers: counts, per-row-block partials, prefix sums
+    add("counts", (S, m_pad), np.int32)
+    add("partials", (S, m_pad, nb), np.int32)
+    add("indptr", (m_pad + 1,), np.int32)
+    add("offsets", (S, m_pad), np.int32)
+    # flat CSR outputs: worst case = every real row survives for every query
+    nnz_cap = _ops.csr_capacity(m_pad * max(n_real, 0) + 1)
+    add("csr_flat_idx", (nnz_cap,), np.int32)
+    add("csr_flat_dh", (nnz_cap,), np.float32)
+    total = sum(b[3] for b in bufs)
+    return MemoryPlan(int(m_pad), int(query_tile), tuple(bufs), int(total))
+
+
+# --------------------------------------------------------------------------- #
+# The packed plan                                                              #
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass
+class SegmentPack:
+    """A device-resident execution plan: every segment of an index, stacked.
+
+    Attributes:
+      segments: the source per-segment views.
+      alpha_lo / alpha_hi: (S,) float64 real alpha ranges, the inputs of the
+        vectorized interval-overlap prune (`live_mask`).
+      block: the row-block size every segment was padded to.
+      ke: extra projection components shared by every segment (0 when any
+        segment lacks them).
+      proj_lo / proj_hi: (S, ke) float64 per-segment real component ranges;
+        xnorm_max: (S,) float64 per-segment max row norms (None if ke == 0).
+    """
+
+    segments: list[Segment]
+    alpha_lo: np.ndarray
+    alpha_hi: np.ndarray
+    block: int
+    ke: int = 0
+    proj_lo: np.ndarray | None = None
+    proj_hi: np.ndarray | None = None
+    xnorm_max: np.ndarray | None = None
+    _stacked: tuple | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _stacked_px: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _plans: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # capacity speculation of the fused path: (m_pad, query_tile, live set,
+    # kq) -> {"nnz_cap": ...}; dies with the pack
+    _spec: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # capacities adopted from a predecessor plan: (m_pad, query_tile, kq) ->
+    # nnz_cap, consulted when a live-set key has no capacity of its own
+    _spec_hint: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
+    def n_pad(self) -> int:
+        """Padded rows of the largest segment (the stacked row count)."""
+        return max((s.xs.shape[0] for s in self.segments), default=0)
+
+    @property
+    def device(self) -> torch.device:
+        return (self.segments[0].xs.device if self.segments
+                else torch.device("cpu"))
+
+    @classmethod
+    def build(cls, segments: list[Segment]) -> "SegmentPack":
+        """Plan over ``segments`` (uniform block, lane padding and device)."""
+        segments = list(segments)
+        if segments:
+            block = segments[0].block
+            d_pad = segments[0].xs.shape[1]
+            dev = segments[0].xs.device
+            for s in segments:
+                if s.block != block or s.xs.shape[1] != d_pad \
+                        or s.xs.device != dev:
+                    raise ValueError("SegmentPack needs uniform block, lane "
+                                     "padding and device across segments")
+        else:
+            block = 0
+        lo = np.asarray([s.alpha_lo for s in segments], np.float64)
+        hi = np.asarray([s.alpha_hi for s in segments], np.float64)
+        ke = min((s.ke for s in segments), default=0)
+        plo = phi = xnm = None
+        if ke:
+            plo = np.stack([np.asarray(s.proj_lo[:ke], np.float64)
+                            for s in segments])
+            phi = np.stack([np.asarray(s.proj_hi[:ke], np.float64)
+                            for s in segments])
+            xnm = np.asarray([s.xnorm_max for s in segments], np.float64)
+        return cls(segments, lo, hi, block, ke, plo, phi, xnm)
+
+    def memory_plan(self, m_pad: int, query_tile: int = 128) -> MemoryPlan:
+        """The static `MemoryPlan` for a bucketed batch size (memoized; the
+        first build accounts its bytes in ``DISPATCH_STATS.bytes_planned``)."""
+        key = (int(m_pad), int(query_tile))
+        hit = self._plans.get(key)
+        if hit is not None:
+            return hit
+        plan = _build_memory_plan(self, int(m_pad), int(query_tile))
+        self._plans[key] = plan
+        DISPATCH_STATS.bytes_planned += plan.total_bytes
+        return plan
+
+    def adopt_spec(self, prev: "SegmentPack") -> None:
+        """Inherit ``prev``'s learned fused capacities as hints (the
+        double-buffered epoch handoff: a rebuilt plan serves the same
+        workload, so its predecessor's capacities are the right opening
+        speculation; a real overflow still ratchets)."""
+        for key, cap in prev._spec_hint.items():
+            if cap:
+                self._spec_hint[key] = max(self._spec_hint.get(key, 0), cap)
+        for (m_pad, tile, _live, kq), rec in prev._spec.items():
+            cap = rec.get("nnz_cap", 0)
+            if cap:
+                key = (m_pad, tile, kq)
+                self._spec_hint[key] = max(self._spec_hint.get(key, 0), cap)
+
+    def stacked(self):
+        """(xs (S, n_pad, d), alphas (S, n_pad), half_norms (S, n_pad),
+        ids (S, n_pad) host int64 with -1 padding), built on first use; a
+        single-segment pack is a view of its segment, not a copy."""
+        if self._stacked is None:
+            dev = self.device
+            if not self.segments:
+                z2 = torch.zeros((0, 0), dtype=torch.float32, device=dev)
+                return (torch.zeros((0, 0, 0), dtype=torch.float32,
+                                    device=dev), z2, z2,
+                        np.zeros((0, 0), np.int64))
+            n_pad = self.n_pad
+            if len(self.segments) == 1:
+                s = self.segments[0]
+                xs, al, hn = s.xs[None], s.alphas[None], s.half_norms[None]
+            else:
+                S = self.n_segments
+                d_pad = self.segments[0].xs.shape[1]
+                xs = torch.zeros((S, n_pad, d_pad), dtype=torch.float32,
+                                 device=dev)
+                al = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32,
+                                device=dev)
+                hn = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32,
+                                device=dev)
+                for k, s in enumerate(self.segments):
+                    rows = s.xs.shape[0]
+                    xs[k, :rows] = s.xs
+                    al[k, :rows] = s.alphas
+                    hn[k, :rows] = s.half_norms
+            ids = np.full((self.n_segments, n_pad), -1, np.int64)
+            for k, s in enumerate(self.segments):
+                ids[k, :s.n] = s.ids
+            self._stacked = (xs, al, hn, ids)
+        return self._stacked
+
+    def stacked_projs(self) -> torch.Tensor | None:
+        """(S, ke, n_pad) extra projections stacked to match `stacked()`
+        (+BIG in the uniform padding), or None when ``ke == 0``."""
+        if not self.ke:
+            return None
+        if self._stacked_px is None:
+            if len(self.segments) == 1:
+                self._stacked_px = self.segments[0].projs[:self.ke][None]
+            else:
+                px = torch.full((self.n_segments, self.ke, self.n_pad),
+                                _ops.BIG, dtype=torch.float32,
+                                device=self.device)
+                for k, s in enumerate(self.segments):
+                    px[k, :, :s.projs.shape[1]] = s.projs[:self.ke]
+                self._stacked_px = px
+        return self._stacked_px
+
+    def live_mask(self, aq: np.ndarray, r: np.ndarray,
+                  pq: np.ndarray | None = None,
+                  qn: np.ndarray | None = None) -> np.ndarray:
+        """Which segments can any query window (and box) touch?  One (S, m)
+        float64 broadcast with a few-ulp slack, so a skipped segment never
+        holds a pair the kernels would keep."""
+        S = self.n_segments
+        if S == 0 or aq.size == 0:
+            return np.zeros(S, bool)
+        nonempty = self.alpha_lo <= self.alpha_hi
+        amax = np.maximum(np.abs(self.alpha_lo), np.abs(self.alpha_hi))
+        amax = np.where(nonempty, amax, 0.0)  # keep the slack finite
+        slack = 1e-6 * ((np.abs(aq) + np.abs(r))[None, :]
+                        + amax[:, None] + 1.0)
+        hit = ((aq[None, :] + r[None, :] + slack >= self.alpha_lo[:, None])
+               & (aq[None, :] - r[None, :] - slack <= self.alpha_hi[:, None]))
+        if pq is not None and self.ke:
+            kq = min(int(pq.shape[0]), self.ke)
+            R = _box_interval_radius(r[None, :], qn[None, :],
+                                     self.xnorm_max[:, None])  # (S, m)
+            for c in range(kq):
+                hit &= ((pq[c][None, :] + R >= self.proj_lo[:, c:c + 1])
+                        & (pq[c][None, :] - R <= self.proj_hi[:, c:c + 1]))
+        return hit.any(axis=1) & nonempty
+
+
+def pack_from_index(index, *, block: int = 512, device=None) -> SegmentPack:
+    """The whole of one index as a single-segment plan on ``device``."""
+    return SegmentPack.build([segment_from_index(index, block=block,
+                                                 device=device)])
+
+
+def _live_idx(pack: SegmentPack, aqp, rp, m: int,
+              pq64: np.ndarray | None = None,
+              qn64: np.ndarray | None = None) -> np.ndarray:
+    """Which segments are live?  `run_csr_packed` and `run_counts_packed`
+    share this decision, so counts predict the CSR rows exactly."""
+    aq64 = np.asarray(aqp, np.float64)[:m]
+    r64 = np.asarray(rp, np.float64)[:m]
+    return np.nonzero(pack.live_mask(aq64, r64, pq64, qn64))[0]
+
+
+def _gather_live_stacked(pack: SegmentPack, live_idx: np.ndarray, kq: int):
+    """(xs, alphas, half_norms, ids, projs) of the live slabs from the
+    pack's stacked rep (no copy when every segment is live); ``projs`` holds
+    the first ``kq`` extra components, or is None when ``kq == 0``."""
+    xs, al, hn, ids = pack.stacked()
+    px = pack.stacked_projs()[:, :kq].contiguous() if kq else None
+    if live_idx.size < pack.n_segments:
+        sel = torch.as_tensor(live_idx, device=xs.device)
+        xs, al, hn = xs[sel], al[sel], hn[sel]
+        ids = ids[live_idx]
+        if px is not None:
+            px = px[sel]
+    return xs, al, hn, ids, px
+
+
+def _query_operands(pack: SegmentPack, m: int, qp, aqp, rp, thp, pq):
+    """The host query operands, the effective component count and its
+    float64 box inputs, and the operands moved to the pack's device."""
+    qp, aqp, rp, thp = (np.asarray(a, np.float32) for a in (qp, aqp, rp, thp))
+    kq = 0
+    if pq is not None and pack.ke:
+        kq = min(pack.ke, int(np.asarray(pq).shape[0]))
+    pq_np = pq64 = qn64 = None
+    if kq:
+        pq_np = np.ascontiguousarray(np.asarray(pq, np.float32)[:kq])
+        pq64 = pq_np[:, :m].astype(np.float64)
+        qn64 = _qnorm64(rp, thp, m)
+    dev = pack.device
+    on_dev = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (qp, aqp, rp, thp)]
+    pq_t = None if pq_np is None else torch.from_numpy(pq_np).to(dev)
+    return (qp, aqp, rp, thp), kq, pq64, qn64, (*on_dev, pq_t)
+
+
+def run_csr_packed(
+    pack: SegmentPack,
+    qp, aqp, rp, thp,
+    m: int,
+    *,
+    query_tile: int = 128,
+    pq=None,
+    mixed: bool = False,
+    fused: bool = True,
+):
+    """Execute a `SegmentPack` plan: both passes as single launches.
+
+    ``qp``/``aqp``/``rp``/``thp`` are the padded host query operands
+    (`kernels.ops.pad_queries`), ``m`` the number of real queries and ``pq``
+    the optional (kq, m_pad) padded extra query projections.  Returns
+    (indptr (m+1,) int64, counts (m,) int64, original ids (nnz,) int64,
+    dhalf (nnz,) float32).  Flat totals are int32 on the device (~2^31
+    pairs).
+    """
+    if pack.segments:
+        pack.memory_plan(int(np.shape(qp)[0]), query_tile)
+    host, kq, pq64, qn64, dev_ops = _query_operands(pack, m, qp, aqp, rp,
+                                                     thp, pq)
+    live_idx = _live_idx(pack, host[1], host[2], m, pq64, qn64)
+    if live_idx.size == 0:
+        return (np.zeros(m + 1, np.int64), np.zeros(m, np.int64),
+                np.zeros(0, np.int64), np.zeros(0, np.float32))
+    return _execute_stacked(pack, m, live_idx, dev_ops, kq,
+                            query_tile=query_tile, mixed=mixed, fused=fused)
+
+
+def run_counts_packed(
+    pack: SegmentPack,
+    qp, aqp, rp, thp,
+    m: int,
+    *,
+    query_tile: int = 128,
+    pq=None,
+    mixed: bool = False,
+) -> np.ndarray:
+    """Pass 1 only: per-query survivor counts (m,) int64 over a plan, by the
+    identical predicate pipeline as `run_csr_packed`'s pass 1."""
+    if pack.segments:
+        pack.memory_plan(int(np.shape(qp)[0]), query_tile)
+    host, kq, pq64, qn64, dev_ops = _query_operands(pack, m, qp, aqp, rp,
+                                                     thp, pq)
+    live_idx = _live_idx(pack, host[1], host[2], m, pq64, qn64)
+    if live_idx.size == 0:
+        return np.zeros(m, np.int64)
+    qd, aqd, rd, thd, pqd = dev_ops
+    xs, al, hn, _, px = _gather_live_stacked(pack, live_idx, kq)
+    DISPATCH_STATS.kernel_launches += 1
+    per = _registry.snn_count_stacked(qd, aqd, rd, thd, xs, al, hn, pqd, px,
+                                      bn=pack.block, mixed=mixed)
+    DISPATCH_STATS.host_transfers += 1
+    return per.sum(dim=0).cpu().numpy()[:m].astype(np.int64)
+
+
+def _execute_stacked(pack: SegmentPack, m: int, live_idx: np.ndarray,
+                     dev_ops, kq: int, *, query_tile: int,
+                     mixed: bool = False, fused: bool = True):
+    """The device executor of `run_csr_packed`.
+
+    With ``fused`` a batch shape that has run once before chains count,
+    device prefix and compact with no host sync, under the capacity
+    recorded on the pack; the compact kernel checks it on the device and
+    the whole result comes back in ONE copy.  On overflow the classic path
+    below reruns with exact sizes and the recorded capacity ratchets.
+    ``mixed`` applies to pass 1 only; pass 2 always decides in float32.
+    """
+    qd, aqd, rd, thd, pqd = dev_ops
+    xs, al, hn, ids, px = _gather_live_stacked(pack, live_idx, kq)
+    m_pad = int(qd.shape[0])
+    args = (qd, aqd, rd, thd)
+
+    spec = pack._spec.setdefault(
+        (m_pad, int(query_tile), live_idx.tobytes(), kq), {})
+    nnz_spec = spec.get("nnz_cap", 0) or pack._spec_hint.get(
+        (m_pad, int(query_tile), kq), 0)
+
+    # ---- speculative fused path: no host sync between the passes ---------
+    if fused and nnz_spec:
+        DISPATCH_STATS.kernel_launches += 3
+        per, partials = _registry.snn_count_stacked(
+            *args, xs, al, hn, pqd, px, bn=pack.block, mixed=mixed,
+            with_partials=True)
+        _, indptr_dev, offsets_dev = _ref.stacked_prefix(per)
+        fi, fd = _registry.snn_compact_stacked(
+            *args, offsets_dev, xs, al, hn, pqd, px, nnz=nnz_spec,
+            bn=pack.block, partials=partials)
+        DISPATCH_STATS.host_transfers += 1
+        flat = torch.cat([indptr_dev, fi, fd.view(torch.int32)]).cpu().numpy()
+        indptr_pad = flat[:m_pad + 1]
+        total = int(indptr_pad[m])
+        spec["nnz_cap"] = max(nnz_spec, _ops.csr_capacity(total))
+        if total + 1 <= nnz_spec:
+            indptr = indptr_pad[:m + 1].astype(np.int64)
+            counts = np.diff(indptr)
+            fi = flat[m_pad + 1:m_pad + 1 + total]
+            fd = flat[m_pad + 1 + nnz_spec:m_pad + 1 + nnz_spec + total]
+            if not (fi >= 0).all():
+                raise RuntimeError("CSR pass-1/pass-2 disagreement (packed)")
+            return (indptr, counts, ids.reshape(-1)[fi],
+                    np.ascontiguousarray(fd).view(np.float32))
+        # speculation overflow: fall through to the exact-sized classic path
+
+    # ---- pass 1: ONE stacked count launch --------------------------------
+    DISPATCH_STATS.kernel_launches += 1
+    per, partials = _registry.snn_count_stacked(
+        *args, xs, al, hn, pqd, px, bn=pack.block, mixed=mixed,
+        with_partials=True)
+
+    # ---- device prefix sums + the one pass-boundary sync -----------------
+    DISPATCH_STATS.kernel_launches += 1
+    _, indptr_dev, offsets_dev = _ref.stacked_prefix(per)
+    DISPATCH_STATS.host_transfers += 1
+    indptr_pad = indptr_dev.cpu().numpy()
+    total = int(indptr_pad[m])
+    spec["nnz_cap"] = max(spec.get("nnz_cap", 0), _ops.csr_capacity(total))
+    indptr = indptr_pad[:m + 1].astype(np.int64)
+    counts = np.diff(indptr)
+    if total == 0:
+        return indptr, counts, np.zeros(0, np.int64), np.zeros(0, np.float32)
+
+    # ---- pass 2: ONE stacked compaction launch ---------------------------
+    DISPATCH_STATS.kernel_launches += 1
+    fi, fd = _registry.snn_compact_stacked(
+        *args, offsets_dev, xs, al, hn, pqd, px,
+        nnz=_ops.csr_capacity(total), bn=pack.block, partials=partials)
+    DISPATCH_STATS.host_transfers += 2
+    fi = fi[:total].cpu().numpy()
+    if not (fi >= 0).all():
+        raise RuntimeError("CSR pass-1/pass-2 disagreement (packed)")
+    return indptr, counts, ids.reshape(-1)[fi], fd[:total].cpu().numpy()
+
+
+def query_csr_packed(
+    index,
+    pack: SegmentPack,
+    q: np.ndarray,
+    radius,
+    return_distance: bool = True,
+    *,
+    query_tile: int = 128,
+    native: bool = True,
+    mixed: bool = False,
+    bucket: bool = False,
+    fused: bool = True,
+):
+    """Full CSR query through a prebuilt plan: predicates from ``index``
+    (the owner of mu/v1/metric/xi) on the host, then `run_csr_packed`, then
+    float64 distance finalization on the host.  ``bucket`` pads the batch to
+    the geometric query-bucket ladder; results are identical either way."""
+    from . import snn as _snn  # deferred: snn imports this module lazily too
+
+    xq, aq, r, th, qsq = _snn.prepare_query_predicates(index, q, radius)
+    m = xq.shape[0]
+    qp, aqp, rp, thp, _ = _ops.pad_queries(xq, aq, r, th, tq=query_tile,
+                                           bucket=bucket)
+    pq = _snn.query_extra_projections(index, xq)
+    pqp = None if pq is None else _ops.pad_components(pq, qp.shape[0])
+    indptr, counts, ids, dh = run_csr_packed(
+        pack, qp, aqp, rp, thp, m, query_tile=query_tile, pq=pqp,
+        mixed=mixed, fused=fused)
+    return _snn.csr_finalize(index, indptr, ids, dh, xq, qsq, counts,
+                             return_distance, native)

@@ -1,0 +1,88 @@
+"""The padding contract of the kernels, and the CSR capacity ladder.
+
+The counterpart of ``repro.kernels.ops``, with the same contract:
+
+* database rows pad to a multiple of the row block ``bn`` with the +BIG
+  sentinel in alpha and half norm (no window or threshold keeps them);
+* features pad with zeros to a multiple of ``lane`` = 128 (dot-neutral);
+* queries pad to a multiple of the query tile (or to the geometric bucket
+  ladder) with ``r = thresh = -BIG``, which matches nothing.
+
+Database padding runs on the tensors' own device; queries are prepared and
+padded on the host in numpy, as in the reference, and the engine moves them
+to the device once per batch.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ref import BIG
+
+
+def pad_database(xs, alphas, half_norms, bn: int = 512, lane: int = 128):
+    """Pad rows to a ``bn`` multiple (alpha/half-norm = +BIG) and features to
+    a ``lane`` multiple.  Returns (xs, alphas, half_norms, n, d) as float32
+    tensors on the inputs' device."""
+    n, d = xs.shape
+    n_pad = n + ((-n) % bn if n else bn)
+    d_pad = d + (-d) % lane
+    dev = xs.device
+    xs_p = torch.zeros((n_pad, d_pad), dtype=torch.float32, device=dev)
+    xs_p[:n, :d] = xs
+    al_p = torch.full((n_pad,), BIG, dtype=torch.float32, device=dev)
+    al_p[:n] = alphas
+    hn_p = torch.full((n_pad,), BIG, dtype=torch.float32, device=dev)
+    hn_p[:n] = half_norms
+    return xs_p, al_p, hn_p, n, d
+
+
+def pad_components(p, to: int, value: float = 0.0) -> np.ndarray:
+    """Pad the column axis of a (ke, x) host projection block to ``to``.
+
+    Query projections pad with 0 (their padded rows carry r = -BIG, so the
+    box test is moot there); database projections pad with +BIG.
+    """
+    p = np.asarray(p, np.float32)
+    return np.pad(p, ((0, 0), (0, to - p.shape[1])),
+                  constant_values=np.float32(value))
+
+
+def bucket_rows(m: int, tq: int = 128) -> int:
+    """The geometric query-bucket ladder: smallest ``tq * 2^i >= m``."""
+    cap = tq
+    while cap < m:
+        cap *= 2
+    return cap
+
+
+def pad_queries(q, aq, r, thresh, tq: int = 128, lane: int = 128,
+                bucket: bool = False):
+    """Pad host query operands to a ``tq`` multiple (or the bucket ladder).
+
+    Padding queries get ``r = thresh = -BIG`` and match nothing.  Returns
+    (q, aq, r, thresh, m) as float32 numpy arrays.
+    """
+    q, aq, r, thresh = (np.asarray(a, np.float32) for a in (q, aq, r, thresh))
+    m, d = q.shape
+    mpad = (bucket_rows(m, tq) - m) if bucket else ((-m) % tq if m else tq)
+    dpad = (-d) % lane
+    q = np.pad(q, ((0, mpad), (0, dpad)))
+    aq = np.pad(aq, (0, mpad))
+    r = np.pad(r, (0, mpad), constant_values=np.float32(-BIG))
+    thresh = np.pad(thresh, (0, mpad), constant_values=np.float32(-BIG))
+    return q, aq, r, thresh, m
+
+
+def round_up(x: int, mult: int) -> int:
+    return max(((x + mult - 1) // mult) * mult, mult)
+
+
+def csr_capacity(total_neighbors: int, lane: int = 128) -> int:
+    """Flat CSR capacity: total + 1 trash slot, rounded up to a power of two
+    of whole lanes, so a stream of result sizes uses O(log nnz) shapes."""
+    need = round_up(total_neighbors + 1, lane)
+    cap = lane
+    while cap < need:
+        cap *= 2
+    return cap

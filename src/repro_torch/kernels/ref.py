@@ -1,0 +1,194 @@
+"""Plain PyTorch versions of the kernels, and the predicate formulas.
+
+The counterpart of ``repro.kernels.ref``: the same constants, the same
+float32 expression trees, on torch tensors.  The kernel dispatcher
+(`kernels.registry`) sends CPU tensors here; CUDA tensors go to the
+hand-written kernels of `kernels.snn_query`, which evaluate the same
+formulas term for term.  Only a comparison of kernel against plain version
+calls these functions on CUDA tensors directly.
+
+Like the kernels, every function takes per-query radius/threshold vectors
+``r``/``thresh``; there is no scalar-radius form at this layer.
+
+* ``box_mask`` is the k-dim Cauchy-Schwarz box bound: for any direction v
+  with ``||v|| <= 1``, ``||x - q|| <= r`` implies ``|<x, v> - <q, v>| <= r``,
+  so extra projections prune pairs without ever dropping a true neighbour.
+* ``mixed_keep_ref`` is the bf16 margin certificate: the count pass may take
+  its products in bfloat16 as long as every pair whose bf16 half distance
+  lands within ``MIX_EPS * ||x|| * ||q||`` of the threshold is re-verified
+  with the exact float32 predicate, so mixed counts equal float32 counts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BIG = float(np.finfo(np.float32).max / 8)
+
+# Box-bound slack, relative to ||x|| + ||q|| + r (see repro.kernels.ref: it
+# covers the float32 rounding of the projections and of the predicate, so the
+# box may only ever be loose, never clipping).
+BOX_EPS = 1e-2
+
+# bf16 margin, relative to ||x|| * ||q||: about 4x the 2^-8 error of rounding
+# both operands to bfloat16, up to d ~ 1e5.
+MIX_EPS = 1.0 / 64.0
+
+
+def norm_scales(r, thresh, half_norms):
+    """(xnorm (n,), qnorm (m,)) recovered from the predicate operands.
+
+    ``qsq = r^2 - 2*thresh`` inverts `core.snn.prepare_query_predicates`.
+    Padding queries (r = thresh = -BIG) overflow to qnorm = +inf, which only
+    widens their slack; their alpha window rejects everything anyway.
+    """
+    xn = torch.sqrt(torch.clamp_min(2.0 * half_norms, 0.0))
+    qn = torch.sqrt(torch.clamp_min(r * r - 2.0 * thresh, 0.0))
+    return xn, qn
+
+
+def box_mask(pq, px, r, thresh, half_norms):
+    """k-dim box test -> (m, n) bool mask; True means "may be a neighbour".
+
+    ``pq`` (ke, m) / ``px`` (ke, n) are the EXTRA projection components
+    (component 0 is the alpha window the caller already applied).
+    """
+    xn, qn = norm_scales(r, thresh, half_norms)
+    lim = r[:, None] + BOX_EPS * (xn[None, :] + qn[:, None]
+                                  + torch.abs(r)[:, None])
+    ok = torch.abs(px[0][None, :] - pq[0][:, None]) <= lim
+    for c in range(1, pq.shape[0]):
+        ok = ok & (torch.abs(px[c][None, :] - pq[c][:, None]) <= lim)
+    return ok
+
+
+def _bf16_dhalf(q, xs, half_norms):
+    """Half distances with both operands rounded to bfloat16 and the products
+    summed in float32 (bf16 x bf16 products are exact in float32)."""
+    q16 = q.to(torch.bfloat16).to(torch.float32)
+    x16 = xs.to(torch.bfloat16).to(torch.float32)
+    return half_norms[None, :] - q16 @ x16.T
+
+
+def mixed_keep_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                   pq=None, px=None):
+    """(m, n) keep mask of the bf16 count pass under the margin certificate.
+
+    Equal to the float32 mask: pairs at least ``margin`` below the threshold
+    in bf16 are in, at least ``margin`` above are out, and the band between
+    is re-verified with the exact float32 predicate.
+    """
+    geom = torch.abs(alphas[None, :] - aq[:, None]) <= r[:, None]
+    if pq is not None:
+        geom = geom & box_mask(pq, px, r, thresh, half_norms)
+    dh16 = _bf16_dhalf(q, xs, half_norms)
+    xn, qn = norm_scales(r, thresh, half_norms)
+    margin = MIX_EPS * xn[None, :] * qn[:, None]
+    thc = thresh[:, None]
+    definite = geom & (dh16 <= thc - margin)
+    band = geom & (dh16 > thc - margin) & (dh16 <= thc + margin)
+    dh32 = half_norms[None, :] - q @ xs.T
+    return definite | (band & (dh32 <= thc))
+
+
+def snn_filter_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                   pq=None, px=None):
+    """Masked half distances (m, n): ``hn - q.x`` where the pair is kept,
+    +BIG elsewhere.  ``pq``/``px`` (both given or both None) add the box."""
+    dhalf = half_norms[None, :] - q @ xs.T
+    inwin = torch.abs(alphas[None, :] - aq[:, None]) <= r[:, None]
+    keep = inwin & (dhalf <= thresh[:, None])
+    if pq is not None:
+        keep = keep & box_mask(pq, px, r, thresh, half_norms)
+    return torch.where(keep, dhalf, torch.full_like(dhalf, BIG))
+
+
+def _flatten_stacked(xs, alphas, half_norms, px):
+    """A (S, n_pad, d) stack as one (S*n_pad, d) database (pack-flat rows);
+    ``px`` (S, ke, n_pad) becomes (ke, S*n_pad)."""
+    flat = (xs.reshape(-1, xs.shape[-1]), alphas.reshape(-1),
+            half_norms.reshape(-1))
+    if px is None:
+        return flat + (None,)
+    return flat + (px.permute(1, 0, 2).reshape(px.shape[1], -1),)
+
+
+def snn_count_stacked_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                          pq=None, px=None, *, bn: int = 512,
+                          mixed: bool = False, with_partials: bool = False):
+    """Plain version of `kernels.snn_query.snn_count_stacked`.
+
+    Returns per-(segment, query) survivor counts (S, m) int32, and with
+    ``with_partials`` also the (S, m, n_pad // bn) per-row-block counts.
+    The stack is flattened into one database, so the pass is one product.
+    """
+    S, n_pad, _ = xs.shape
+    m = q.shape[0]
+    xf, alf, hnf, pxf = _flatten_stacked(xs, alphas, half_norms, px)
+    if mixed:
+        keep = mixed_keep_ref(q, aq, r, thresh, xf, alf, hnf, pq, pxf)
+    else:
+        keep = snn_filter_ref(q, aq, r, thresh, xf, alf, hnf, pq, pxf) < BIG
+    per = keep.reshape(m, S, n_pad).sum(dim=2, dtype=torch.int32).T
+    per = per.contiguous()
+    if not with_partials:
+        return per
+    partials = keep.reshape(m, S, n_pad // bn, bn).sum(dim=3,
+                                                       dtype=torch.int32)
+    return per, partials.permute(1, 0, 2).contiguous()
+
+
+def stacked_prefix(per):
+    """Prefix sums of the packed engine, on the tensors' own device.
+
+    ``per`` is (S, m) int32.  Returns (counts (m,), indptr (m+1,),
+    offsets (S, m)), all int32: ``offsets[s, k]`` is the flat CSR slot of
+    segment s's first survivor for query k, the global row base plus the
+    segment-axis exclusive prefix.
+    """
+    counts = per.sum(dim=0, dtype=torch.int32)
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=per.device),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    offsets = indptr[:-1][None, :] + (torch.cumsum(per, 0, dtype=torch.int32)
+                                      - per)
+    return counts, indptr, offsets
+
+
+def snn_compact_stacked_ref(q, aq, r, thresh, offsets, xs, alphas,
+                            half_norms, pq=None, px=None, *, nnz: int,
+                            partials=None):
+    """Plain version of `kernels.snn_query.snn_compact_stacked`.
+
+    Returns flat (idx (nnz,) int32 pack-flat ids ``s * n_pad + row``,
+    dhalf (nnz,) float32).  Survivor k of segment s for query i lands in slot
+    ``offsets[s, i] + (its rank in that row)``; unwritten slots and the
+    trailing trash slot hold -1 / +BIG.  When ``total + 1 > nnz`` nothing is
+    written.  ``partials`` (pass 1's per-row-block counts, which spare the
+    kernel a recount) is accepted for the same signature and not needed here.
+    """
+    del partials
+    S, n_pad, _ = xs.shape
+    m = q.shape[0]
+    dev = q.device
+    out_idx = torch.full((nnz,), -1, dtype=torch.int32, device=dev)
+    out_dh = torch.full((nnz,), BIG, dtype=torch.float32, device=dev)
+    xf, alf, hnf, pxf = _flatten_stacked(xs, alphas, half_norms, px)
+    dh = snn_filter_ref(q, aq, r, thresh, xf, alf, hnf, pq, pxf)
+    rows, cols = torch.nonzero(dh < BIG, as_tuple=True)  # row-major order
+    if rows.numel() + 1 > nnz:
+        return out_idx, out_dh
+    if rows.numel() == 0:
+        return out_idx, out_dh
+    # rank of each survivor within its (query, segment) group: survivors of
+    # a group are contiguous in row-major order
+    seg = torch.div(cols, n_pad, rounding_mode="floor")
+    group = rows * S + seg
+    pos = torch.arange(group.numel(), device=dev)
+    first = torch.ones_like(group, dtype=torch.bool)
+    first[1:] = group[1:] != group[:-1]
+    start = torch.cummax(torch.where(first, pos, torch.zeros_like(pos)),
+                         dim=0).values
+    slots = offsets[seg, rows].to(torch.int64) + (pos - start)
+    out_idx[slots] = cols.to(torch.int32)
+    out_dh[slots] = dh[rows, cols]
+    return out_idx, out_dh

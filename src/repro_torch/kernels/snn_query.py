@@ -1,0 +1,252 @@
+"""The hand-written CUDA kernels of the query hot loop, and their wrappers.
+
+Two kernels, both in ``csrc/snn_query.cu`` on the shared predicate of
+``csrc/snn_predicate.cuh``:
+
+* `snn_count_stacked` replaces the Pallas TPU kernel
+  ``repro.kernels.snn_query.snn_count_stacked``: per-(segment, query)
+  survivor counts over a (S, n_pad, d_pad) stack of segments, with the
+  optional bf16 count pass (``mixed=True``) under the margin certificate.
+* `snn_compact_stacked` replaces ``repro.kernels.snn_query.
+  snn_compact_stacked``: it re-runs the predicate and writes every survivor
+  as (pack-flat id ``s * n_pad + row``, dhalf) into its flat CSR slot.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, into
+``_build/`` beside this file (a directory the repository ignores), and bound
+with ctypes through a plain C interface.  Each wrapper checks its operands,
+allocates its outputs with torch, launches on the current stream, raises if
+the launch fails, and counts its launches in its ``launches`` attribute.
+The wrappers take CUDA tensors only; `kernels.registry` sends CPU tensors to
+the plain versions in `kernels.ref`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .ref import BIG
+
+SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("snn_query.cu",)
+HEADERS = ("snn_predicate.cuh",)
+# no fast math: the sentinels need IEEE inf/NaN, and --fmad=false leaves the
+# explicit fmaf of the dot products as the only contracted multiply-adds
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+ROW_TILE = 128    # rows per sub-tile (csrc: kTR); bn must be a multiple
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_build_log = ""
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build() -> Path:
+    """Compile the kernels if this exact source has not been built yet, and
+    return the shared library's path.  The file name carries a hash of the
+    sources and flags, so an edited source is rebuilt."""
+    global _build_log
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((SOURCE_DIR / name).read_bytes())
+    lib = BUILD_DIR / f"snn_query-{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(SOURCE_DIR / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_build_log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log() -> str:
+    """What nvcc printed (registers, shared memory, spills) for the last
+    build this process ran; empty when the library was already built."""
+    return _build_log
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            operands = [ptr] * 9 + [i32] * 6
+            lib.snn_count_stacked.argtypes = operands + [i32, ptr, ptr, ptr]
+            lib.snn_count_stacked.restype = i32
+            lib.snn_compact_stacked.argtypes = operands + [ptr, ptr, i32, ptr,
+                                                           ptr, ptr]
+            lib.snn_compact_stacked.restype = i32
+            _lib = lib
+    return _lib
+
+
+def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
+    """Validate the kernels' operands; returns (S, m_pad, n_pad, d_pad, ke)."""
+    if not (isinstance(xs, torch.Tensor) and xs.is_cuda):
+        raise ValueError("the CUDA kernels take CUDA tensors; "
+                         f"got {getattr(xs, 'device', type(xs))}")
+    if (pq is None) != (px is None):
+        raise ValueError("pq and px are given together or not at all")
+    named = dict(q=q, aq=aq, r=r, thresh=thresh, xs=xs, alphas=alphas,
+                 half_norms=half_norms)
+    if pq is not None:
+        named.update(pq=pq, px=px)
+    for name, t in named.items():
+        if t.device != xs.device:
+            raise ValueError(f"{name} is on {t.device}, xs on {xs.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (S, n_pad, d_pad), got {tuple(xs.shape)}")
+    S, n_pad, d_pad = xs.shape
+    m_pad = q.shape[0]
+    ke = 0 if pq is None else pq.shape[0]
+    want = dict(q=(m_pad, d_pad), aq=(m_pad,), r=(m_pad,), thresh=(m_pad,),
+                alphas=(S, n_pad), half_norms=(S, n_pad))
+    if pq is not None:
+        want.update(pq=(ke, m_pad), px=(S, ke, n_pad))
+    for name, shape in want.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(named[name].shape)}, "
+                             f"expected {shape}")
+    if bn <= 0 or bn % ROW_TILE or n_pad % bn:
+        raise ValueError(f"bn={bn} must be a positive multiple of {ROW_TILE} "
+                         f"that divides n_pad={n_pad}")
+    if d_pad % 32:
+        raise ValueError(f"d_pad={d_pad} must be a multiple of 32")
+    if S * n_pad >= 2 ** 31 or n_pad // bn > 65535 or S > 65535:
+        raise ValueError(f"stack (S={S}, n_pad={n_pad}) exceeds the kernels' "
+                         "int32 pack-flat ids or grid limits")
+    return S, m_pad, n_pad, d_pad, ke
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def snn_count_stacked(q, aq, r, thresh, xs, alphas, half_norms,
+                      pq=None, px=None, *, bn: int = 512,
+                      mixed: bool = False, with_partials: bool = False):
+    """Per-(segment, query) survivor counts (S, m_pad) int32 in one launch.
+
+    ``xs`` (S, n_pad, d_pad) and ``alphas``/``half_norms`` (S, n_pad) are a
+    `core.engine.SegmentPack`'s stacked slabs; ``pq`` (ke, m_pad) / ``px``
+    (S, ke, n_pad) the optional extra projections of the box prune.
+    ``mixed=True`` counts with bf16 products under the margin certificate
+    (the counts equal the float32 counts).  ``with_partials`` also returns
+    the (S, m_pad, n_pad // bn) per-row-block counts `snn_compact_stacked`
+    takes to place its writes.
+    """
+    S, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn)
+    dev = xs.device
+    counts = torch.zeros((S, m_pad), dtype=torch.int32, device=dev)
+    partials = None
+    if with_partials:
+        partials = torch.empty((S, m_pad, n_pad // bn), dtype=torch.int32,
+                               device=dev)
+    if S and m_pad and n_pad:
+        lib = _library()
+        rc = lib.snn_count_stacked(
+            _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
+            _ptr(half_norms), _ptr(pq), _ptr(px), S, m_pad, n_pad, d_pad, ke,
+            bn, int(bool(mixed)), _ptr(counts), _ptr(partials), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"snn_count_stacked launch failed: CUDA error "
+                               f"{rc}")
+        snn_count_stacked.launches += 1
+    elif partials is not None:
+        partials.zero_()
+    return (counts, partials) if with_partials else counts
+
+
+snn_count_stacked.launches = 0
+
+
+def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
+                        pq=None, px=None, *, nnz: int, bn: int = 512,
+                        partials=None):
+    """Scatter the survivors of a segment stack into flat CSR, in one launch.
+
+    ``offsets`` (S, m_pad) int32 is the flat slot of segment s's first
+    survivor for query k (`ref.stacked_prefix`); ``nnz`` is the flat
+    capacity including one trailing trash slot.  Returns (idx (nnz,) int32
+    pack-flat ids, dhalf (nnz,) float32) with -1 / +BIG in unwritten slots
+    and in the trash slot; within each CSR row the survivors ascend in
+    (segment, row) order.  When ``total + 1 > nnz`` nothing is written, and
+    the kernel reads ``total`` on the device, so no host sync is needed
+    between the passes.  ``partials`` is the count pass's per-row-block
+    output; without it this wrapper launches the count kernel to get it.
+    """
+    S, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn)
+    dev = xs.device
+    nb = n_pad // bn if bn else 0
+    if offsets.device != dev or offsets.dtype != torch.int32 \
+            or tuple(offsets.shape) != (S, m_pad):
+        raise ValueError(f"offsets must be int32 ({S}, {m_pad}) on {dev}")
+    if int(nnz) < 1:
+        raise ValueError(f"nnz={nnz} must leave room for the trash slot")
+    idx = torch.full((nnz,), -1, dtype=torch.int32, device=dev)
+    dh = torch.full((nnz,), BIG, dtype=torch.float32, device=dev)
+    if not (S and m_pad and n_pad):
+        return idx, dh
+    if partials is None:
+        _, partials = snn_count_stacked(q, aq, r, thresh, xs, alphas,
+                                        half_norms, pq, px, bn=bn,
+                                        with_partials=True)
+    if partials.device != dev or partials.dtype != torch.int32 \
+            or tuple(partials.shape) != (S, m_pad, nb):
+        raise ValueError(f"partials must be int32 ({S}, {m_pad}, {nb}) "
+                         f"on {dev}")
+    bases = offsets[:, :, None] + (torch.cumsum(partials, 2, dtype=torch.int32)
+                                   - partials)
+    total = partials.sum(dtype=torch.int32)
+    lib = _library()
+    rc = lib.snn_compact_stacked(
+        _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
+        _ptr(half_norms), _ptr(pq), _ptr(px), S, m_pad, n_pad, d_pad, ke, bn,
+        _ptr(bases), _ptr(total), int(nnz), _ptr(idx), _ptr(dh),
+        _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"snn_compact_stacked launch failed: CUDA error "
+                           f"{rc}")
+    snn_compact_stacked.launches += 1
+    return idx, dh
+
+
+snn_compact_stacked.launches = 0
+
+
+def reset_launch_counts() -> None:
+    snn_count_stacked.launches = 0
+    snn_compact_stacked.launches = 0

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels and its main path on the card.
+
+Every test here needs a CUDA device: each is marked ``cuda`` and skips
+without one.  The file imports nothing of JAX, so it runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Inputs are integer lattices, on which every product and threshold is exact
+in float32: kernels and plain versions must agree with zero tolerance, and
+the main path on the card must equal the same path on the CPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import join as tjoin
+from repro_torch.core import snn as tsnn
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import snn_query as tsq
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _lattice_stack(seed, ke, S=2, n_pad=512, d=5, d_pad=128, m=90,
+                   m_pad=128):
+    """A segment stack of lattice points (alpha = coordinate 0, the extra
+    projections = coordinates 1..ke) and padded lattice queries."""
+    rng = np.random.default_rng(seed)
+    big = np.float32(tref.BIG)
+    xs = np.zeros((S, n_pad, d_pad), np.float32)
+    al = np.full((S, n_pad), big, np.float32)
+    hn = np.full((S, n_pad), big, np.float32)
+    px = np.full((S, ke, n_pad), big, np.float32)
+    for s in range(S):
+        n_s = n_pad - 70 * (s + 1)
+        pts = rng.integers(-3, 4, size=(n_s, d)).astype(np.float32)
+        pts[:, 0] += 5 * s
+        pts = pts[np.argsort(pts[:, 0], kind="stable")]
+        xs[s, :n_s, :d] = pts
+        al[s, :n_s] = pts[:, 0]
+        hn[s, :n_s] = 0.5 * np.sum(pts * pts, axis=1)
+        px[s, :, :n_s] = pts[:, 1:1 + ke].T
+    qi = rng.integers(-3, 4, size=(m, d)).astype(np.float32)
+    qi[:, 0] += rng.integers(0, 6, size=m)
+    r = rng.choice([1.0, 1.5, 2.0, 2.5, 3.0], size=m).astype(np.float32)
+    th = ((r * r - np.sum(qi * qi, axis=1)) / 2.0).astype(np.float32)
+    q, aq, r, th, _ = tops.pad_queries(qi, qi[:, 0], r, th, tq=m_pad)
+    pq = tops.pad_components(qi[:, 1:1 + ke].T, m_pad)
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+            for a in (q, aq, r, th, xs, al, hn, pq if ke else None,
+                      px if ke else None)]
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cuda_kernels_match_plain_versions(card, ke, mixed):
+    ops = [None if t is None else t.to(card)
+           for t in _lattice_stack(31 + ke, ke)]
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    per, part = tsq.snn_count_stacked(*ops, bn=128, mixed=mixed,
+                                      with_partials=True)
+    want, want_part = tref.snn_count_stacked_ref(*ops, bn=128,
+                                                 with_partials=True)
+    assert int(want.sum()) > 0
+    assert torch.equal(per, want) and torch.equal(part, want_part)
+    _, _, off = tref.stacked_prefix(want)
+    total = int(want.sum())
+    nnz = tops.csr_capacity(total)
+    ki, kd = tsq.snn_compact_stacked(q, aq, r, th, off, xs, al, hn, pq, px,
+                                     nnz=nnz, bn=128, partials=part)
+    pi, pd = tref.snn_compact_stacked_ref(q, aq, r, th, off, xs, al, hn, pq,
+                                          px, nnz=nnz)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    # the overflow guard: a capacity without room writes nothing
+    oi, od = tsq.snn_compact_stacked(q, aq, r, th, off, xs, al, hn, pq, px,
+                                     nnz=total, bn=128, partials=part)
+    assert bool((oi == -1).all()) and bool((od == tref.BIG).all())
+
+
+def test_main_path_on_the_card_equals_the_cpu(card):
+    rng = np.random.default_rng(2)
+    pts = rng.integers(-5, 6, size=(1500, 6)).astype(np.float32)
+    x = np.concatenate([pts, -pts])
+    q = rng.integers(-5, 6, size=(70, 6)).astype(np.float32)
+    radius = rng.choice([2.0, 3.0, 4.0], size=70)
+    cpu_idx = tsnn.build_index(x, device="cpu")
+    idx = tsnn.index_from_arrays(cpu_idx.mu, cpu_idx.v1, cpu_idx.xs.numpy(),
+                                 cpu_idx.alphas.numpy(),
+                                 cpu_idx.half_norms.numpy(), cpu_idx.order,
+                                 vs=cpu_idx.vs, projs=cpu_idx.projs.numpy())
+    assert idx.xs.is_cuda
+    want = tsnn.query_radius_csr(cpu_idx, q, radius, device="cpu")
+    tsq.reset_launch_counts()
+    runs = [tsnn.query_radius_csr(idx, q, radius),
+            tsnn.query_radius_csr(idx, q, radius),             # fused
+            tsnn.query_radius_csr(idx, q, radius, mixed=True)]
+    assert tsq.snn_count_stacked.launches > 0
+    assert tsq.snn_compact_stacked.launches > 0
+    for got in runs:
+        np.testing.assert_array_equal(got.indptr, want.indptr)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.distances, want.distances)
+    np.testing.assert_array_equal(tjoin.query_counts(idx, q, radius),
+                                  np.diff(want.indptr))
