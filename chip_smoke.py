@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, into
-the ignored ``src/repro_torch/kernels/_build``), then runs three phases and
-prints one ``ok``/``FAIL``/``--`` line per check or note:
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
+source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
+then runs four phases and prints one ``ok``/``FAIL``/``--`` line per check
+or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
-   lattice inputs where every product is exact: counts equal, flat ids
-   equal, dhalf bit-equal, sentinels in unwritten and trash slots, and the
-   overflow guard writing nothing;
+   lattice inputs where every product is exact: the stacked count and
+   compact, the single-segment count, compact and filter; counts equal,
+   flat ids equal, dhalf bit-equal, sentinels in unwritten and trash slots,
+   the overflow guard writing nothing;
 2. the port's main path at full size, on the SIFT-1M deployment of
    ``benchmarks/bench_table45_realworld.py`` (n = 1,000,000, d = 128,
    euclidean; data from that bench's stand-in recipe, seeded): ``build_index``
    on the card, ``query_radius_csr`` twice (classic, then fused),
-   ``query_counts`` and ``mixed=True``, with the kernels' launch counts,
-   and 64 sampled queries held against a float64 brute force;
-3. each kernel's time at the main path's shapes beside its plain version,
-   its bound and ``torch.matmul`` of the same product.
+   ``query_counts`` and ``mixed=True``, with the kernels' launch counts, 64
+   sampled queries held against a float64 brute force, and the looped
+   executor (``packed=False``) bit-identical to the packed one;
+2b. the eps-neighbour graph and DBSCAN on the same index: the plain and
+   the symmetric self-join at ``query_chunk=2048`` and 512-row segments
+   (eps giving about 30 neighbours a point), DBSCAN labels of both, sampled
+   rows against ``query_radius_csr`` and a float64 brute force, the rows
+   where the two graphs differ against the float64 brute force, the
+   stacked kernels against their plain versions (and timed) on one graph
+   chunk's live stack, and the looped executor over 8 sampled query chunks
+   bit-identical to the packed one;
+3. each kernel's time at the shapes its path gives it beside its plain
+   version, its bound and one PyTorch call of the same product.
 
 Exits non-zero on any failed check, and without a CUDA device.  The last
 lines are the kernel table as JSON, the card's name and power limit, and
@@ -26,6 +37,7 @@ lines are the kernel table as JSON, the card's name and power limit, and
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -40,6 +52,15 @@ SEED = 0
 N_ROWS, DIM, N_QUERIES = 1_000_000, 128, 1024
 TARGET_NEIGHBOURS = 1000
 N_ORACLE = 64
+# the graph phase: neighbours a point, DBSCAN's min_samples, the graph
+# builder's schedule, and the rows and chunks it samples
+GRAPH_NEIGHBOURS = 30
+MIN_SAMPLES = 5
+QUERY_CHUNK, SEGMENT_ROWS = 2048, 512
+N_GRAPH_ROWS, N_GRAPH_ORACLE, N_LOOPED_CHUNKS = 256, 64, 8
+# rows in which the plain and the symmetric graph may differ, each checked
+# against the float64 brute force
+MAX_DIFF_ROWS = 1024
 # NVIDIA's data sheet for the H100 SXM at its 700 W limit: FP32 outside the
 # tensor cores (FLOP/s) and device memory (bytes/s)
 FP32_PEAK = 67e12
@@ -178,20 +199,78 @@ def phase_kernels(torch, chk: Checks, K, ref, ops_mod) -> None:
         chk.ok(bool((k_idx == -1).all()) and bool((k_dh == ref.BIG).all()),
                f"compact ke={ke}: overflow guard (nnz={total} < total + 1) "
                f"writes nothing")
+        k_per = K.snn_count_stacked(*args, xs, al, hn, pq, px, bn=bn)
+        for s in range(xs.shape[0]):
+            seg = (xs[s].contiguous(), al[s].contiguous(), hn[s].contiguous(),
+                   pq, None if px is None else px[s].contiguous())
+            single_segment_checks(torch, chk, K, ref, ops_mod, args, seg,
+                                  k_per[s], f"ke={ke} segment {s}")
+
+
+def single_segment_checks(torch, chk: Checks, K, ref, ops_mod, args, seg,
+                          stacked_row, tag: str) -> None:
+    """snn_count (mixed off and on), snn_compact and snn_filter on one
+    segment of the lattice stack against their plain versions."""
+    bn = 512
+    xs, al, hn, pq, px = seg
+    ops = (*args, xs, al, hn, pq, px)
+    p_cnt, p_part = ref.snn_count_ref(*ops, bn=bn, with_partials=True)
+    for mixed in (False, True):
+        k_cnt, k_part = K.snn_count(*ops, bn=bn, mixed=mixed,
+                                    with_partials=True)
+        pm = ref.snn_count_ref(*ops, bn=bn, mixed=mixed)
+        torch.cuda.synchronize()
+        chk.ok(torch.equal(k_cnt, pm) and torch.equal(pm, p_cnt)
+               and torch.equal(k_part, p_part),
+               f"snn_count {tag} mixed={mixed}: counts and per-block "
+               f"partials == plain ({int(p_cnt.sum())} survivors)")
+        if not mixed:
+            chk.ok(torch.equal(k_cnt, stacked_row),
+                   f"snn_count {tag}: == its row of snn_count_stacked")
+    total = int(p_cnt.sum())
+    lead = 3   # offsets start at 3: the first slots stay unwritten
+    off = torch.cumsum(p_cnt, 0, dtype=torch.int32) - p_cnt + lead
+    nnz = ops_mod.csr_capacity(total + lead)
+    p_idx, p_dh = ref.snn_compact_ref(*args, off, xs, al, hn, pq, px,
+                                      nnz=nnz)
+    for handed in (True, False):
+        part = K.snn_count(*ops, bn=bn, with_partials=True)[1] \
+            if handed else None
+        k_idx, k_dh = K.snn_compact(*args, off, xs, al, hn, pq, px, nnz=nnz,
+                                    bn=bn, partials=part)
+        torch.cuda.synchronize()
+        t2 = f"snn_compact {tag} partials={'handed' if handed else 'recounted'}"
+        chk.ok(torch.equal(k_idx, p_idx), f"{t2}: idx == plain")
+        chk.ok(torch.equal(k_dh.view(torch.int32), p_dh.view(torch.int32)),
+               f"{t2}: dhalf bit-equal to plain")
+        unwritten = torch.cat([k_idx[:lead], k_idx[lead + total:]])
+        unwritten_dh = torch.cat([k_dh[:lead], k_dh[lead + total:]])
+        chk.ok(bool((unwritten == -1).all())
+               and bool((unwritten_dh == ref.BIG).all())
+               and bool((k_idx[lead:lead + total] >= 0).all()),
+               f"{t2}: -1/+BIG in the {nnz - total} unwritten and trash "
+               "slots, every data slot written")
+    k_f = K.snn_filter(*ops, bn=bn)
+    p_f = ref.snn_filter_ref(*ops)
+    torch.cuda.synchronize()
+    chk.ok(torch.equal(k_f.view(torch.int32), p_f.view(torch.int32))
+           and int((k_f < ref.BIG).sum()) == total,
+           f"snn_filter {tag}: bit-equal to plain, {total} finite entries")
 
 
 # --------------------------------------------------------------------------- #
 # phase 2                                                                      #
 # --------------------------------------------------------------------------- #
-def calibrate_radius(torch, index, q: np.ndarray) -> float:
-    """A radius that gives about TARGET_NEIGHBOURS neighbours per query on
-    average over 64 queries: the matching quantile of their pooled
-    distances to every row."""
+def calibrate_radius(torch, index, q: np.ndarray,
+                     target: int = TARGET_NEIGHBOURS) -> float:
+    """A radius that gives about ``target`` neighbours per query on average
+    over 64 queries: the matching quantile of their pooled distances to
+    every row."""
     xq, _ = index.prepare_queries(q[:64], 1.0)
     qd = torch.from_numpy(xq).to(DEVICE)
     d2 = (2.0 * index.half_norms[:, None] - 2.0 * (index.xs @ qd.T)
           + (qd * qd).sum(1)[None, :])
-    kth = torch.kthvalue(d2.reshape(-1).cpu(), TARGET_NEIGHBOURS * 64).values
+    kth = torch.kthvalue(d2.reshape(-1).cpu(), target * 64).values
     return float(np.sqrt(max(float(kth), 0.0)))
 
 
@@ -216,7 +295,7 @@ def compare_with_oracle(index, res, rows, xs64, hn64, q, radius):
     inv[index.order] = np.arange(index.order.size)
     band = equal = bad = 0
     for k, i in enumerate(rows):
-        got = inv[res.row(i)[0]]                   # sorted positions
+        got = inv[res.indices[res.indptr[i]:res.indptr[i + 1]]]  # sorted pos.
         keep64 = dhalf64[:, k] <= thresh64[k]
         want = np.nonzero(keep64)[0]
         inband = np.abs(dhalf64[:, k] - thresh64[k]) <= tol[:, k]
@@ -256,23 +335,13 @@ def fused_split(torch, chk: Checks, index, q, radius, engine, snn) -> None:
              f"{1e3 * (t3 - t2):.3f} ms")
 
 
-def phase_main_path(torch, chk: Checks, K, snn, engine, join):
+def phase_main_path(torch, chk: Checks, K, snn, engine, join, clock):
     print(f"phase 2: main path, n={N_ROWS} d={DIM} m={N_QUERIES} "
           "(sift1m of bench_table45_realworld, euclidean)")
     t0 = time.perf_counter()
     x = sift_standin(N_ROWS, DIM, SEED)
     q = sift_standin(N_QUERIES, DIM, SEED + 1)
     chk.note(f"data made in {time.perf_counter() - t0:.2f} s (host, set-up)")
-
-    def clock(label, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        chk.note(f"{label}: {1e3 * (time.perf_counter() - t):.3f} ms "
-                 "(host clock, synchronized)")
-        return out
-
     index = clock("build_index", lambda: snn.build_index(x, device=DEVICE))
     chk.ok(index.device.type == torch.device(DEVICE).type,
            f"index built on {index.device}")
@@ -337,43 +406,267 @@ def phase_main_path(torch, chk: Checks, K, snn, engine, join):
     chk.ok(bad == 0, f"{N_ORACLE} sampled queries vs float64 brute force: "
            f"{equal} pairs equal, {band} pairs inside the rounding band "
            f"d*2^-23*(hn + sum|q x|) + 2^-23*|thresh| excluded, {bad} outside")
-    return index, q, radius, launches, xs64, hn64
+
+    # the looped executor on the same batch: its own path, its own counts
+    K.reset_launch_counts()
+    looped = clock("query_radius_csr packed=False (looped)",
+                   lambda: snn.query_radius_csr(index, q, radius,
+                                                packed=False, device=DEVICE))
+    looped_launches = {"snn_count": K.snn_count.launches,
+                       "snn_compact": K.snn_compact.launches}
+    chk.note(f"looped kernel launches {looped_launches}")
+    chk.ok(all(v > 0 for v in looped_launches.values())
+           and K.snn_count_stacked.launches == 0,
+           "packed=False ran the single-segment kernels, not the stacked")
+    chk.ok(np.array_equal(looped.indptr, classic.indptr)
+           and np.array_equal(looped.indices, classic.indices)
+           and np.array_equal(looped.distances.view(np.int64),
+                              classic.distances.view(np.int64)),
+           "looped (packed=False) bit-identical to packed: indptr, indices, "
+           "distances")
+    return index, x, q, radius, launches, looped_launches, xs64, hn64
+
+
+# --------------------------------------------------------------------------- #
+# phase 2b                                                                     #
+# --------------------------------------------------------------------------- #
+def graph_rows(g, rows: np.ndarray):
+    """(counts, concatenated indices) of the given rows of a CSR graph."""
+    counts = np.diff(g.indptr)[rows]
+    idx = np.concatenate([g.indices[g.indptr[i]:g.indptr[i + 1]]
+                          for i in rows])
+    return counts, idx
+
+
+def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
+                dbscan, ops_mod, index, x, xs64, hn64, clock):
+    n = index.n
+    print(f"phase 2b: eps-neighbour graph and DBSCAN, n={n} d={DIM} "
+          f"(same index), query_chunk={QUERY_CHUNK}, {SEGMENT_ROWS}-row "
+          "segments")
+    rng = np.random.default_rng(SEED + 3)
+    sample = rng.choice(n, 64, replace=False)
+    eps = calibrate_radius(torch, index, x[sample], GRAPH_NEIGHBOURS)
+    chk.note(f"eps {eps!r} (about {GRAPH_NEIGHBOURS} neighbours a point, "
+             "itself included, over 64 points)")
+    kw = dict(index=index, query_chunk=QUERY_CHUNK,
+              segment_rows=SEGMENT_ROWS, device=DEVICE)
+
+    K.reset_launch_counts()
+    stats = engine.DISPATCH_STATS
+    stats.reset()
+    plain = clock("build_neighbor_graph symmetric=False",
+                  lambda: graph.build_neighbor_graph(x, eps, **kw))
+    s_plain = stats.snapshot()
+    stats.reset()
+    sym = clock("build_neighbor_graph symmetric=True",
+                lambda: graph.build_neighbor_graph(x, eps, symmetric=True,
+                                                   **kw))
+    s_sym = stats.snapshot()
+    launches = {"snn_count_stacked": K.snn_count_stacked.launches,
+                "snn_compact_stacked": K.snn_compact_stacked.launches}
+    chk.note(f"graph nnz {plain.nnz} ({plain.nnz / n:.2f} a point); "
+             f"dispatch: plain {s_plain}, symmetric {s_sym}")
+    chk.note(f"graph kernel launches (both builds) {launches}")
+    chk.ok(all(v > 0 for v in launches.values())
+           and K.snn_count.launches == 0,
+           "the graph builds ran the stacked kernels")
+    chk.ok(plain.m == n and plain.indices.min() >= 0
+           and plain.indices.max() < n
+           and bool(np.all(np.diff(plain.indptr) >= 1)),
+           "graph rows cover every point, ids in range, no empty row")
+
+    # plain vs symmetric: pairs may differ only exactly at the boundary
+    n_diff, diff_rows = 0, np.zeros(0, np.int64)
+    if not (np.array_equal(plain.indptr, sym.indptr)
+            and np.array_equal(plain.indices, sym.indices)):
+        def keys(g):
+            rows_ = np.repeat(np.arange(n, dtype=np.int64), np.diff(g.indptr))
+            return rows_ * n + g.indices
+        diff = np.setxor1d(keys(plain), keys(sym))
+        n_diff, diff_rows = int(diff.size), np.unique(diff // n)
+    # both graphs' differing rows against the float64 brute force, every
+    # one of them: each pair in which either graph departs from it must lie
+    # in the band
+    band = bad = 0
+    for g in (plain, sym):
+        for b0 in range(0, min(diff_rows.size, MAX_DIFF_ROWS), N_GRAPH_ORACLE):
+            b_, _, x_ = compare_with_oracle(
+                index, g, diff_rows[b0:b0 + N_GRAPH_ORACLE], xs64, hn64, x,
+                eps)
+            band, bad = band + b_, bad + x_
+    chk.ok(bad == 0 and diff_rows.size <= MAX_DIFF_ROWS,
+           f"plain vs symmetric graph: {n_diff} pairs differ (expected 0), "
+           f"in {diff_rows.size} rows (at most {MAX_DIFF_ROWS} checked); in "
+           f"those rows {band} pairs where a graph departs from the float64 "
+           f"brute force, all inside the float32 rounding band")
+
+    t = time.perf_counter()
+    lab_plain = dbscan.labels_from_graph(plain, MIN_SAMPLES)
+    lab_sym = dbscan.labels_from_graph(sym, MIN_SAMPLES)
+    n_clusters = int(lab_plain.max()) + 1
+    chk.note(f"DBSCAN min_samples={MIN_SAMPLES}: {n_clusters} clusters, "
+             f"{int((lab_plain < 0).sum())} noise points, "
+             f"{int(np.bincount(lab_plain[lab_plain >= 0]).max()) if n_clusters else 0} "
+             f"in the largest; labels of both graphs in "
+             f"{time.perf_counter() - t:.2f} s (host)")
+    chk.ok(np.array_equal(lab_plain, lab_sym),
+           "DBSCAN labels of the plain and the symmetric graph identical")
+
+    rows = rng.choice(n, N_GRAPH_ROWS, replace=False)
+    t = time.perf_counter()
+    same = 0
+    for i in rows:
+        res = snn.query_radius_csr(index, x[i:i + 1], eps,
+                                   return_distance=False, device=DEVICE)
+        same += int(np.array_equal(res.indices,
+                                   plain.indices[plain.indptr[i]:
+                                                 plain.indptr[i + 1]]))
+    chk.ok(same == N_GRAPH_ROWS,
+           f"{same} of {N_GRAPH_ROWS} sampled graph rows bit-identical to "
+           f"query_radius_csr(index, x[i:i+1], eps) "
+           f"({time.perf_counter() - t:.2f} s)")
+    orows = rows[:N_GRAPH_ORACLE]
+    band, equal, bad = compare_with_oracle(index, plain, orows, xs64, hn64,
+                                           x, eps)
+    chk.ok(bad == 0, f"{N_GRAPH_ORACLE} sampled graph rows vs float64 brute "
+           f"force: {equal} pairs equal, {band} inside the rounding band, "
+           f"{bad} outside")
+
+    # the looped executor over sampled chunks of the sorted order; the
+    # chunks stay aligned to the graph's own, so each is one graph chunk
+    n_chunks = -(-n // QUERY_CHUNK)
+    picks = np.unique(np.linspace(0, n_chunks - 1, N_LOOPED_CHUNKS)
+                      .round().astype(np.int64))
+    srows = np.concatenate([np.arange(c * QUERY_CHUNK,
+                                      min((c + 1) * QUERY_CHUNK, n))
+                            for c in picks])
+    xq, aq, r, th, _ = snn.prepare_query_predicates(
+        index, x[index.order[srows]], eps)
+    segments = engine.segments_from_index(index, rows_per_segment=SEGMENT_ROWS,
+                                          block=512, device=DEVICE)
+    jkw = dict(query_chunk=QUERY_CHUNK, segs_per_chunk=0)
+    # the host side of the packed executor's prune for one chunk: the
+    # (S, m) float64 interval test of `SegmentPack.live_mask`
+    pack = engine.SegmentPack.build(segments)
+    c0 = (n_chunks // 2) * QUERY_CHUNK
+    cxq, caq, cr, cth, _ = snn.prepare_query_predicates(
+        index, x[index.order[c0:c0 + QUERY_CHUNK]], eps)
+    qp, aqp, rp, thp, m = ops_mod.pad_queries(cxq, caq, cr, cth)
+    pqp = ops_mod.pad_components(snn.query_extra_projections(index, cxq),
+                                 qp.shape[0])
+    host, kq, pq64, qn64, dev_ops = engine._query_operands(
+        pack, m, qp, aqp, rp, thp, pqp)
+    t = time.perf_counter()
+    for _ in range(3):
+        live = engine._live_idx(pack, host[1], host[2], m, 0, pq64, qn64)
+    chk.note(f"host segment prune of chunk {c0 // QUERY_CHUNK}: "
+             f"{1e3 * (time.perf_counter() - t) / 3:.1f} ms a chunk, "
+             f"{live.size} of {len(segments)} segments live")
+    graph_shape = stacked_kernels(
+        torch, chk, K, ref, ops_mod, engine, pack, live, kq, dev_ops, host, m,
+        "stacked kernels at the graph chunk's shape")
+    del pack
+    packed = clock(f"packed executor over {picks.size} sampled chunks",
+                   lambda: join.chunked_join(index, segments, xq, aq, r, th,
+                                             packed=True, **jkw))
+    K.reset_launch_counts()
+    looped = clock(f"looped executor over {picks.size} sampled chunks",
+                   lambda: join.chunked_join(index, segments, xq, aq, r, th,
+                                             packed=False, **jkw))
+    looped_launches = {"snn_count": K.snn_count.launches,
+                       "snn_compact": K.snn_compact.launches}
+    chk.note(f"sampled chunks {picks.tolist()}; looped kernel launches "
+             f"{looped_launches}")
+    chk.ok(all(v > 0 for v in looped_launches.values())
+           and K.snn_count_stacked.launches == 0,
+           "the looped chunks ran the single-segment kernels")
+    chk.ok(all(np.array_equal(a, b) for a, b in zip(looped[:2], packed[:2]))
+           and np.array_equal(looped[2].view(np.int32),
+                              packed[2].view(np.int32)),
+           f"looped == packed on {srows.size} sampled rows: counts, ids, "
+           "dhalf bit-identical")
+    g_counts, g_idx = graph_rows(plain, index.order[srows])
+    chk.ok(np.array_equal(looped[0], g_counts)
+           and np.array_equal(looped[1], g_idx),
+           "looped rows bit-identical to the packed graph's rows")
+    del segments
+    return launches, looped_launches, eps, graph_shape
+
 
 
 # --------------------------------------------------------------------------- #
 # phase 3                                                                      #
 # --------------------------------------------------------------------------- #
-def csr_pairs(per, idx, dh):
-    """{(query, pack-flat id): dhalf} of a flat CSR output."""
-    counts = per.sum(0).cpu().numpy()
-    total = int(counts.sum())
-    qrow = np.repeat(np.arange(counts.size), counts)
-    ids = idx[:total].cpu().numpy()
-    return qrow, ids, dh[:total].cpu().numpy()
+def outside_band(x64, hn64, q64, thr64, dq, dj) -> int:
+    """How many of the pairs (query ``dq[i]``, row ``dj[i]``) have a float64
+    half distance farther from the threshold than the float32 rounding band
+    d*2^-23*(hn + sum|q x|) + 2^-23*|thresh|."""
+    d64 = hn64[dj] - np.einsum("ij,ij->i", x64[dj], q64[dq])
+    tol = DIM * EPS32 * (hn64[dj] + np.einsum(
+        "ij,ij->i", np.abs(x64[dj]), np.abs(q64[dq]))) \
+        + EPS32 * np.abs(thr64[dq])
+    return int((np.abs(d64 - thr64[dq]) > tol).sum())
 
 
-def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, index, q, radius,
-                launches, xs64, hn64):
-    print("phase 3: kernel times at the main path's shapes")
-    pack = index.pack(512, DEVICE)
-    xq, aq, r32, th, _ = snn.prepare_query_predicates(index, q, radius)
-    qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r32, th, tq=128,
-                                              bucket=True)
-    pq = snn.query_extra_projections(index, xq)
-    pqp = ops_mod.pad_components(pq, qp.shape[0])
-    dev = torch.device(DEVICE)
-    qd, aqd, rd, thd, pqd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                             for a in (qp, aqp, rp, thp, pqp))
-    xs, al, hn, _ = pack.stacked()
-    px = pack.stacked_projs()
+def pair_check(k, p, n_cols, x64, hn64, q64, thr64):
+    """Kernel vs plain CSR outputs ((counts, idx, dhalf) on the card, idx
+    in ``[0, n_cols)``): pairs may differ only inside the float32 rounding
+    band, and common pairs' dhalf within d*2^-23*(hn + sum|q x|).
+    ``x64``/``hn64`` are the rows in float64, ``q64``/``thr64`` the
+    queries'.  Returns (common pairs, differing pairs, pairs outside the
+    band, max |dhalf| difference, every common dhalf within its bound)."""
+    sides = []
+    for cnt, idx, dh in (k, p):
+        c = cnt.cpu().numpy().astype(np.int64)
+        total = int(c.sum())
+        qrow = np.repeat(np.arange(c.size), c)
+        sides.append((qrow * n_cols + idx[:total].cpu().numpy(),
+                      dh[:total].cpu().numpy()))
+    (kkey, kdh), (pkey, pdh) = sides
+    common, ki, pi = np.intersect1d(kkey, pkey, return_indices=True)
+    diff = np.setxor1d(kkey, pkey)
+    out_of_band = outside_band(x64, hn64, q64, thr64, diff // n_cols,
+                               diff % n_cols)
+    cq, cj = common // n_cols, common % n_cols
+    tol_c = DIM * EPS32 * (hn64[cj] + np.einsum(
+        "ij,ij->i", np.abs(x64[cj]), np.abs(q64[cq])))
+    err = np.abs(kdh[ki].astype(np.float64) - pdh[pi].astype(np.float64))
+    return (int(common.size), int(diff.size), out_of_band,
+            float(err.max()) if err.size else 0.0, bool(np.all(err <= tol_c)))
+
+
+def window_pairs(al_rows: np.ndarray, aq64, r64) -> int:
+    """(query, row) pairs inside each query's alpha window, over the
+    segment's sorted real alphas: the pairs whose product the data needs."""
+    lo = np.searchsorted(al_rows, aq64 - r64, side="left")
+    hi = np.searchsorted(al_rows, aq64 + r64, side="right")
+    return int(np.sum(hi - lo))
+
+
+def bound_ms(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def stacked_kernels(torch, chk: Checks, K, ref, ops_mod, engine, pack, live,
+                    kq: int, dev_ops, host, m: int, tag: str) -> dict:
+    """snn_count_stacked and snn_compact_stacked on the live stack of
+    ``pack``, gathered as `engine.run_csr_packed` gathers it, for the query
+    operands of `engine._query_operands`: each against its plain version
+    (the count's partials handed to the compact), then timed beside it, its
+    bound and one torch.matmul of the same product.  Returns
+    {"snn_count_stacked": {...}, "snn_compact_stacked": {...}}."""
+    qd, aqd, rd, thd, pqd = dev_ops
+    xs, al, hn, _, px = engine._gather_live_stacked(pack, live, kq)
     S, n_pad, d_pad = xs.shape
-    m_pad = qd.shape[0]
-    bn = pack.block
+    m_pad, bn = int(qd.shape[0]), pack.block
     args = (qd, aqd, rd, thd)
-
     k_per, k_part = K.snn_count_stacked(*args, xs, al, hn, pqd, px, bn=bn,
                                         with_partials=True)
-    p_per = ref.snn_count_stacked_ref(*args, xs, al, hn, pqd, px, bn=bn)
+    p_per, p_part = ref.snn_count_stacked_ref(*args, xs, al, hn, pqd, px,
+                                              bn=bn, with_partials=True)
     _, _, k_off = ref.stacked_prefix(k_per)
     _, _, p_off = ref.stacked_prefix(p_per)
     k_total, p_total = int(k_per.sum()), int(p_per.sum())
@@ -384,31 +677,27 @@ def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, index, q, radius,
                                               px, nnz=nnz)
     torch.cuda.synchronize()
     count_err = int((k_per - p_per).abs().max())
-    # pair sets: differences may only lie in the rounding band
-    kq, kid, kdh = csr_pairs(k_per, k_idx, k_dh)
-    pq_, pid, pdh = csr_pairs(p_per, p_idx, p_dh)
-    kkey = kq.astype(np.int64) * (S * n_pad) + kid
-    pkey = pq_.astype(np.int64) * (S * n_pad) + pid
-    common, ki, pi = np.intersect1d(kkey, pkey, return_indices=True)
-    diff = np.setxor1d(kkey, pkey)
-    dq, dj = diff // (S * n_pad), diff % (S * n_pad)
-    thr = thp.astype(np.float64)
-    xq64 = qp.astype(np.float64)
-    d64 = hn64[dj] - np.einsum("ij,ij->i", xs64[dj], xq64[dq, :DIM])
-    tol_d = DIM * EPS32 * (hn64[dj] + np.einsum(
-        "ij,ij->i", np.abs(xs64[dj]), np.abs(xq64[dq, :DIM]))) \
-        + EPS32 * np.abs(thr[dq])
-    out_of_band = int((np.abs(d64 - thr[dq]) > tol_d).sum())
-    cj, cq = kid[ki], kq[ki]
-    tol_c = DIM * EPS32 * (hn64[cj] + np.einsum(
-        "ij,ij->i", np.abs(xs64[cj]), np.abs(xq64[cq, :DIM])))
-    dh_err = np.abs(kdh[ki].astype(np.float64) - pdh[pi].astype(np.float64))
-    compact_err = float(dh_err.max()) if dh_err.size else 0.0
-    chk.ok(out_of_band == 0 and bool(np.all(dh_err <= tol_c)),
-           f"kernel vs plain at main-path shapes: {common.size} pairs common, "
-           f"{diff.size} differing pairs all inside the band; count max |diff| "
-           f"{count_err}; dhalf max |diff| {compact_err:.3e} within "
+    part_diff = int((k_part - p_part).abs().sum())
+    x64 = xs.reshape(S * n_pad, d_pad)[:, :DIM].double().cpu().numpy()
+    hn64 = 0.5 * np.einsum("ij,ij->i", x64, x64)
+    common, ndiff, oob, dh_err, dh_ok = pair_check(
+        (k_per.sum(0), k_idx, k_dh), (p_per.sum(0), p_idx, p_dh), S * n_pad,
+        x64, hn64, host[0][:, :DIM].astype(np.float64),
+        host[3].astype(np.float64))
+    del x64, hn64
+    tag = f"{tag} (S={S}, m_pad={m_pad}, n_pad={n_pad})"
+    chk.ok(oob == 0 and dh_ok and part_diff <= ndiff
+           and int((k_per - p_per).abs().sum()) <= ndiff,
+           f"{tag}: kernel vs plain, {common} pairs common, {ndiff} "
+           f"differing all inside the band; counts and partials differ only "
+           f"by those pairs (count max |diff| {count_err}, partials "
+           f"{part_diff}); dhalf max |diff| {dh_err:.3e} within "
            "d*2^-23*(hn + sum|q x|)")
+    chk.ok(bool((k_idx[:k_total] >= 0).all())
+           and bool((k_idx[k_total:] == -1).all())
+           and bool((k_dh[k_total:] == ref.BIG).all()),
+           f"{tag}: every one of the {k_total} data slots written, -1/+BIG "
+           f"in the {nnz - k_total} unwritten and trash slots")
 
     reps = 10
     k_count_ms = timed(torch, lambda: K.snn_count_stacked(
@@ -420,55 +709,230 @@ def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, index, q, radius,
         *args, k_off, xs, al, hn, pqd, px, nnz=nnz, bn=bn, partials=k_part),
         reps)
     p_count_ms = timed(torch, lambda: ref.snn_count_stacked_ref(
-        *args, xs, al, hn, pqd, px, bn=bn, with_partials=True), 3)
+        *args, xs, al, hn, pqd, px, bn=bn, with_partials=True), 2)
     p_compact_ms = timed(torch, lambda: ref.snn_compact_stacked_ref(
-        *args, p_off, xs, al, hn, pqd, px, nnz=nnz), 3)
-    xs0 = xs[0]
-    lib_ms = timed(torch, lambda: torch.matmul(qd, xs0.T), reps)
+        *args, p_off, xs, al, hn, pqd, px, nnz=nnz), 2)
+    xf = xs.reshape(S * n_pad, d_pad)
+    lib_ms = timed(torch, lambda: torch.matmul(qd, xf.T), reps)
 
     # the work this data needs: every pair inside its query's alpha window
-    al_host = al[0].cpu().numpy().astype(np.float64)
-    aq64, r64 = aqp[:m].astype(np.float64), rp[:m].astype(np.float64)
-    lo = np.searchsorted(al_host, aq64 - r64, side="left")
-    hi = np.searchsorted(al_host, aq64 + r64, side="right")
-    pairs = int(np.sum(hi - lo))
+    al_rows = al.reshape(-1).cpu().numpy().astype(np.float64)
+    al_rows = np.sort(al_rows[al_rows < ref.BIG])
+    pairs = window_pairs(al_rows, host[1][:m].astype(np.float64),
+                         host[2][:m].astype(np.float64))
     flops = 2.0 * DIM * pairs
-    in_bytes = 4 * (qd.numel() + 3 * m_pad + xs.numel() + 2 * S * n_pad
-                    + pqd.numel() + px.numel())
+    in_bytes = 4 * sum(t.numel() for t in (qd, aqd, rd, thd, xs, al, hn, pqd,
+                                           px) if t is not None)
     count_bytes = in_bytes + 4 * S * m_pad * (1 + n_pad // bn)
-    compact_bytes = in_bytes + 4 * S * m_pad * (1 + n_pad // bn) + 8 * nnz
+    c_bound, c_by = bound_ms(flops, count_bytes)
+    p_bound, p_by = bound_ms(flops, count_bytes + 4 * S * m_pad + 8 * nnz)
+    chk.note(f"{tag}: {pairs} alpha-window pairs of {m * al_rows.size} "
+             f"({pairs / (m * al_rows.size):.4f}), {flops:.4e} FP32 "
+             "operations a pass")
+    chk.note(f"{tag}: snn_count_stacked {k_count_ms:.4f} ms "
+             f"({flops / k_count_ms / 1e9:.2f} TFLOP/s), mixed "
+             f"{k_mixed_ms:.4f} ms, plain {p_count_ms:.4f} ms, bound "
+             f"{c_bound:.4f} ms ({c_by}); snn_compact_stacked "
+             f"{k_compact_ms:.4f} ms, plain {p_compact_ms:.4f} ms, bound "
+             f"{p_bound:.4f} ms ({p_by}); torch.matmul {lib_ms:.4f} ms")
+    shape = {"S": int(S), "m_pad": m_pad, "n_pad": int(n_pad)}
+    return {
+        "snn_count_stacked": dict(
+            shape, max_abs_err=float(count_err), ms=k_count_ms,
+            plain_ms=p_count_ms, bound_ms=c_bound, bound_by=c_by,
+            library_ms=lib_ms, mixed_ms=k_mixed_ms),
+        "snn_compact_stacked": dict(
+            shape, max_abs_err=dh_err, ms=k_compact_ms,
+            plain_ms=p_compact_ms, bound_ms=p_bound, bound_by=p_by,
+            library_ms=lib_ms),
+    }
 
-    def bound(nbytes):
-        t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                           else "bytes")
 
-    c_bound, c_by = bound(count_bytes)
-    p_bound, p_by = bound(compact_bytes)
-    chk.note(f"alpha-window pairs {pairs} of {m * N_ROWS} "
-             f"({pairs / (m * N_ROWS):.4f}); {flops:.4e} FP32 operations a pass")
-    chk.note(f"count   kernel {k_count_ms:.4f} ms, mixed {k_mixed_ms:.4f} ms, "
-             f"plain {p_count_ms:.4f} ms, bound {c_bound:.4f} ms ({c_by}), "
-             f"torch.matmul {lib_ms:.4f} ms; "
-             f"{flops / k_count_ms / 1e9:.2f} TFLOP/s")
-    chk.note(f"compact kernel {k_compact_ms:.4f} ms, plain {p_compact_ms:.4f} "
-             f"ms, bound {p_bound:.4f} ms ({p_by}); "
-             f"{flops / k_compact_ms / 1e9:.2f} TFLOP/s")
+def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, engine, index, q,
+                radius, launches):
+    print("phase 3: kernel times at the main path's shapes")
+    pack = index.pack(512, DEVICE)
+    xq, aq, r32, th, _ = snn.prepare_query_predicates(index, q, radius)
+    qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r32, th, tq=128,
+                                              bucket=True)
+    pqp = ops_mod.pad_components(snn.query_extra_projections(index, xq),
+                                 qp.shape[0])
+    host, kq, _, _, dev_ops = engine._query_operands(pack, m, qp, aqp, rp,
+                                                     thp, pqp)
+    recs = stacked_kernels(torch, chk, K, ref, ops_mod, engine, pack,
+                           np.arange(pack.n_segments), kq, dev_ops, host, m,
+                           "stacked kernels at the point-query shape")
     src = "src/repro_torch/kernels/csrc/snn_query.cu"
-    return [
-        {"name": "snn_count_stacked", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/snn_query.py:447",
-         "launches": launches["snn_count_stacked"],
-         "max_abs_err": float(count_err), "ms": k_count_ms,
-         "plain_ms": p_count_ms, "bound_ms": c_bound, "bound_by": c_by,
-         "library_ms": lib_ms, "mixed_ms": k_mixed_ms},
-        {"name": "snn_compact_stacked", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/snn_query.py:549",
-         "launches": launches["snn_compact_stacked"],
-         "max_abs_err": compact_err, "ms": k_compact_ms,
-         "plain_ms": p_compact_ms, "bound_ms": p_bound, "bound_by": p_by,
-         "library_ms": lib_ms},
-    ]
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": f"src/repro/kernels/snn_query.py:{line}",
+             "launches": launches[name], **recs[name]}
+            for name, line in (("snn_count_stacked", 447),
+                               ("snn_compact_stacked", 549))]
+
+
+def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
+                 qraw, radius, row0: int, n_rows: int, xs64, hn64, tag: str,
+                 reps: int, plain_reps: int):
+    """Times of snn_count and snn_compact on one segment (sorted rows
+    ``row0 : row0 + n_rows`` of the index) for the queries ``qraw``, beside
+    their plain versions and torch.matmul, with the kernel-vs-plain check.
+    Returns {"count": {...}, "compact": {...}, "ops": ...}."""
+    xq, aq, r32, th, _ = snn.prepare_query_predicates(index, qraw, radius)
+    qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r32, th, tq=128,
+                                              bucket=True)
+    pqp = ops_mod.pad_components(snn.query_extra_projections(index, xq),
+                                 qp.shape[0])
+    dev = torch.device(DEVICE)
+    qd, aqd, rd, thd, pqd = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in (qp, aqp, rp, thp, pqp))
+    sl = slice(row0, row0 + n_rows)
+    seg = engine.make_segment(index.xs[sl], index.alphas[sl],
+                              index.half_norms[sl], index.order[sl],
+                              block=512, projs=index.projs[1:, sl])
+    ops = (qd, aqd, rd, thd, seg.xs, seg.alphas, seg.half_norms, pqd,
+           seg.projs)
+    m_pad, n_pad = qd.shape[0], seg.xs.shape[0]
+    k_cnt, k_part = K.snn_count(*ops, with_partials=True)
+    p_cnt = ref.snn_count_ref(*ops)
+    k_off = torch.cumsum(k_cnt, 0, dtype=torch.int32) - k_cnt
+    p_off = torch.cumsum(p_cnt, 0, dtype=torch.int32) - p_cnt
+    nnz = ops_mod.csr_capacity(max(int(k_cnt.sum()), int(p_cnt.sum())))
+    k_idx, k_dh = K.snn_compact(*ops[:4], k_off, *ops[4:], nnz=nnz,
+                                partials=k_part)
+    p_idx, p_dh = ref.snn_compact_ref(*ops[:4], p_off, *ops[4:], nnz=nnz)
+    # the same compiled predicate as the stacked kernels: bit-identical
+    st_ops = (*ops[:4], seg.xs[None], seg.alphas[None], seg.half_norms[None],
+              pqd, seg.projs[None])
+    s_cnt = K.snn_count_stacked(*st_ops)
+    s_idx, s_dh = K.snn_compact_stacked(*st_ops[:4], k_off[None], *st_ops[4:],
+                                        nnz=nnz, partials=k_part[None])
+    torch.cuda.synchronize()
+    chk.ok(torch.equal(s_cnt[0], k_cnt) and torch.equal(s_idx, k_idx)
+           and torch.equal(s_dh.view(torch.int32), k_dh.view(torch.int32)),
+           f"{tag}: snn_count/snn_compact bit-identical to the stacked "
+           "kernels on a stack of one")
+    count_err = int((k_cnt - p_cnt).abs().max())
+    common, ndiff, oob, dh_err, dh_ok = pair_check(
+        (k_cnt, k_idx, k_dh), (p_cnt, p_idx, p_dh), n_pad, xs64[sl],
+        hn64[sl], qp[:, :DIM].astype(np.float64), thp.astype(np.float64))
+    chk.ok(oob == 0 and dh_ok,
+           f"{tag}: kernel vs plain, {common} pairs common, {ndiff} differing "
+           f"all inside the band; count max |diff| {count_err}; dhalf max "
+           f"|diff| {dh_err:.3e} within d*2^-23*(hn + sum|q x|)")
+
+    k_count_ms = timed(torch, lambda: K.snn_count(*ops, with_partials=True),
+                       reps)
+    k_mixed_ms = timed(torch, lambda: K.snn_count(*ops, mixed=True,
+                                                  with_partials=True), reps)
+    k_compact_ms = timed(torch, lambda: K.snn_compact(
+        *ops[:4], k_off, *ops[4:], nnz=nnz, partials=k_part), reps)
+    p_count_ms = timed(torch, lambda: ref.snn_count_ref(
+        *ops, with_partials=True), plain_reps)
+    p_compact_ms = timed(torch, lambda: ref.snn_compact_ref(
+        *ops[:4], p_off, *ops[4:], nnz=nnz), plain_reps)
+    xs1 = seg.xs
+    lib_ms = timed(torch, lambda: torch.matmul(qd, xs1.T), reps)
+
+    al_rows = seg.alphas[:seg.n].cpu().numpy().astype(np.float64)
+    pairs = window_pairs(al_rows, aqp[:m].astype(np.float64),
+                         rp[:m].astype(np.float64))
+    flops = 2.0 * DIM * pairs
+    in_bytes = 4 * (qd.numel() + 3 * m_pad + seg.xs.numel() + 2 * n_pad
+                    + pqd.numel() + seg.projs.numel())
+    part_bytes = 4 * m_pad * (1 + n_pad // 512)
+    c_bound, c_by = bound_ms(flops, in_bytes + part_bytes)
+    p_bound, p_by = bound_ms(flops, in_bytes + part_bytes + 8 * nnz)
+    chk.note(f"{tag}: m_pad={m_pad} n_pad={n_pad}, {pairs} window pairs; "
+             f"snn_count {k_count_ms:.4f} ms (mixed {k_mixed_ms:.4f}), plain "
+             f"{p_count_ms:.4f}, bound {c_bound:.4f} ({c_by}); snn_compact "
+             f"{k_compact_ms:.4f} ms, plain {p_compact_ms:.4f}, bound "
+             f"{p_bound:.4f} ({p_by}); torch.matmul {lib_ms:.4f} ms")
+    shape = {"m_pad": int(m_pad), "n_pad": int(n_pad)}
+    return {
+        "count": dict(shape, ms=k_count_ms, mixed_ms=k_mixed_ms,
+                      plain_ms=p_count_ms, bound_ms=c_bound, bound_by=c_by,
+                      library_ms=lib_ms, max_abs_err=float(count_err)),
+        "compact": dict(shape, ms=k_compact_ms, plain_ms=p_compact_ms,
+                        bound_ms=p_bound, bound_by=p_by, library_ms=lib_ms,
+                        max_abs_err=dh_err),
+        "ops": ops, "pairs": pairs, "qp": qp,
+    }
+
+
+def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
+                       index, x, q, radius, eps, xs64, hn64, looped):
+    """The three single-segment kernels: count and compact at both shapes
+    the looped executor gives them, and the filter through its public op."""
+    print("phase 3 (single-segment kernels)")
+    n = index.n
+    main = single_shape(torch, chk, K, ref, ops_mod, snn, engine, index, q,
+                        radius, 0, n, xs64, hn64,
+                        "query_radius_csr(packed=False) shape", 10, 3)
+    mid = (n // QUERY_CHUNK // 2) * QUERY_CHUNK
+    g = single_shape(torch, chk, K, ref, ops_mod, snn, engine, index,
+                     x[index.order[mid:mid + QUERY_CHUNK]], eps, mid,
+                     SEGMENT_ROWS, xs64, hn64,
+                     "graph segment shape (the chunk's own segment)", 200, 20)
+
+    # snn_filter: the public op at the main path's shapes, a path of its own
+    ops = main["ops"]
+    qd, xs1, hn1 = ops[0], ops[4], ops[6]
+    m_pad, n_pad = qd.shape[0], xs1.shape[0]
+    K.reset_launch_counts()
+    f = ops_mod.snn_filter(*ops)
+    torch.cuda.synchronize()
+    f_launches = K.snn_filter.launches
+    chk.ok(f_launches == 1, "kernels.ops.snn_filter launched the kernel once")
+    pf = ref.snn_filter_ref(*ops)
+    kf, kp = f < ref.BIG, pf < ref.BIG
+    both = kf & kp
+    err = (f - pf).abs()[both]
+    f_err = float(err.max()) if err.numel() else 0.0
+    qi, j = torch.nonzero(both, as_tuple=True)
+    absdot = (ops[0][qi, :DIM].abs() * xs1[j, :DIM].abs()).sum(1)
+    tol = DIM * EPS32 * (hn1[j] + absdot)
+    within = bool((err <= tol).all())
+    dq, dj = (t.cpu().numpy() for t in torch.nonzero(kf ^ kp, as_tuple=True))
+    oob = outside_band(xs64, hn64, main["qp"][:, :DIM].astype(np.float64),
+                       ops[3].cpu().numpy().astype(np.float64), dq, dj)
+    chk.ok(oob == 0 and within,
+           f"snn_filter at m_pad={m_pad} n_pad={n_pad}: {int(both.sum())} "
+           f"finite entries common, {dq.size} differing all inside the band; "
+           f"max |diff| {f_err:.3e} within d*2^-23*(hn + sum|q x|)")
+    del f, pf, kf, kp, both, err, qi, j, absdot, tol
+    k_ms = timed(torch, lambda: K.snn_filter(*ops), 5)
+    p_ms = timed(torch, lambda: ref.snn_filter_ref(*ops), 2)
+    hn_row = hn1[None, :]
+    lib_ms = timed(torch, lambda: torch.addmm(hn_row, qd, xs1.T, beta=1.0,
+                                              alpha=-1.0), 5)
+    in_bytes = 4 * sum(t.numel() for t in ops)
+    f_bound, f_by = bound_ms(2.0 * DIM * main["pairs"],
+                             in_bytes + 4 * m_pad * n_pad)
+    chk.note(f"snn_filter {k_ms:.4f} ms, plain {p_ms:.4f}, bound "
+             f"{f_bound:.4f} ({f_by}; {4 * m_pad * n_pad / 1e9:.2f} GB "
+             f"written), torch.addmm {lib_ms:.4f} ms")
+
+    src = "src/repro_torch/kernels/csrc/snn_query.cu"
+    out = []
+    for name, key, line in (("snn_count", "count", 274),
+                            ("snn_compact", "compact", 373)):
+        rec = dict(main[key])
+        by_path = {"query_radius_csr packed=False": looped[0][name],
+                   "graph: looped sampled chunks": looped[1][name]}
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": f"src/repro/kernels/snn_query.py:{line}",
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path, **rec,
+                    "graph_shape": g[key]})
+    out.append({"name": "snn_filter", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/snn_filter.cu",
+                "replaces": "src/repro/kernels/snn_query.py:245",
+                "launches": f_launches,
+                "launches_by_path": {"kernels.ops.snn_filter": f_launches},
+                "max_abs_err": f_err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": f_bound, "bound_by": f_by, "library_ms": lib_ms,
+                "m_pad": int(m_pad), "n_pad": int(n_pad)})
+    return out
 
 
 def card_line() -> str:
@@ -489,10 +953,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import engine, join, snn
+    from repro_torch.core import engine, graph, snn
     from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import ref
     from repro_torch.kernels import snn_query as K
+
+    # the package exports functions named `join` and `dbscan`, which shadow
+    # the modules of those names
+    join = importlib.import_module("repro_torch.core.join")
+    dbscan = importlib.import_module("repro_torch.core.dbscan")
+
+    def clock(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        Checks.note(f"{label}: {1e3 * (time.perf_counter() - t):.3f} ms "
+                    "(host clock, synchronized)")
+        return out
+
+    def phase_done(name, t0):
+        print(f"{name} took {time.perf_counter() - t0:.1f} s", flush=True)
+        if chk.failed:
+            print(f"FAILED: {chk.failed}", file=sys.stderr)
+        return not chk.failed
 
     t_start = time.perf_counter()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -501,19 +985,37 @@ def main() -> int:
     lib = K.build()
     print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t:.2f} s")
     for line in K.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             print(f"  {line.strip()}")
     chk = Checks()
+    t = time.perf_counter()
     phase_kernels(torch, chk, K, ref, ops_mod)
-    if chk.failed:
-        print(f"FAILED: {chk.failed}", file=sys.stderr)
+    if not phase_done("phase 1", t):
         return 1
-    index, q, radius, launches, xs64, hn64 = phase_main_path(
-        torch, chk, K, snn, engine, join)
-    kernels = phase_times(torch, chk, K, ref, ops_mod, snn, index, q, radius,
-                          launches, xs64, hn64)
-    if chk.failed:
-        print(f"FAILED: {chk.failed}", file=sys.stderr)
+    t = time.perf_counter()
+    index, x, q, radius, launches, looped_main, xs64, hn64 = phase_main_path(
+        torch, chk, K, snn, engine, join, clock)
+    if not phase_done("phase 2", t):
+        return 1
+    t = time.perf_counter()
+    g_launches, looped_graph, eps, g_shape = phase_graph(
+        torch, chk, K, ref, snn, engine, join, graph, dbscan, ops_mod, index,
+        x, xs64, hn64, clock)
+    if not phase_done("phase 2b", t):
+        return 1
+    t = time.perf_counter()
+    kernels = phase_times(torch, chk, K, ref, ops_mod, snn, engine, index, q,
+                          radius, launches)
+    for rec in kernels:
+        by_path = {"query_radius_csr": rec["launches"],
+                   "build_neighbor_graph": g_launches[rec["name"]]}
+        rec.update(launches=sum(by_path.values()), launches_by_path=by_path,
+                   graph_shape=g_shape[rec["name"]])
+    kernels += phase_times_single(torch, chk, K, ref, ops_mod, snn, engine,
+                                  index, x, q, radius, eps, xs64, hn64,
+                                  (looped_main, looped_graph))
+    if not phase_done("phase 3", t):
         return 1
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

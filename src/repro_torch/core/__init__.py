@@ -1,4 +1,5 @@
-"""Core SNN library on PyTorch: index, exact CSR query, engine, join."""
+"""Core SNN library on PyTorch: index, exact CSR query, engine, join,
+neighbour graph and DBSCAN."""
 from .snn import (  # noqa: F401
     CSRNeighbors,
     SNNIndex,
@@ -7,6 +8,9 @@ from .snn import (  # noqa: F401
     query_radius_csr,
 )
 from .engine import (Segment, SegmentPack, make_segment,  # noqa: F401
-                     pack_from_index, segment_from_index)
-from .join import query_counts  # noqa: F401
+                     pack_from_index, segment_from_index, segments_from_index)
+from .join import join, query_counts  # noqa: F401
+from .graph import build_neighbor_graph, min_label_components  # noqa: F401
+from .dbscan import (dbscan, labels_from_graph,  # noqa: F401
+                     neighbor_graph, normalized_mutual_information)
 from . import metrics  # noqa: F401

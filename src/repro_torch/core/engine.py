@@ -1,32 +1,43 @@
-"""Multi-segment CSR execution engine, device executor: plan / execute.
+"""Multi-segment CSR execution engine: plan / execute, packed and looped.
 
 The counterpart of ``repro.core.engine``.  A *segment* is a contiguous
-alpha-sorted run of database rows; a `SegmentPack` stacks an index's
-segments into (S, n_pad, d_pad) tensors on one device, built once and
-reused across query batches.  Every batch runs the two-pass exact CSR
-orchestration:
+alpha-sorted run of database rows: a whole index, or one of the narrow
+runs `segments_from_index` cuts for the self-join graph.  Every batch runs
+the two-pass exact CSR orchestration:
 
 1. **pass 1, count**: per-(segment, query) survivor counts, (S, m_pad);
-2. **prefix sums** on the device: the global CSR ``indptr`` and each
-   segment's per-query write base (an exclusive prefix over segments);
+2. **prefix sums**: the global CSR ``indptr`` and each segment's per-query
+   write base (an exclusive prefix over segments);
 3. **pass 2, compact**: every survivor is written into its flat CSR slot.
 
-The passes run through `kernels.registry`: the CUDA kernels for a pack on
-the card, their plain PyTorch versions for a pack on the CPU, with the same
-orchestration around them.  Both passes evaluate one predicate pipeline on
-identical float32 inputs, so pass-2 survivors are exactly the pass-1 counted
-pairs; a final ``>= 0`` check on the flat ids fails loudly if they ever
-disagree.  Segments whose alpha range meets no query window are skipped
-before any launch.
+Two executors share that orchestration:
 
-Once a batch shape has run, the fused path chains count, prefix and compact
-with no host sync between them, under a speculated flat capacity that the
-compact kernel checks on the device; the result comes back in one
-device-to-host copy.  An overflow reruns the classic path with exact sizes
-and ratchets the capacity (power-of-two buckets).
+* the **packed** executor (`run_csr_packed`) runs a `SegmentPack`, which
+  stacks the segments into (S, n_pad, d_pad) tensors on one device, built
+  once and reused across batches: the segment prune is one vectorized
+  interval test, each pass is ONE stacked launch, and the prefix sums run
+  on the device.  Once a batch shape has run, the fused path chains count,
+  prefix and compact with no host sync between them, under a speculated
+  flat capacity that the compact kernel checks on the device; the result
+  comes back in one device-to-host copy.  An overflow reruns the classic
+  path with exact sizes and ratchets the capacity (power-of-two buckets);
+* the **looped** executor (`run_csr`) launches the single-segment count and
+  compact once per live segment, with a host sync after each count and the
+  prefix sums in numpy: the cross-check of the packed executor.  The
+  single-segment kernels are the stacked ones on a stack of one, so packed
+  output is bit-identical to looped output.
 
-Not ported yet: the host-pruned oracle executors, the looped ``run_csr``,
-``warm_plan``, ``SegmentPack.concat``/``extend`` and ``segments_from_index``.
+The passes run through `kernels.registry`: the CUDA kernels for segments on
+the card, their plain PyTorch versions for segments on the CPU, with the
+same orchestration around them.  Both passes evaluate one predicate
+pipeline on identical float32 inputs, so pass-2 survivors are exactly the
+pass-1 counted pairs; a final ``>= 0`` check on the flat ids fails loudly if
+they ever disagree.  Segments whose alpha range meets no query window are
+skipped before any launch.
+
+Not ported yet: the host-pruned oracle executors (and with them the
+oracle lane's dense-filter cache and ``memory_budget_mb``), ``warm_plan``
+and ``SegmentPack.concat``/``extend``.
 """
 from __future__ import annotations
 
@@ -180,6 +191,32 @@ def segment_from_index(index, *, block: int = 512, device=None) -> Segment:
                         device=device)
 
 
+def segments_from_index(index, *, rows_per_segment: int, block: int = 512,
+                        ids: np.ndarray | None = None,
+                        device=None) -> list[Segment]:
+    """Partition one index's sorted rows into contiguous equal-size segments.
+
+    Segment k covers sorted rows ``[k * rows_per_segment, (k+1) *
+    rows_per_segment)``, so a query batch with a narrow alpha footprint (the
+    sorted query chunks of `core.graph`'s self-join) pays only for the
+    segments its windows meet, and segment-major engine output stays in
+    ascending sorted order.  ``ids`` overrides the per-row id map (default
+    ``index.order``, the original row ids; ``np.arange(n)`` gives sorted
+    positions, the representation of the symmetric self-join).  The
+    segments live on ``device`` (default: the index's own).
+    """
+    n = index.n
+    ids = index.order if ids is None else np.asarray(ids, np.int64)
+    rs = max(int(rows_per_segment), 1)
+    ep = _index_extra_projs(index)
+    return [make_segment(index.xs[s:s + rs], index.alphas[s:s + rs],
+                         index.half_norms[s:s + rs], ids[s:s + rs],
+                         block=block,
+                         projs=None if ep is None else ep[:, s:s + rs],
+                         device=device)
+            for s in range(0, n, rs)]
+
+
 def _qnorm64(rp, thp, m: int) -> np.ndarray:
     """(m,) float64 query norms recovered from the predicate pair, through
     the kernels' own float32 expression first (`ref.norm_scales`)."""
@@ -197,6 +234,130 @@ def _box_interval_radius(r64, qn64, xnorm_max) -> np.ndarray:
     (+1e-30 absolute) dominates every float32 rounding of the device test."""
     return (r64 + _ref.BOX_EPS * (xnorm_max + qn64 + np.abs(r64))) \
         * (1.0 + 1e-6) + 1e-30
+
+
+def _window_may_hit(seg: Segment, aq: np.ndarray, r: np.ndarray,
+                    pq: np.ndarray | None = None,
+                    qn: np.ndarray | None = None) -> bool:
+    """Can ANY query window (and, with ``pq``/``qn``, box) touch ``seg``?
+
+    The kernels test ``|alpha - aq| <= r`` in float32; a few-ulp slack on
+    the float64 host comparison makes sure a skipped segment never holds a
+    pair the kernels would keep.  ``pq`` is (kq, m) float64 extra query
+    projections and ``qn`` their `_qnorm64` norms.
+    """
+    if seg.alpha_lo > seg.alpha_hi or aq.size == 0:
+        return False
+    slack = 1e-6 * (np.abs(aq) + np.abs(r)
+                    + max(abs(seg.alpha_lo), abs(seg.alpha_hi)) + 1.0)
+    hit = ((aq + r + slack >= seg.alpha_lo)
+           & (aq - r - slack <= seg.alpha_hi))
+    if pq is not None and seg.ke:
+        kq = min(pq.shape[0], seg.ke)
+        R = _box_interval_radius(r, qn, seg.xnorm_max)
+        for c in range(kq):
+            hit &= ((pq[c] + R >= seg.proj_lo[c])
+                    & (pq[c] - R <= seg.proj_hi[c]))
+    return bool(np.any(hit))
+
+
+def run_csr(segments: list[Segment], qp, aqp, rp, thp, m: int, *,
+            pq=None, mixed: bool = False):
+    """The two-pass LOOPED orchestration over padded queries and segments.
+
+    One count launch and one host sync per live segment, the prefix sums on
+    the host, then one compact launch per live segment with survivors: the
+    cross-check of `run_csr_packed`, on the same kernels at S = 1.  Each
+    segment's pass-1 per-row-block counts go to its pass 2, which then
+    needs no recount to place its writes.  On segments that live on the CPU
+    the two passes run as their plain versions (`kernels.ref`).
+
+    Args:
+      segments: alpha-sorted runs (see `Segment`) on one device; they need
+        not be disjoint.
+      qp/aqp/rp/thp: `kernels.ops.pad_queries` outputs (host arrays).
+      m: real (unpadded) query count.
+      pq: optional (kq, m_pad) padded extra query projections; the box
+        prune uses ``min(kq, min segment ke)`` components.
+      mixed: pass 1 counts with the certified bf16 product; pass 2 always
+        decides in float32, and the final check enforces the certificate.
+
+    Returns ``(indptr (m+1,) int64, counts (m,) int64, flat_ids (nnz,) int64,
+    flat_dh (nnz,) float32)``; ``flat_ids`` are the segments' ids in
+    segment-major, locally ascending order within each row.
+    """
+    aq64 = np.asarray(aqp, np.float64)[:m]
+    r64 = np.asarray(rp, np.float64)[:m]
+    kq = 0
+    if pq is not None and segments:
+        kq = min([s.ke for s in segments] + [int(np.asarray(pq).shape[0])])
+    pq_np = pq64 = qn64 = None
+    if kq:
+        pq_np = np.ascontiguousarray(np.asarray(pq, np.float32)[:kq])
+        pq64 = pq_np[:, :m].astype(np.float64)
+        qn64 = _qnorm64(rp, thp, m)
+    dev = segments[0].xs.device if segments else torch.device("cpu")
+    qd, aqd, rd, thd = (torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a, np.float32))).to(dev)
+        for a in (qp, aqp, rp, thp))
+    pqd = None if pq_np is None else torch.from_numpy(pq_np).to(dev)
+    args = (qd, aqd, rd, thd)
+
+    def _px(seg):
+        if not kq:
+            return None
+        return seg.projs if seg.ke == kq else seg.projs[:kq].contiguous()
+
+    # ---- pass 1: per-segment counts, one launch + one sync each ----------
+    per = np.zeros((len(segments), m), np.int64)
+    partials: dict[int, torch.Tensor] = {}
+    live: list[int] = []
+    for k, seg in enumerate(segments):
+        if not _window_may_hit(seg, aq64, r64, pq64, qn64):
+            continue
+        live.append(k)
+        DISPATCH_STATS.kernel_launches += 1
+        DISPATCH_STATS.host_transfers += 1
+        cnt, partials[k] = _registry.snn_count(
+            *args, seg.xs, seg.alphas, seg.half_norms, pqd, _px(seg),
+            bn=seg.block, mixed=mixed, with_partials=True)
+        per[k] = cnt.cpu().numpy()[:m]
+
+    # ---- host prefix sums: global indptr + per-segment write bases -------
+    counts = per.sum(axis=0)
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    total = int(indptr[-1])
+    if total == 0:
+        return indptr, counts, np.zeros(0, np.int64), np.zeros(0, np.float32)
+    seg_base = np.cumsum(per, axis=0) - per  # exclusive prefix over segments
+
+    # ---- pass 2: per-segment compaction into disjoint flat slots ---------
+    cap = _ops.csr_capacity(total)
+    flat_ids = np.full(cap, -1, np.int64)
+    flat_dh = np.full(cap, np.float32(_ops.BIG), np.float32)
+    off_pad = np.full(int(np.shape(qp)[0]) - m, total, np.int64)
+    for k in live:
+        part = partials.pop(k)
+        if not per[k].any():
+            continue
+        seg = segments[k]
+        off_k = torch.from_numpy(np.concatenate(
+            [indptr[:-1] + seg_base[k], off_pad]).astype(np.int32)).to(dev)
+        DISPATCH_STATS.kernel_launches += 1
+        DISPATCH_STATS.host_transfers += 2
+        fi, fd = _registry.snn_compact(
+            *args, off_k, seg.xs, seg.alphas, seg.half_norms, pqd, _px(seg),
+            nnz=cap, bn=seg.block, partials=part)
+        fi = fi.cpu().numpy()
+        written = fi >= 0
+        flat_ids[written] = seg.ids[fi[written]]
+        flat_dh[written] = fd.cpu().numpy()[written]
+    # both passes ran the same predicate, so every slot is written; a -1
+    # would silently alias a wrong row, so fail loudly
+    if not (flat_ids[:total] >= 0).all():
+        raise RuntimeError("CSR pass-1/pass-2 disagreement (looped)")
+    return indptr, counts, flat_ids[:total], flat_dh[:total]
 
 
 # --------------------------------------------------------------------------- #
@@ -453,14 +614,18 @@ def pack_from_index(index, *, block: int = 512, device=None) -> SegmentPack:
                                                  device=device)])
 
 
-def _live_idx(pack: SegmentPack, aqp, rp, m: int,
+def _live_idx(pack: SegmentPack, aqp, rp, m: int, first_seg: int = 0,
               pq64: np.ndarray | None = None,
               qn64: np.ndarray | None = None) -> np.ndarray:
     """Which segments are live?  `run_csr_packed` and `run_counts_packed`
-    share this decision, so counts predict the CSR rows exactly."""
+    share this decision, so counts predict the CSR rows exactly.  Segments
+    before ``first_seg`` are never live (the triangular schedule)."""
     aq64 = np.asarray(aqp, np.float64)[:m]
     r64 = np.asarray(rp, np.float64)[:m]
-    return np.nonzero(pack.live_mask(aq64, r64, pq64, qn64))[0]
+    mask = pack.live_mask(aq64, r64, pq64, qn64)
+    if first_seg:
+        mask[:first_seg] = False
+    return np.nonzero(mask)[0]
 
 
 def _gather_live_stacked(pack: SegmentPack, live_idx: np.ndarray, kq: int):
@@ -503,6 +668,7 @@ def run_csr_packed(
     m: int,
     *,
     query_tile: int = 128,
+    first_seg: int = 0,
     pq=None,
     mixed: bool = False,
     fused: bool = True,
@@ -511,7 +677,10 @@ def run_csr_packed(
 
     ``qp``/``aqp``/``rp``/``thp`` are the padded host query operands
     (`kernels.ops.pad_queries`), ``m`` the number of real queries and ``pq``
-    the optional (kq, m_pad) padded extra query projections.  Returns
+    the optional (kq, m_pad) padded extra query projections.
+    ``first_seg`` leaves out the segments before that pack position (the
+    triangular schedule of `core.graph`'s symmetric self-join).  The output
+    is bit-identical to `run_csr` over the same live segments.  Returns
     (indptr (m+1,) int64, counts (m,) int64, original ids (nnz,) int64,
     dhalf (nnz,) float32).  Flat totals are int32 on the device (~2^31
     pairs).
@@ -520,7 +689,7 @@ def run_csr_packed(
         pack.memory_plan(int(np.shape(qp)[0]), query_tile)
     host, kq, pq64, qn64, dev_ops = _query_operands(pack, m, qp, aqp, rp,
                                                      thp, pq)
-    live_idx = _live_idx(pack, host[1], host[2], m, pq64, qn64)
+    live_idx = _live_idx(pack, host[1], host[2], m, first_seg, pq64, qn64)
     if live_idx.size == 0:
         return (np.zeros(m + 1, np.int64), np.zeros(m, np.int64),
                 np.zeros(0, np.int64), np.zeros(0, np.float32))
@@ -543,7 +712,7 @@ def run_counts_packed(
         pack.memory_plan(int(np.shape(qp)[0]), query_tile)
     host, kq, pq64, qn64, dev_ops = _query_operands(pack, m, qp, aqp, rp,
                                                      thp, pq)
-    live_idx = _live_idx(pack, host[1], host[2], m, pq64, qn64)
+    live_idx = _live_idx(pack, host[1], host[2], m, 0, pq64, qn64)
     if live_idx.size == 0:
         return np.zeros(m, np.int64)
     qd, aqd, rd, thd, pqd = dev_ops
@@ -661,5 +830,35 @@ def query_csr_packed(
     indptr, counts, ids, dh = run_csr_packed(
         pack, qp, aqp, rp, thp, m, query_tile=query_tile, pq=pqp,
         mixed=mixed, fused=fused)
+    return _snn.csr_finalize(index, indptr, ids, dh, xq, qsq, counts,
+                             return_distance, native)
+
+
+def query_csr(
+    index,
+    segments: list[Segment],
+    q: np.ndarray,
+    radius,
+    return_distance: bool = True,
+    *,
+    query_tile: int = 128,
+    native: bool = True,
+    mixed: bool = False,
+    bucket: bool = False,
+):
+    """Full CSR query through the looped executor: predicates from ``index``
+    (the owner of mu/v1/metric/xi) on the host, then `run_csr` over
+    ``segments``, then float64 distance finalization on the host.  The
+    counterpart of `query_csr_packed`, with bit-identical results."""
+    from . import snn as _snn  # deferred: snn imports this module lazily too
+
+    xq, aq, r, th, qsq = _snn.prepare_query_predicates(index, q, radius)
+    m = xq.shape[0]
+    qp, aqp, rp, thp, _ = _ops.pad_queries(xq, aq, r, th, tq=query_tile,
+                                           bucket=bucket)
+    pq = _snn.query_extra_projections(index, xq)
+    pqp = None if pq is None else _ops.pad_components(pq, qp.shape[0])
+    indptr, counts, ids, dh = run_csr(segments, qp, aqp, rp, thp, m,
+                                      pq=pqp, mixed=mixed)
     return _snn.csr_finalize(index, indptr, ids, dh, xq, qsq, counts,
                              return_distance, native)

@@ -272,6 +272,7 @@ def query_radius_csr(
     block: int = 512,
     query_tile: int = 128,
     native: bool = True,
+    packed: bool = True,
     mixed: bool = False,
     bucket: bool = True,
     fused: bool = True,
@@ -282,10 +283,13 @@ def query_radius_csr(
     ``radius`` is a scalar or a per-query (m,) vector in the native metric.
     Pass 1 counts each query's neighbours, device prefix sums turn the
     counts into CSR offsets, and pass 2 re-runs the identical predicate and
-    writes each survivor into its slot.  ``mixed=True`` runs pass 1 with
-    bf16 products under the margin certificate; ``bucket`` pads the batch to
-    the geometric ladder; ``fused`` lets a repeated batch shape run both
-    passes without a host sync.  None of them changes the result.
+    writes each survivor into its slot.  ``packed=True`` runs the packed
+    executor over the index's one-segment plan; ``packed=False`` the looped
+    executor (`engine.query_csr`) over the same segment, the cross-check.
+    ``mixed=True`` runs pass 1 with bf16 products under the margin
+    certificate; ``bucket`` pads the batch to the geometric ladder;
+    ``fused`` lets a repeated batch shape run both passes without a host
+    sync.  None of them changes the result.
 
     Runs on ``device`` (default: the CUDA device; raises without one unless
     ``device="cpu"``), through the index's cached plan on that device.
@@ -293,8 +297,9 @@ def query_radius_csr(
     from .join import single_query as _single_query
 
     return _single_query(index, q, radius, return_distance, block=block,
-                         query_tile=query_tile, native=native, mixed=mixed,
-                         bucket=bucket, fused=fused, device=device)
+                         query_tile=query_tile, native=native, packed=packed,
+                         mixed=mixed, bucket=bucket, fused=fused,
+                         device=device)
 
 
 def csr_finalize(index: SNNIndex, indptr, indices, fd, xq, qsq, counts,

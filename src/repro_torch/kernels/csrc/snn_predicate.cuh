@@ -17,6 +17,7 @@ namespace snn {
 
 constexpr float kBoxEps = 1e-2f;        // ref.BOX_EPS
 constexpr float kMixEps = 1.0f / 64.0f;  // ref.MIX_EPS
+constexpr int kBigBits = 0x7dffffff;     // ref.BIG = FLT_MAX / 8, exactly
 
 // Tile geometry: a block of kThreads threads owns kTQ queries x kTR rows of
 // one segment at a time; thread (ty, tx) holds queries ty*4 + i (i < 4) and

@@ -4,6 +4,16 @@
 //                     (the Pallas TPU kernel; _count_stacked_kernel, _count_tile).
 // snn_compact_stacked replaces src/repro/kernels/snn_query.py::snn_compact_stacked
 //                     (_compact_stacked_kernel).
+// snn_count           replaces src/repro/kernels/snn_query.py::snn_count and
+//                     snn_query_gpu.py::_partial_counts (one segment).
+// snn_compact         replaces src/repro/kernels/snn_query.py::snn_compact and
+//                     snn_query_gpu.py::snn_compact (one segment).
+//
+// The single-segment entry points launch the stacked kernels with S = 1: a
+// (n_pad, d_pad) segment is a stack of one, and a pack-flat id s*n_pad + row
+// is then the local row.  The looped executor (one launch per segment) and
+// the packed one (one launch per stack) thus run one compiled predicate, so
+// their outputs are bit-identical.
 //
 // What bounds them on an H100: both passes evaluate the distance predicate of
 // every (query, row) pair whose block the alpha window does not skip, up to
@@ -128,7 +138,9 @@ snn_count_stacked_kernel(Operands op, int* __restrict__ counts,
 // Scatter every survivor as (pack-flat id s*n_pad + row, dhalf) into the
 // flat CSR slot bases[s, k, blk] + (its rank among query k's survivors in
 // this row block).  Writes nothing when *total + 1 > nnz_cap: the fused path
-// launches this without reading the total on the host.
+// launches this without reading the total on the host.  With total null
+// (the single-segment entry point) there is no such guard; a slot outside
+// [0, nnz_cap - 1) is never written either way.
 __global__ void __launch_bounds__(kThreads)
 snn_compact_stacked_kernel(Operands op, const int* __restrict__ bases,
                            const int* __restrict__ total, int nnz_cap,
@@ -136,7 +148,7 @@ snn_compact_stacked_kernel(Operands op, const int* __restrict__ bases,
   __shared__ TileSmem sm;
   __shared__ int base[kTQ];
   __shared__ uint32_t mask[kTQ][kTR / 32];
-  if ((long long)*total + 1 > nnz_cap) return;
+  if (total && (long long)*total + 1 > nnz_cap) return;
   const int q0 = blockIdx.x * kTQ, blk = blockIdx.y, s = blockIdx.z;
   const int b0 = blk * op.bn, nb = op.n_pad / op.bn;
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4, lane = t & 31;
@@ -262,4 +274,27 @@ extern "C" int snn_compact_stacked(const float* q, const float* aq,
                                static_cast<cudaStream_t>(stream)>>>(
       op, bases, total, nnz_cap, idx, dh);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One segment: the kernels above with S = 1 (xs (n_pad, d_pad), al/hn
+// (n_pad,), px (ke, n_pad), counts (m_pad,), partials (m_pad, n_pad / bn),
+// bases (m_pad, n_pad / bn)); idx receives local rows.
+extern "C" int snn_count(const float* q, const float* aq, const float* r,
+                         const float* th, const float* xs, const float* al,
+                         const float* hn, const float* pq, const float* px,
+                         int m_pad, int n_pad, int d_pad, int ke, int bn,
+                         int mixed, int* counts, int* partials, void* stream) {
+  return snn_count_stacked(q, aq, r, th, xs, al, hn, pq, px, 1, m_pad, n_pad,
+                           d_pad, ke, bn, mixed, counts, partials, stream);
+}
+
+extern "C" int snn_compact(const float* q, const float* aq, const float* r,
+                           const float* th, const float* xs, const float* al,
+                           const float* hn, const float* pq, const float* px,
+                           int m_pad, int n_pad, int d_pad, int ke, int bn,
+                           const int* bases, int nnz_cap, int* idx, float* dh,
+                           void* stream) {
+  return snn_compact_stacked(q, aq, r, th, xs, al, hn, pq, px, 1, m_pad,
+                             n_pad, d_pad, ke, bn, bases, nullptr, nnz_cap,
+                             idx, dh, stream);
 }

@@ -11,12 +11,17 @@ The counterpart of ``repro.kernels.ops``, with the same contract:
 Database padding runs on the tensors' own device; queries are prepared and
 padded on the host in numpy, as in the reference, and the engine moves them
 to the device once per batch.
+
+`snn_filter`, `snn_count` and `snn_compact` are the public single-segment
+ops over padded operands, dispatched by `kernels.registry` (the CUDA
+kernels for CUDA tensors, the plain versions for CPU tensors).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import registry as _registry
 from .ref import BIG
 
 
@@ -86,3 +91,33 @@ def csr_capacity(total_neighbors: int, lane: int = 128) -> int:
     while cap < need:
         cap *= 2
     return cap
+
+
+def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
+               bn: int = 512):
+    """Masked half distances (m_pad, n_pad): ``hn - q.x`` where the window,
+    radius and (with ``pq``/``px``, the (ke, m_pad) / (ke, n_pad) extra
+    projections) box tests keep the pair, +BIG elsewhere."""
+    return _registry.snn_filter(q, aq, r, thresh, xs, alphas, half_norms,
+                                pq, px, bn=bn)
+
+
+def snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
+              bn: int = 512, mixed: bool = False):
+    """Per-query neighbour counts (m_pad,) int32 over one segment;
+    ``mixed=True`` counts with bf16 products under the margin certificate
+    (the counts stay the float32 counts)."""
+    return _registry.snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq,
+                               px, bn=bn, mixed=mixed)
+
+
+def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
+                px=None, *, nnz: int, bn: int = 512):
+    """Pass-2 CSR compaction over one segment.
+
+    Returns (idx (nnz,) int32 sorted-row positions, dhalf (nnz,) f32);
+    query k's survivors fill slots ``offsets[k]`` onward, and the other
+    slots, the trailing trash slot included, hold -1 / +BIG.
+    """
+    return _registry.snn_compact(q, aq, r, thresh, offsets, xs, alphas,
+                                 half_norms, pq, px, nnz=nnz, bn=bn)

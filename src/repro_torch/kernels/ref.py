@@ -103,6 +103,52 @@ def snn_filter_ref(q, aq, r, thresh, xs, alphas, half_norms,
     return torch.where(keep, dhalf, torch.full_like(dhalf, BIG))
 
 
+def snn_count_ref(q, aq, r, thresh, xs, alphas, half_norms, pq=None,
+                  px=None, *, bn: int = 512, mixed: bool = False,
+                  with_partials: bool = False):
+    """Plain version of `kernels.snn_query.snn_count`: per-query survivor
+    counts (m,) int32 over one segment (``mixed`` = the bf16 count pass),
+    and with ``with_partials`` also the (m, n_pad // bn) per-row-block
+    counts."""
+    if mixed:
+        keep = mixed_keep_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                              pq, px)
+    else:
+        keep = snn_filter_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                              pq, px) < BIG
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    if not with_partials:
+        return counts
+    m, n_pad = keep.shape
+    return counts, keep.reshape(m, n_pad // bn, bn).sum(dim=2,
+                                                        dtype=torch.int32)
+
+
+def snn_compact_ref(q, aq, r, thresh, offsets, xs, alphas, half_norms,
+                    pq=None, px=None, *, nnz: int, partials=None):
+    """Plain version of `kernels.snn_query.snn_compact`.
+
+    Survivor j of query k (in ascending row order) lands in flat slot
+    ``offsets[k] + j`` as (local sorted row, dhalf).  ``nnz`` includes one
+    trailing trash slot; a slot outside ``[0, nnz - 1)`` is not written, and
+    unwritten slots, the trash slot included, hold -1 / +BIG.  ``partials``
+    is accepted for the kernel's signature and not needed here.
+    """
+    del partials
+    dev = q.device
+    out_idx = torch.full((nnz,), -1, dtype=torch.int32, device=dev)
+    out_dh = torch.full((nnz,), BIG, dtype=torch.float32, device=dev)
+    dh = snn_filter_ref(q, aq, r, thresh, xs, alphas, half_norms, pq, px)
+    keep = dh < BIG
+    within = torch.cumsum(keep, dim=1) - 1
+    rows, cols = torch.nonzero(keep, as_tuple=True)
+    slots = offsets[rows].to(torch.int64) + within[rows, cols]
+    ok = (slots >= 0) & (slots < nnz - 1)
+    out_idx[slots[ok]] = cols[ok].to(torch.int32)
+    out_dh[slots[ok]] = dh[rows[ok], cols[ok]]
+    return out_idx, out_dh
+
+
 def _flatten_stacked(xs, alphas, half_norms, px):
     """A (S, n_pad, d) stack as one (S*n_pad, d) database (pack-flat rows);
     ``px`` (S, ke, n_pad) becomes (ke, S*n_pad)."""

@@ -6,6 +6,17 @@ made per call and has one rule: CUDA tensors go to the hand-written kernels
 No environment variable, lane name or fallback sends a CUDA tensor to a
 plain version; a tensor on any other device raises.
 
+The entry points, each with the launch it makes on the card:
+
+* `snn_count_stacked` / `snn_compact_stacked`: the packed executor's two
+  passes, one launch each over a (S, n_pad, d_pad) segment stack, grid
+  (m_pad / 64, n_pad / bn, S);
+* `snn_count` / `snn_compact`: the looped executor's two passes over one
+  (n_pad, d_pad) segment, the same kernels on a stack of one, grid
+  (m_pad / 64, n_pad / bn, 1);
+* `snn_filter`: the dense (m_pad, n_pad) masked half distances, grid
+  (m_pad / 64, n_pad / bn); `snn_filter_stacked` flattens a stack into it.
+
 Every call also records a (op, shapes, static arguments) launch signature;
 the first sighting of a signature bumps ``engine.DISPATCH_STATS.
 jit_compiles``, the measure of how many distinct launch shapes a stream of
@@ -103,3 +114,58 @@ def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
     return _ref.snn_compact_stacked_ref(q, aq, r, thresh, offsets, xs, alphas,
                                         half_norms, pq, px, nnz=nnz,
                                         partials=partials)
+
+
+def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None,
+               *, bn: int = 512):
+    """Dense masked half distances (m_pad, n_pad) f32 over one segment."""
+    note_launch_signature("snn_filter", _sig(q, xs, pq, bn=bn))
+    if _on_card(xs):
+        return _kernels.snn_filter(q, aq, r, thresh, xs, alphas, half_norms,
+                                   pq, px, bn=bn)
+    return _ref.snn_filter_ref(q, aq, r, thresh, xs, alphas, half_norms, pq,
+                               px)
+
+
+def snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
+              bn: int = 512, mixed: bool = False,
+              with_partials: bool = False):
+    """Looped pass 1: per-query counts (m_pad,) int32 over one segment (and
+    the (m_pad, n_pad // bn) per-row-block partials with
+    ``with_partials``)."""
+    note_launch_signature("snn_count", _sig(q, xs, pq, bn=bn, mixed=mixed))
+    fn = _kernels.snn_count if _on_card(xs) else _ref.snn_count_ref
+    return fn(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn=bn,
+              mixed=mixed, with_partials=with_partials)
+
+
+def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
+                px=None, *, nnz: int, bn: int = 512, partials=None):
+    """Looped pass 2: (idx (nnz,) int32 local rows, dhalf (nnz,) f32)."""
+    note_launch_signature("snn_compact", _sig(q, xs, pq, bn=bn,
+                                              nnz=int(nnz)))
+    if _on_card(xs):
+        return _kernels.snn_compact(q, aq, r, thresh, offsets, xs, alphas,
+                                    half_norms, pq, px, nnz=nnz, bn=bn,
+                                    partials=partials)
+    return _ref.snn_compact_ref(q, aq, r, thresh, offsets, xs, alphas,
+                                half_norms, pq, px, nnz=nnz,
+                                partials=partials)
+
+
+def snn_filter_stacked(q, aq, r, thresh, xs, alphas, half_norms, pq=None,
+                       px=None, *, bn: int = 512):
+    """(m_pad, S * n_pad) masked half distances over a (S, n_pad, d_pad)
+    stack, columns pack-flat (``s * n_pad + row``).
+
+    The stack flattens into one database and goes through `snn_filter`:
+    every segment is padded to a block multiple, so no row block straddles
+    two segments and the per-block window skip is as sharp as per segment.
+    """
+    S, n_pad, d = xs.shape
+    px2 = None
+    if px is not None:
+        px2 = px.permute(1, 0, 2).reshape(px.shape[1], S * n_pad)
+    return snn_filter(q, aq, r, thresh, xs.reshape(S * n_pad, d),
+                      alphas.reshape(-1), half_norms.reshape(-1), pq,
+                      None if px2 is None else px2.contiguous(), bn=bn)

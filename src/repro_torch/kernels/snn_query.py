@@ -1,23 +1,31 @@
 """The hand-written CUDA kernels of the query hot loop, and their wrappers.
 
-Two kernels, both in ``csrc/snn_query.cu`` on the shared predicate of
-``csrc/snn_predicate.cuh``:
+Five entry points on the shared predicate of ``csrc/snn_predicate.cuh``:
 
-* `snn_count_stacked` replaces the Pallas TPU kernel
+* `snn_count_stacked` (``csrc/snn_query.cu``) replaces the Pallas TPU kernel
   ``repro.kernels.snn_query.snn_count_stacked``: per-(segment, query)
   survivor counts over a (S, n_pad, d_pad) stack of segments, with the
   optional bf16 count pass (``mixed=True``) under the margin certificate.
-* `snn_compact_stacked` replaces ``repro.kernels.snn_query.
-  snn_compact_stacked``: it re-runs the predicate and writes every survivor
-  as (pack-flat id ``s * n_pad + row``, dhalf) into its flat CSR slot.
+* `snn_compact_stacked` (``csrc/snn_query.cu``) replaces ``repro.kernels.
+  snn_query.snn_compact_stacked``: it re-runs the predicate and writes every
+  survivor as (pack-flat id ``s * n_pad + row``, dhalf) into its flat CSR
+  slot.
+* `snn_count` and `snn_compact` (``csrc/snn_query.cu``) replace the
+  single-segment ``snn_query.snn_count`` / ``snn_compact``: the two stacked
+  kernels launched on a stack of one, so the looped and the packed executor
+  evaluate one compiled predicate.
+* `snn_filter` (``csrc/snn_filter.cu``) replaces ``snn_query.snn_filter``:
+  the dense (m_pad, n_pad) masked half distances, +BIG where a pair is
+  pruned.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``_build/`` beside this file (a directory the repository ignores), and bound
-with ctypes through a plain C interface.  Each wrapper checks its operands,
-allocates its outputs with torch, launches on the current stream, raises if
-the launch fails, and counts its launches in its ``launches`` attribute.
-The wrappers take CUDA tensors only; `kernels.registry` sends CPU tensors to
-the plain versions in `kernels.ref`.
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
+``nvcc`` per source, all started together, then linked into one shared
+library in ``_build/`` beside this file (a directory the repository
+ignores), and bound with ctypes through a plain C interface.  Each wrapper
+checks its operands, allocates its outputs with torch, launches on the
+current stream, raises if the launch fails, and counts its launches in its
+``launches`` attribute.  The wrappers take CUDA tensors only;
+`kernels.registry` sends CPU tensors to the plain versions in `kernels.ref`.
 """
 from __future__ import annotations
 
@@ -34,13 +42,12 @@ from .ref import BIG
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("snn_query.cu",)
+SOURCES = ("snn_query.cu", "snn_filter.cu")
 HEADERS = ("snn_predicate.cuh",)
 # no fast math: the sentinels need IEEE inf/NaN, and --fmad=false leaves the
 # explicit fmaf of the dot products as the only contracted multiply-adds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 ROW_TILE = 128    # rows per sub-tile (csrc: kTR); bn must be a multiple
 
@@ -61,7 +68,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels if this exact source has not been built yet, and
     return the shared library's path.  The file name carries a hash of the
-    sources and flags, so an edited source is rebuilt."""
+    sources and flags, so an edited source is rebuilt.  Each source compiles
+    in its own ``nvcc`` process, all at once; one more links them."""
     global _build_log
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
@@ -70,14 +78,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(SOURCE_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_build_log}")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(src).stem}-{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(SOURCE_DIR / src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [f"{src}:\n{p.communicate()[0]}" for src, p in zip(SOURCES, procs)]
+    _build_log = "".join(logs)
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{_build_log}")
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        _build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{_build_log}")
+        os.replace(tmp, lib)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 
@@ -99,6 +124,13 @@ def _library() -> ctypes.CDLL:
             lib.snn_compact_stacked.argtypes = operands + [ptr, ptr, i32, ptr,
                                                            ptr, ptr]
             lib.snn_compact_stacked.restype = i32
+            single = [ptr] * 9 + [i32] * 5
+            lib.snn_count.argtypes = single + [i32, ptr, ptr, ptr]
+            lib.snn_count.restype = i32
+            lib.snn_compact.argtypes = single + [ptr, i32, ptr, ptr, ptr]
+            lib.snn_compact.restype = i32
+            lib.snn_filter.argtypes = single + [ptr, ptr]
+            lib.snn_filter.restype = i32
             _lib = lib
     return _lib
 
@@ -247,6 +279,130 @@ def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
 snn_compact_stacked.launches = 0
 
 
+def _check_single(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
+    """Validate one segment's operands as a stack of one; returns
+    (m_pad, n_pad, d_pad, ke)."""
+    if not (isinstance(xs, torch.Tensor) and xs.is_cuda):
+        raise ValueError("the CUDA kernels take CUDA tensors; "
+                         f"got {getattr(xs, 'device', type(xs))}")
+    if xs.dim() != 2:
+        raise ValueError(f"xs must be (n_pad, d_pad), got {tuple(xs.shape)}")
+    _, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs[None], alphas[None], half_norms[None], pq,
+        None if px is None else px[None], bn)
+    return m_pad, n_pad, d_pad, ke
+
+
+def snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
+              bn: int = 512, mixed: bool = False,
+              with_partials: bool = False):
+    """Per-query survivor counts (m_pad,) int32 over one segment.
+
+    ``xs`` (n_pad, d_pad), ``alphas``/``half_norms`` (n_pad,), ``px``
+    (ke, n_pad): the count kernel of `snn_count_stacked` at S = 1, the same
+    compiled predicate.  ``with_partials`` also returns the (m_pad,
+    n_pad // bn) per-row-block counts `snn_compact` takes.
+    """
+    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
+                                            half_norms, pq, px, bn)
+    dev = xs.device
+    counts = torch.zeros((m_pad,), dtype=torch.int32, device=dev)
+    partials = None
+    if with_partials:
+        partials = torch.empty((m_pad, n_pad // bn), dtype=torch.int32,
+                               device=dev)
+    if m_pad and n_pad:
+        rc = _library().snn_count(
+            _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
+            _ptr(half_norms), _ptr(pq), _ptr(px), m_pad, n_pad, d_pad, ke, bn,
+            int(bool(mixed)), _ptr(counts), _ptr(partials), _stream(dev))
+        if rc != 0:
+            raise RuntimeError(f"snn_count launch failed: CUDA error {rc}")
+        snn_count.launches += 1
+    return (counts, partials) if with_partials else counts
+
+
+snn_count.launches = 0
+
+
+def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
+                px=None, *, nnz: int, bn: int = 512, partials=None):
+    """Scatter one segment's survivors into flat CSR, in one launch.
+
+    ``offsets`` (m_pad,) int32 is the flat slot of query k's first survivor;
+    ``nnz`` the flat capacity including one trailing trash slot.  Returns
+    (idx (nnz,) int32 local sorted rows, dhalf (nnz,) float32), ascending in
+    row order within each query, with -1 / +BIG in unwritten slots and in
+    the trash slot; a slot outside ``[0, nnz - 1)`` is not written.
+    ``partials`` is `snn_count`'s per-row-block output, which gives every
+    row block its own write base (the blocks run in parallel); without it
+    this wrapper launches `snn_count` to get it.
+    """
+    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
+                                            half_norms, pq, px, bn)
+    dev = xs.device
+    nb = n_pad // bn
+    if offsets.device != dev or offsets.dtype != torch.int32 \
+            or tuple(offsets.shape) != (m_pad,):
+        raise ValueError(f"offsets must be int32 ({m_pad},) on {dev}")
+    if int(nnz) < 1:
+        raise ValueError(f"nnz={nnz} must leave room for the trash slot")
+    idx = torch.full((nnz,), -1, dtype=torch.int32, device=dev)
+    dh = torch.full((nnz,), BIG, dtype=torch.float32, device=dev)
+    if not (m_pad and n_pad):
+        return idx, dh
+    if partials is None:
+        _, partials = snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq,
+                                px, bn=bn, with_partials=True)
+    if partials.device != dev or partials.dtype != torch.int32 \
+            or tuple(partials.shape) != (m_pad, nb):
+        raise ValueError(f"partials must be int32 ({m_pad}, {nb}) on {dev}")
+    bases = offsets[:, None] + (torch.cumsum(partials, 1, dtype=torch.int32)
+                                - partials)
+    rc = _library().snn_compact(
+        _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
+        _ptr(half_norms), _ptr(pq), _ptr(px), m_pad, n_pad, d_pad, ke, bn,
+        _ptr(bases), int(nnz), _ptr(idx), _ptr(dh), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"snn_compact launch failed: CUDA error {rc}")
+    snn_compact.launches += 1
+    return idx, dh
+
+
+snn_compact.launches = 0
+
+
+def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
+               bn: int = 512):
+    """Masked half distances (m_pad, n_pad) float32 over one segment.
+
+    ``hn - q.x`` where the window, radius and box tests keep the pair, +BIG
+    elsewhere; row blocks that no query window of a 64-query tile meets are
+    written +BIG without a product.
+    """
+    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
+                                            half_norms, pq, px, bn)
+    dev = xs.device
+    if not (m_pad and n_pad):
+        return torch.full((m_pad, n_pad), BIG, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((m_pad, n_pad), dtype=torch.float32, device=dev)
+    rc = _library().snn_filter(
+        _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
+        _ptr(half_norms), _ptr(pq), _ptr(px), m_pad, n_pad, d_pad, ke, bn,
+        _ptr(out), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"snn_filter launch failed: CUDA error {rc}")
+    snn_filter.launches += 1
+    return out
+
+
+snn_filter.launches = 0
+
+KERNELS = (snn_count_stacked, snn_compact_stacked, snn_count, snn_compact,
+           snn_filter)
+
+
 def reset_launch_counts() -> None:
-    snn_count_stacked.launches = 0
-    snn_compact_stacked.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0

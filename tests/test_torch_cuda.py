@@ -10,15 +10,19 @@ Inputs are integer lattices, on which every product and threshold is exact
 in float32: kernels and plain versions must agree with zero tolerance, and
 the main path on the card must equal the same path on the CPU.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import join as tjoin
 from repro_torch.core import snn as tsnn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import snn_query as tsq
+
+# the package exports the function `join`, which shadows the module name
+tjoin = importlib.import_module("repro_torch.core.join")
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +117,80 @@ def test_main_path_on_the_card_equals_the_cpu(card):
         np.testing.assert_array_equal(got.distances, want.distances)
     np.testing.assert_array_equal(tjoin.query_counts(idx, q, radius),
                                   np.diff(want.indptr))
+
+
+def _lattice_segment(card, seed, ke):
+    """One lattice segment (a stack of one, unstacked) on the card."""
+    q, aq, r, th, xs, al, hn, pq, px = _lattice_stack(seed, ke, S=1,
+                                                      n_pad=1024)
+    return [None if t is None else t.to(card).contiguous()
+            for t in (q, aq, r, th, xs[0], al[0], hn[0], pq,
+                      None if px is None else px[0])]
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_cuda_snn_filter_matches_plain(card, ke):
+    ops = _lattice_segment(card, 41 + ke, ke)
+    tsq.reset_launch_counts()
+    got = tsq.snn_filter(*ops, bn=256)
+    want = tref.snn_filter_ref(*ops)
+    torch.cuda.synchronize()
+    assert tsq.snn_filter.launches == 1
+    assert 0 < int((want < tref.BIG).sum()) < want.numel()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cuda_snn_count_matches_plain(card, ke, mixed):
+    ops = _lattice_segment(card, 51 + ke, ke)
+    got, part = tsq.snn_count(*ops, bn=256, mixed=mixed, with_partials=True)
+    want, want_part = tref.snn_count_ref(*ops, bn=256, with_partials=True)
+    torch.cuda.synchronize()
+    assert int(want.sum()) > 0
+    assert torch.equal(got, want) and torch.equal(part, want_part)
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_cuda_snn_compact_matches_plain(card, ke):
+    q, aq, r, th, xs, al, hn, pq, px = _lattice_segment(card, 61 + ke, ke)
+    counts = tref.snn_count_ref(q, aq, r, th, xs, al, hn, pq, px)
+    total = int(counts.sum())
+    off = (torch.cumsum(counts, 0, dtype=torch.int32) - counts) + 5
+    nnz = tops.csr_capacity(total + 5)
+    want = tref.snn_compact_ref(q, aq, r, th, off, xs, al, hn, pq, px,
+                                nnz=nnz)
+    for handed in (True, False):
+        part = tsq.snn_count(q, aq, r, th, xs, al, hn, pq, px, bn=256,
+                             with_partials=True)[1] if handed else None
+        ki, kd = tsq.snn_compact(q, aq, r, th, off, xs, al, hn, pq, px,
+                                 nnz=nnz, bn=256, partials=part)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, want[0])
+        assert torch.equal(kd.view(torch.int32), want[1].view(torch.int32))
+        assert bool((ki[:5] == -1).all()) and bool((ki[5:5 + total] >= 0)
+                                                   .all())
+        assert bool((ki[5 + total:] == -1).all())
+
+
+def test_looped_and_packed_graph_on_the_card_equal_the_cpu(card):
+    from repro_torch.core import graph as tgraph
+
+    # a point set symmetric about 0 has mean 0 exactly, so the centred rows
+    # stay integer and every predicate is exact on both devices
+    rng = np.random.default_rng(3)
+    pts = rng.integers(-4, 5, size=(1500, 6)).astype(np.float32)
+    x = np.concatenate([pts, -pts])
+    cpu_idx = tsnn.build_index(x, device="cpu")
+    idx = tsnn.index_from_arrays(cpu_idx.mu, cpu_idx.v1, cpu_idx.xs.numpy(),
+                                 cpu_idx.alphas.numpy(),
+                                 cpu_idx.half_norms.numpy(), cpu_idx.order,
+                                 vs=cpu_idx.vs, projs=cpu_idx.projs.numpy())
+    want = tgraph.build_neighbor_graph(x, 3.0, index=cpu_idx, device="cpu")
+    tsq.reset_launch_counts()
+    for kw in (dict(), dict(packed=False), dict(symmetric=True)):
+        got = tgraph.build_neighbor_graph(x, 3.0, index=idx, **kw)
+        np.testing.assert_array_equal(got.indptr, want.indptr)
+        np.testing.assert_array_equal(got.indices, want.indices)
+    assert tsq.snn_count.launches > 0 and tsq.snn_compact.launches > 0
+    assert tsq.snn_count_stacked.launches > 0

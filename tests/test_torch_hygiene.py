@@ -7,14 +7,17 @@
   ``device="cpu"``.
 """
 import ast
+import importlib
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import join as tjoin
 from repro_torch.core import snn as tsnn
+
+# the package exports the function `join`, which shadows the module name
+tjoin = importlib.import_module("repro_torch.core.join")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -208,3 +208,129 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 bn=128)
     assert tsq.snn_count_stacked.launches == 0
     assert tsq.snn_compact_stacked.launches == 0
+
+
+# --------------------------------------------------------------------------- #
+# the single-segment kernels: snn_filter, snn_count, snn_compact               #
+# --------------------------------------------------------------------------- #
+def _lattice_segment(seed, ke, n_pad=1024, d=128, m=100, m_pad=128):
+    """One segment of sparse ternary lattice points in d = 128 (alpha =
+    coordinate 0, shifted so windows prune blocks; the extra projections =
+    coordinates 1..ke) and lattice queries: every product and threshold is
+    exact in float32."""
+    rng = np.random.default_rng(seed)
+    big = np.float32(jref.BIG)
+    n = n_pad - 90
+
+    def points(k):
+        p = rng.integers(-1, 2, size=(k, d)) * (rng.random((k, d)) < 0.06)
+        p = p.astype(np.float32)
+        p[:, 0] += rng.integers(0, 12, size=k)
+        return p
+
+    pts = points(n)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]
+    xs = np.zeros((n_pad, d), np.float32)
+    xs[:n] = pts
+    al = np.full(n_pad, big, np.float32)
+    al[:n] = pts[:, 0]
+    hn = np.full(n_pad, big, np.float32)
+    hn[:n] = 0.5 * np.sum(pts * pts, axis=1)
+    px = np.full((ke, n_pad), big, np.float32)
+    px[:, :n] = pts[:, 1:1 + ke].T
+    qi = points(m)
+    r = rng.choice([2.0, 2.5, 3.0, 3.5], size=m).astype(np.float32)
+    th = ((r * r - np.sum(qi * qi, axis=1)) / 2.0).astype(np.float32)
+    q, aq, r, th, _ = tops.pad_queries(qi, qi[:, 0], r, th, tq=m_pad)
+    pq = tops.pad_components(qi[:, 1:1 + ke].T, m_pad)
+    return q, aq, r, th, xs, al, hn, (pq if ke else None), (px if ke else None)
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_plain_filter_matches_pallas_tpu_interpret(ke):
+    ops = _lattice_segment(41 + ke, ke)
+    want = np.asarray(jsq.snn_filter(*_jax(ops), tq=128, bn=512,
+                                     interpret=True))
+    got = tref.snn_filter_ref(*_torch(ops)).numpy()
+    finite = want < jref.BIG
+    assert 0 < finite.sum() < finite.size
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_plain_count_matches_pallas_tpu_interpret(ke, mixed):
+    ops = _lattice_segment(51 + ke, ke)
+    want = np.asarray(jsq.snn_count(*_jax(ops), tq=128, bn=512,
+                                    interpret=True, mixed=mixed))
+    got, partials = tref.snn_count_ref(*_torch(ops), bn=512, mixed=mixed,
+                                       with_partials=True)
+    assert want.sum() > 0 and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert tuple(partials.shape) == (128, 2)
+    np.testing.assert_array_equal(partials.sum(dim=1).numpy(), want)
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_plain_compact_matches_pallas_tpu_interpret(ke):
+    ops = _lattice_segment(61 + ke, ke)
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    counts = tref.snn_count_ref(*_torch(ops)).numpy().astype(np.int64)
+    total = int(counts.sum())
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    nnz = tops.csr_capacity(total)
+    ki, kd = jsq.snn_compact(*_jax((q, aq, r, th, offsets)),
+                             *_jax((xs, al, hn, pq, px)), nnz=nnz, tq=128,
+                             bn=512, interpret=True)
+    ti, td = tref.snn_compact_ref(*_torch((q, aq, r, th, offsets)),
+                                  *_torch((xs, al, hn, pq, px)), nnz=nnz)
+    assert total > 0 and ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ki))
+    np.testing.assert_array_equal(td.numpy().view(np.int32),
+                                  np.asarray(kd).view(np.int32))
+    # -1 / +BIG in every unwritten slot and the trash slot; data all written
+    assert (ti.numpy()[total:] == -1).all()
+    assert (td.numpy()[total:] == tref.BIG).all()
+    assert (ti.numpy()[:total] >= 0).all()
+
+
+def test_single_segment_ops_dispatch_to_plain_versions():
+    ops = _torch(_lattice_segment(71, 2))
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    tsq.reset_launch_counts()
+    treg.reset_compile_counts()
+    dh = tops.snn_filter(*ops)
+    counts = tops.snn_count(*ops)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  (dh < tref.BIG).sum(dim=1).numpy())
+    off = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    nnz = tops.csr_capacity(int(counts.sum()))
+    idx, dhc = tops.snn_compact(q, aq, r, th, off, xs, al, hn, pq, px,
+                                nnz=nnz)
+    rows, cols = torch.nonzero(dh < tref.BIG, as_tuple=True)
+    np.testing.assert_array_equal(idx[:rows.numel()].numpy(), cols.numpy())
+    np.testing.assert_array_equal(dhc[:rows.numel()].numpy(),
+                                  dh[rows, cols].numpy())
+    # the stacked filter is the single one over the flattened stack, its
+    # columns pack-flat: cut the segment into a stack of two and compare
+    px2 = px.reshape(2, 2, 512).permute(1, 0, 2).contiguous()
+    st = treg.snn_filter_stacked(q, aq, r, th, xs.reshape(2, 512, -1),
+                                 al.reshape(2, 512), hn.reshape(2, 512), pq,
+                                 px2, bn=512)
+    assert torch.equal(st, dh)
+    assert all(fn.launches == 0 for fn in tsq.KERNELS)
+    assert set(treg.compile_counts()) >= {"snn_filter", "snn_count",
+                                          "snn_compact"}
+
+
+def test_single_segment_wrappers_refuse_cpu_tensors():
+    ops = _torch(_lattice_segment(72, 0))
+    q, aq, r, th, xs, al, hn, _, _ = ops
+    off = torch.zeros(q.shape[0], dtype=torch.int32)
+    for call in (lambda: tsq.snn_filter(*ops),
+                 lambda: tsq.snn_count(*ops),
+                 lambda: tsq.snn_compact(q, aq, r, th, off, xs, al, hn,
+                                         nnz=128)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert all(fn.launches == 0 for fn in tsq.KERNELS)

@@ -16,14 +16,18 @@ native distances to rtol 1e-5.  On the exact constructions of
 there is no rounding at all, and results must be identical to the
 reference and to a float64 oracle.
 """
+import importlib
+
 import numpy as np
 import pytest
 
 from repro.core import snn as jsnn
 from repro_torch.core import engine as tengine
-from repro_torch.core import join as tjoin
 from repro_torch.core import snn as tsnn
 from repro_torch.kernels import ops as tops
+
+# the package exports the function `join`, which shadows the module name
+tjoin = importlib.import_module("repro_torch.core.join")
 
 EPS32 = 2.0 ** -23
 
