@@ -5,14 +5,16 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs four phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs five phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
    lattice inputs where every product is exact: the stacked count and
    compact, the single-segment count, compact and filter; counts equal,
    flat ids equal, dhalf bit-equal, sentinels in unwritten and trash slots,
-   the overflow guard writing nothing;
+   the overflow guard writing nothing; and embedding_bag bit for bit on
+   integer-valued float32 and bfloat16 tables (D 1/32/64/128, bags of
+   1/40/100 ids with -1 padding and an all-padding bag, sum and mean);
 2. the port's main path at full size, on the SIFT-1M deployment of
    ``benchmarks/bench_table45_realworld.py`` (n = 1,000,000, d = 128,
    euclidean; data from that bench's stand-in recipe, seeded): ``build_index``
@@ -29,7 +31,18 @@ or note, and each phase's time:
    chunk's live stack, and the looped executor over 8 sampled query chunks
    bit-identical to the packed one;
 3. each kernel's time at the shapes its path gives it beside its plain
-   version, its bound and one PyTorch call of the same product.
+   version, its bound and one PyTorch call of the same product;
+4. the recsys serving path through ``launch.steps.build_step`` at full
+   width: DLRM (the MLPerf stacked table, 187,767,424 x 128 bfloat16,
+   48.07 GB), Wide & Deep and MIND, each at ``serve_p99`` (512) and
+   ``serve_bulk`` (262,144), DLRM also on a batch drawn from each field's
+   whole vocabulary; per step the embedding_bag launches, 512 sampled
+   outputs against a float64 forward (and a TF32 control), the batch time,
+   and each lookup's ids held against the plain version bit for bit and
+   timed beside it, F.embedding_bag and the bound; the last rows of the
+   48 GB table; MIND's ``retrieval_cand`` (GEMM + top-100 over 1,000,000
+   items) and ``retrieve_above`` of its 4 capsules against a float64 brute
+   force.
 
 Exits non-zero on any failed check, and without a CUDA device.  The last
 lines are the kernel table as JSON, the card's name and power limit, and
@@ -258,6 +271,42 @@ def single_segment_checks(torch, chk: Checks, K, ref, ops_mod, args, seg,
            f"snn_filter {tag}: bit-equal to plain, {total} finite entries")
 
 
+def phase_bag_lattice(torch, chk: Checks, K, ref, ops_mod) -> None:
+    """embedding_bag against its plain version on integer-valued tables:
+    float32 and bfloat16, D in {1, 32, 64, 128}, F in {1, 40, 100}, a fifth
+    of the ids -1 and one bag all padding; sums reach 400 in magnitude, so
+    bfloat16 rounds on the way (after each add, in slot order, on both
+    sides).  Sum and mean mode bit for bit."""
+    print("phase 1b: embedding_bag vs its plain version on lattice tables")
+    rng = np.random.default_rng(SEED + 10)
+    n_bags, n_rows = 300, 1000
+    for dtype in (torch.float32, torch.bfloat16):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for d in (1, 32, 64, 128):
+            same = padded_zero = 0
+            for f in (1, 40, 100):
+                ids = rng.integers(0, n_rows, (n_bags, f)).astype(np.int32)
+                ids[rng.random((n_bags, f)) < 0.2] = -1
+                ids[1, :] = -1
+                tab = rng.integers(-4, 5, (n_rows, d)).astype(np.float32)
+                ids_d = torch.from_numpy(ids).to(DEVICE)
+                tab_d = torch.from_numpy(tab).to(DEVICE).to(dtype)
+                k = K.embedding_bag(ids_d, tab_d)
+                p = ref.embedding_bag_ref(ids_d, tab_d)
+                km = ops_mod.embedding_bag(ids_d, tab_d, mode="mean")
+                pm = ops_mod.embedding_bag(ids_d.cpu(), tab_d.cpu(),
+                                           mode="mean")
+                torch.cuda.synchronize()
+                same += int(torch.equal(k.view(bits), p.view(bits))
+                            and torch.equal(km.cpu().view(bits),
+                                            pm.view(bits)))
+                padded_zero += int(not bool(k[1].any()))
+            chk.ok(same == 3 and padded_zero == 3,
+                   f"embedding_bag {str(dtype)[6:]} D={d}, F=1/40/100: "
+                   f"kernel == plain bit for bit in sum and mean mode "
+                   f"({same}/3), the all-padding bag zero ({padded_zero}/3)")
+
+
 # --------------------------------------------------------------------------- #
 # phase 2                                                                      #
 # --------------------------------------------------------------------------- #
@@ -278,13 +327,15 @@ def oracle_rows(index, xs64, hn64, q: np.ndarray, radius: float):
     """Float64 brute force over the index's own float32 rows: per query the
     sorted positions with ||x - q||^2 <= r^2 (as dhalf64 <= thresh64), the
     dhalf64 values, thresh64 and the rounding band's half width
-    d * 2^-23 * (hn + sum_k |q_k x_k|) + 2^-23 * |thresh|."""
+    d * 2^-23 * (hn + sum_k |q_k x_k|) + 2^-23 * |thresh| (d the index's
+    width, 65 for the lifted MIPS index)."""
     xq, r = index.prepare_queries(q, radius)
     xq64 = xq.astype(np.float64)
     thresh64 = (r * r - np.einsum("ij,ij->i", xq64, xq64)) / 2.0
     dhalf64 = hn64[:, None] - xs64 @ xq64.T
     absdot = np.abs(xs64) @ np.abs(xq64).T
-    tol = DIM * EPS32 * (hn64[:, None] + absdot) + EPS32 * np.abs(thresh64)
+    tol = (xs64.shape[1] * EPS32 * (hn64[:, None] + absdot)
+           + EPS32 * np.abs(thresh64))
     return dhalf64, thresh64, tol
 
 
@@ -935,6 +986,427 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 4                                                                      #
+# --------------------------------------------------------------------------- #
+# embedding_bag launches per forward of each model's serve step
+LOOKUPS = {"dlrm-mlperf": 1, "wide-deep": 2, "mind": 1}
+N_SAMPLE = 512
+# outputs against float64: float32 GEMMs summed in another order stay near
+# 2^-20 of an output's scale at these depths (up to 8 layers, K <= 1293);
+# TF32 products (inputs rounded to 2^-11) land near 2^-10 and bfloat16 near
+# 2^-7, so 2^-14 of the scale refuses both and passes float32
+REL_TOL = 2.0 ** -14
+
+
+def path_bags(rs, arch: str, model, batch):
+    """(name, ids, table) of every lookup a serve step of ``arch`` makes,
+    with the ids the model hands the kernel."""
+    if arch == "dlrm-mlperf":
+        return [("lookup", rs.lookup_ids(batch["sparse"], model.offsets),
+                 model.table)]
+    if arch == "wide-deep":
+        return [("deep lookup", rs.lookup_ids(batch["sparse"], model.offsets),
+                 model.emb),
+                ("wide bag", batch["sparse"] + model.offsets[None, :],
+                 model.wide)]
+    return [("history gather", batch["hist"].reshape(-1, 1), model.items)]
+
+
+def bag_stats(torch, chk: Checks, K, ref, ids, table, tag: str,
+              reps: int) -> dict:
+    """embedding_bag against its plain version on one path's ids, bit for
+    bit, then timed beside the plain version, one F.embedding_bag call of
+    the same bags (``per_sample_weights`` = the padding mask) and its bound:
+    the distinct rows the bags need and the output rows, each moved once,
+    and the ids, over the card's memory rate."""
+    import torch.nn.functional as F
+
+    n_bags, n_slots = ids.shape
+    d, size = table.shape[1], table.element_size()
+    bits = torch.int16 if size == 2 else torch.int32
+    k = K.embedding_bag(ids, table)
+    p = ref.embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    same = torch.equal(k.view(bits), p.view(bits))
+    err = float((k.float() - p.float()).abs().max())
+    del p
+    valid = ids >= 0
+    safe, weights = ids.clamp_min(0), valid.to(table.dtype)
+    lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=weights)
+    lib_diff = float((lib.float() - k.float()).abs().max())
+    del k, lib
+    distinct = int(torch.unique(ids[valid]).numel())
+    nbytes = (distinct + n_bags) * d * size + 4 * ids.numel()
+    bound = 1e3 * nbytes / HBM_RATE
+    chk.ok(same, f"{tag}: embedding_bag == plain bit for bit ({n_bags} bags "
+           f"of {n_slots} over ({table.shape[0]}, {d}) "
+           f"{str(table.dtype)[6:]}, {distinct} distinct rows)")
+    ms = timed(torch, lambda: K.embedding_bag(ids, table), reps)
+    plain_ms = timed(torch, lambda: ref.embedding_bag_ref(ids, table), 3)
+    lib_ms = timed(torch, lambda: F.embedding_bag(
+        safe, table, mode="sum", per_sample_weights=weights), reps)
+    chk.note(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"F.embedding_bag {lib_ms:.4f} ms (max |diff| vs the kernel "
+             f"{lib_diff:.3e}, not asserted: it sums in its own order), "
+             f"bound {bound:.4f} ms (bytes, {nbytes / 1e9:.3f} GB)")
+    return {"shape": [int(n_bags), int(n_slots), int(d)],
+            "dtype": str(table.dtype)[6:], "distinct_rows": distinct,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "library_max_abs_diff": lib_diff}
+
+
+def mlp64(torch, mlp, x):
+    """An `models.layers.MLP` in float64 on the host."""
+    last = len(mlp.layers) - 1
+    for i, lin in enumerate(mlp.layers):
+        x = (x @ lin.weight.detach().double().cpu().T
+             + lin.bias.detach().double().cpu())
+        if i < last or mlp.final_relu:
+            x = x.clamp_min(0.0)
+    return x
+
+
+def dlrm64(torch, model, dense, sparse):
+    gid = (sparse + model.offsets[None, :]).long()
+    emb = model.table[gid].double().cpu()
+    bot = mlp64(torch, model.bot, dense.double().cpu())
+    z = torch.cat([bot[:, None, :], emb], dim=1)
+    zz = z @ z.transpose(1, 2)
+    x = torch.cat([bot, zz[:, model.iu.cpu(), model.ju.cpu()]], dim=1)
+    return mlp64(torch, model.top, x)[:, 0]
+
+
+def widedeep64(torch, model, dense, sparse):
+    """(deep, wide, sum of |terms| of the wide term) in float64."""
+    gid = (sparse + model.offsets[None, :]).long()
+    d64 = dense.double().cpu()
+    emb = model.emb[gid].double().cpu().reshape(gid.shape[0], -1)
+    deep = mlp64(torch, model.deep, torch.cat([d64, emb], dim=1))[:, 0]
+    terms = torch.cat([model.wide[gid][..., 0].double().cpu(),
+                       d64 * model.wide_dense[:, 0].double().cpu()[None]], 1)
+    return deep, terms.sum(1), terms.abs().sum(1)
+
+
+def mind64(torch, model, hist):
+    cfg = model.cfg
+    mask = (hist >= 0).cpu()[..., None]
+    e = model.items[hist.clamp_min(0).long()].double().cpu() * mask
+    eh = e @ model.bilinear.double().cpu()
+    b_logit = torch.zeros(tuple(hist.shape) + (cfg.n_interests,),
+                          dtype=torch.float64)
+    u = None
+    for _ in range(cfg.capsule_iters):
+        c = torch.where(mask, torch.softmax(b_logit, dim=-1), 0.0)
+        z = torch.einsum("bsk,bsd->bkd", c, eh)
+        n2 = (z * z).sum(-1, keepdim=True)
+        u = (n2 / (1.0 + n2)) * z / torch.sqrt(n2 + 1e-9)
+        b_logit = b_logit + torch.einsum("bkd,bsd->bsk", u, eh)
+    return u
+
+
+def sample_check(torch, chk: Checks, arch: str, model, batch, out, tag):
+    """``N_SAMPLE`` rows of a serve step's output against a float64 forward
+    from the same parameters on the host, within ``REL_TOL`` of the
+    output's scale; then the same sample with TF32 products, which must
+    fail that tolerance (for Wide & Deep, the deep tower's)."""
+    b = out.shape[0]
+    rows = (np.arange(b) if b <= N_SAMPLE else np.sort(
+        np.random.default_rng(SEED + 20).choice(b, N_SAMPLE, replace=False)))
+    rows_d = torch.from_numpy(rows).to(out.device)
+    sub = {k: v[rows_d] for k, v in batch.items()}
+    got = out[rows_d].double().cpu()
+    with torch.inference_mode():
+        if arch == "dlrm-mlperf":
+            want = dlrm64(torch, model, sub["dense"], sub["sparse"])
+            tol = REL_TOL * float(want.abs().max())
+            err = float((got - want).abs().max())
+            chk.ok(err <= tol, f"{tag}: {rows.size} logits vs float64, max "
+                   f"|diff| {err:.3e} <= 2^-14 x their scale ({tol:.3e})")
+            control, c_want, c_tol = (
+                lambda: model(sub["dense"], sub["sparse"]), want, tol)
+        elif arch == "wide-deep":
+            deep, wide, wabs = widedeep64(torch, model, sub["dense"],
+                                          sub["sparse"])
+            d_tol = REL_TOL * float(deep.abs().max())
+            n_terms = sub["sparse"].shape[1] + sub["dense"].shape[1] + 2
+            tol = d_tol + n_terms * 2.0 ** -24 * (wabs + deep.abs()
+                                                  + wide.abs())
+            err = (got - (deep + wide)).abs()
+            chk.ok(bool((err <= tol).all()),
+                   f"{tag}: {rows.size} logits vs float64, max |diff| "
+                   f"{float(err.max()):.3e}, each within 2^-14 x the deep "
+                   f"tower's scale + the wide sum's recursive-summation "
+                   f"bound {n_terms} * 2^-24 * sum|terms| (largest "
+                   f"{float(tol.max()):.3e})")
+            dk = model.deep_logit(sub["dense"], sub["sparse"]).double().cpu()
+            d_err = float((dk - deep).abs().max())
+            chk.ok(d_err <= d_tol, f"{tag}: the deep tower alone on the "
+                   f"sample vs float64, max |diff| {d_err:.3e} <= 2^-14 x "
+                   f"its scale ({d_tol:.3e})")
+            control, c_want, c_tol = (
+                lambda: model.deep_logit(sub["dense"], sub["sparse"]), deep,
+                d_tol)
+        else:
+            want = mind64(torch, model, sub["hist"])
+            tol = REL_TOL * float(want.abs().max())
+            err = float((got - want).abs().max())
+            chk.ok(err <= tol, f"{tag}: {rows.size} users' capsules vs "
+                   f"float64, max |diff| {err:.3e} <= 2^-14 x their scale "
+                   f"({tol:.3e})")
+            control, c_want, c_tol = lambda: model(sub["hist"]), want, tol
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            c = control().double().cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    c_err = float((c - c_want).abs().max())
+    chk.ok(c_err > c_tol, f"{tag}: TF32 control, the same sample with TF32 "
+           f"products, fails the tolerance: max |diff| {c_err:.3e}, "
+           f"{c_err / c_tol:.2f} x the tolerance")
+
+
+def serve_path(torch, chk: Checks, K, ref, rs, arch, sd, model, batch,
+               tag: str, reps: int):
+    """One serve step through ``sd.fn`` with the launch counts read around
+    it, its output checked, the batch timed, and each lookup of the path
+    held against the plain version and timed.  Returns (launches, record).
+    """
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = sd.fn(model, batch)
+    torch.cuda.synchronize()
+    launches = K.embedding_bag.launches
+    chk.ok(launches == LOOKUPS[arch],
+           f"{tag}: the serve step launched embedding_bag {launches} "
+           f"time(s), expected {LOOKUPS[arch]}")
+    n = next(iter(batch.values())).shape[0]
+    cfg = model.cfg
+    shape = ((n,) if arch != "mind"
+             else (n, cfg.n_interests, cfg.embed_dim))
+    chk.ok(tuple(out.shape) == shape and bool(torch.isfinite(out).all()),
+           f"{tag}: output {tuple(out.shape)}, all finite")
+    sample_check(torch, chk, arch, model, batch, out, tag)
+    del out
+    ms = timed(torch, lambda: sd.fn(model, batch), reps)
+    chk.note(f"{tag}: {ms:.4f} ms a batch (CUDA events, warm), "
+             f"{n / ms * 1e3:.4e} samples/s, model FLOPs "
+             f"{sd.model_flops / ms / 1e9:.3f} TFLOP/s")
+    bags = {name: bag_stats(torch, chk, K, ref, ids, table,
+                            f"{tag} {name}", 2 * reps)
+            for name, ids, table in path_bags(rs, arch, model, batch)}
+    return launches, {"batch_ms": ms, "samples_per_s": n / ms * 1e3,
+                      "bags": bags}
+
+
+def device_breakdown(torch, chk: Checks, fn, tag: str) -> dict:
+    """One call of ``fn`` under torch.profiler: wall time, the card's busy
+    time (the sum of its kernels and copies), and that time split into the
+    embedding_bag kernel, GEMMs and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    groups = {"embedding_bag": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, v in by_name.items():
+        low = name.lower()
+        key = ("embedding_bag" if "embedding_bag" in low else "gemm"
+               if any(s in low for s in ("gemm", "cutlass", "xmma", "cublas"))
+               else "other")
+        groups[key] += v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    chk.note(f"{tag} (torch.profiler, one call): wall {wall:.3f} ms, card "
+             f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); embedding_bag "
+             f"{groups['embedding_bag']:.3f} ms, GEMMs {groups['gemm']:.3f} "
+             f"ms, other {groups['other']:.3f} ms; most time: "
+             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    return {"wall_ms": wall, "busy_ms": busy,
+            **{f"{k}_ms": v for k, v in groups.items()}}
+
+
+def full_vocab_batch(torch, cfg, batch, seed: int) -> dict:
+    """The reference batch's dense features with sparse ids drawn from each
+    field's own vocabulary, so the lookups touch the whole table."""
+    rng = np.random.default_rng(seed)
+    n = batch["dense"].shape[0]
+    sparse = np.stack([rng.integers(0, v, n) for v in cfg.vocab_sizes], 1)
+    return {"dense": batch["dense"],
+            "sparse": torch.from_numpy(sparse.astype(np.int32)).to(DEVICE)}
+
+
+def last_rows_check(torch, chk: Checks, K, ref, table) -> None:
+    """Bags of one over the table's last 1024 rows, and the first row past
+    element 2^31: their offsets need 64 bits."""
+    v, d = table.shape
+    nbytes = table.numel() * table.element_size()
+    share = nbytes / torch.cuda.get_device_properties(0).total_memory
+    chk.note(f"the MLPerf stacked table ({v}, {d}) {str(table.dtype)[6:]}: "
+             f"{nbytes / 1e9:.2f} GB, {share:.1%} of the card's memory")
+    first = max(v - 1024, 0)
+    ids = torch.arange(first, v, dtype=torch.int32, device=table.device)
+    ids[0] = min(2 ** 31 // d, v - 1)
+    ids = ids[:, None].contiguous()
+    k = K.embedding_bag(ids, table)
+    p = ref.embedding_bag_ref(ids, table)
+    rows = table[ids[:, 0].long()]
+    torch.cuda.synchronize()
+    bits = torch.int16
+    chk.ok(torch.equal(k.view(bits), p.view(bits))
+           and torch.equal(k.view(bits), rows.view(bits)),
+           f"embedding_bag over rows {int(ids[0])} and {first + 1}..{v - 1} "
+           f"of the ({v}, {d}) table (element offsets up to "
+           f"{(v - 1) * d:.3e}): == plain and == the rows, bit for bit")
+
+
+def phase_recsys(torch, chk: Checks, K, ref, snn, clock):
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+
+    print("phase 4: recsys serving through launch.steps.build_step at full "
+          "width")
+    by_path: dict[str, int] = {}
+    paths: dict[str, dict] = {}
+    breakdown: dict[str, dict] = {}
+    for arch in ("dlrm-mlperf", "wide-deep", "mind"):
+        for shape in ("serve_p99", "serve_bulk"):
+            sd = steps.build_step(arch, shape)
+            model, batch = clock(f"{sd.name}: init_args (parameters from a "
+                                 "seeded torch.Generator on the card)",
+                                 lambda: sd.init_args(DEVICE))
+            if arch == "dlrm-mlperf" and shape == "serve_p99":
+                last_rows_check(torch, chk, K, ref, model.table)
+            reps = 20 if shape == "serve_p99" else 5
+            kind = ("reference batch (ids < min(vocab))"
+                    if arch == "dlrm-mlperf" else "reference batch")
+            runs = [(sd.name, kind, batch)]
+            if arch == "dlrm-mlperf":
+                runs.append((f"{sd.name} full-vocabulary",
+                             "full-vocabulary batch",
+                             full_vocab_batch(torch, model.cfg, batch,
+                                              SEED + 30)))
+            for path, what, b in runs:
+                n, rec = serve_path(torch, chk, K, ref, rs, arch, sd, model,
+                                    b, f"{sd.name} {what}", reps)
+                by_path[path], paths[path] = n, rec
+            if shape == "serve_bulk":
+                breakdown[sd.name] = device_breakdown(
+                    torch, chk, lambda: sd.fn(model, b), f"{sd.name} {what}")
+            del model, batch, runs, b
+            torch.cuda.empty_cache()
+            chk.note(f"device memory held after {sd.name}: "
+                     f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    ra = mind_retrieval(torch, chk, K, ref, snn, steps, rs, clock, by_path,
+                        paths)
+    return by_path, paths, breakdown, ra
+
+
+def mind_retrieval(torch, chk: Checks, K, ref, snn, steps, rs, clock,
+                   by_path, paths) -> dict:
+    """MIND's retrieval_cand step (GEMM + top-100 over 1,000,000 items),
+    then retrieve_above of the user's 4 capsules at a threshold halfway
+    between the 100th and 101st max-over-capsules score."""
+    sd = steps.build_step("mind", "retrieval_cand")
+    n_cand = steps.get_arch("mind").shapes["retrieval_cand"]["n_candidates"]
+    model, query = sd.init_args(DEVICE)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    vals, idx = clock(f"{sd.name} (first call)", lambda: sd.fn(model, query))
+    by_path[sd.name] = n = K.embedding_bag.launches
+    chk.ok(n == LOOKUPS["mind"], f"{sd.name}: the step launched "
+           f"embedding_bag {n} time(s), expected {LOOKUPS['mind']}")
+    chk.ok(tuple(idx.shape) == (1, 100) and bool(torch.isfinite(vals).all()),
+           f"{sd.name}: top-100 of {n_cand} items, finite scores")
+    ms = timed(torch, lambda: sd.fn(model, query), 10)
+    chk.note(f"{sd.name}: GEMM + top-100 {ms:.4f} ms (CUDA events, warm)")
+    hist = query["hist"]
+    paths[sd.name] = {"batch_ms": ms, "bags": {"history gather": bag_stats(
+        torch, chk, K, ref, hist.reshape(-1, 1), model.items,
+        f"{sd.name} history gather", 20)}}
+    with torch.inference_mode():
+        u = model(hist)[0]                                    # (4, 64)
+        cand = model.items[:n_cand]
+        top = torch.topk((u @ cand.T).amax(dim=0), 101)
+    s = top.values.double().cpu().numpy()
+    thr = float((s[99] + s[100]) / 2)
+    top100 = np.sort(idx[0].cpu().numpy())
+    chk.ok(np.array_equal(np.sort(top.indices[:100].cpu().numpy()), top100),
+           f"{sd.name}: the step's top-100 == the max over the capsules' "
+           "scores")
+    chk.note(f"threshold {thr!r} halfway between the 100th and 101st "
+             f"max-over-capsules scores (gap {s[99] - s[100]:.3e})")
+    cand_np = cand.cpu().numpy()
+    index = clock("build_index(items, metric='mips') on the card",
+                  lambda: snn.build_index(cand_np, metric="mips",
+                                          device=DEVICE))
+    K.reset_launch_counts()
+    n_caps = u.shape[0]
+    res = clock(f"retrieve_above, {n_caps} capsules",
+                lambda: rs.retrieve_above(u, None, thr, index=index,
+                                          device=DEVICE))
+    ra = {"snn_count_stacked": K.snn_count_stacked.launches,
+          "snn_compact_stacked": K.snn_compact_stacked.launches}
+    rows = [res.indices[res.indptr[k]:res.indptr[k + 1]]
+            for k in range(n_caps)]
+    chk.note(f"retrieve_above kernel launches {ra}; {res.nnz} pairs, rows "
+             f"{[r.size for r in rows]}")
+    chk.ok(all(v > 0 for v in ra.values()),
+           "retrieve_above ran the stacked kernels on the mips index")
+    xs64 = index.xs.cpu().numpy().astype(np.float64)
+    hn64 = 0.5 * np.einsum("ij,ij->i", xs64, xs64)
+    u_np = u.cpu().numpy()
+    dhalf64, thresh64, tol = oracle_rows(index, xs64, hn64, u_np, thr)
+    # an item is undecided where a float32 rounding may put it on either
+    # side of the threshold: inside the lifted index's dhalf band for some
+    # capsule (the join), or within the float32 GEMM's recursive-summation
+    # bound of it (the top-100); the sets must agree on every other item
+    s64 = cand_np.astype(np.float64) @ u_np.astype(np.float64).T
+    gemm_tol = (u_np.shape[1] * 2.0 ** -24
+                * (np.abs(cand_np).astype(np.float64) @ np.abs(u_np).T.astype(
+                    np.float64)) + EPS32 * abs(thr))
+    undecided = np.union1d(
+        index.order[np.nonzero((np.abs(dhalf64 - thresh64[None, :])
+                                <= tol).any(1))[0]],
+        np.nonzero((np.abs(s64 - thr) <= gemm_tol).any(1))[0])
+    union = np.setdiff1d(np.unique(res.indices), undecided)
+    want64 = np.setdiff1d(np.nonzero(s64.max(1) >= thr)[0], undecided)
+    chk.ok(np.array_equal(union, np.setdiff1d(top100, undecided))
+           and np.array_equal(union, want64),
+           f"union of the {n_caps} CSR rows ({np.unique(res.indices).size} "
+           f"items) == the GEMM's top-100 set == the float64 set above the "
+           f"threshold, outside the {undecided.size} item(s) a float32 "
+           "rounding may put on either side")
+    band, equal, bad = compare_with_oracle(index, res, np.arange(n_caps),
+                                           xs64, hn64, u_np, thr)
+    chk.ok(bad == 0, f"the {n_caps} rows vs a float64 brute force over the "
+           f"lifted index: {equal} pairs equal, {band} inside the float32 "
+           f"band, {bad} outside")
+    ip64 = np.concatenate([cand_np[r].astype(np.float64)
+                           @ u_np[k].astype(np.float64)
+                           for k, r in enumerate(rows)])
+    inv = np.empty_like(index.order)
+    inv[index.order] = np.arange(index.order.size)
+    tol_pairs = np.concatenate([tol[inv[r], k] for k, r in enumerate(rows)])
+    ip_err = np.abs(res.distances - ip64)
+    chk.ok(bool(np.all(ip_err <= tol_pairs)),
+           f"reported inner products vs float64: max |diff| "
+           f"{ip_err.max():.3e}, each within its float32 dhalf bound "
+           f"(largest {tol_pairs.max():.3e})")
+    return ra
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -949,7 +1421,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    # full float32 in every PyTorch product this script compares against
+    # full float32 in every PyTorch product: the kernels' comparisons and
+    # the recsys models' MLPs, whose float64 check refuses TF32 (the
+    # package leaves these switches to its caller)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
@@ -991,6 +1465,7 @@ def main() -> int:
     chk = Checks()
     t = time.perf_counter()
     phase_kernels(torch, chk, K, ref, ops_mod)
+    phase_bag_lattice(torch, chk, K, ref, ops_mod)
     if not phase_done("phase 1", t):
         return 1
     t = time.perf_counter()
@@ -1016,6 +1491,27 @@ def main() -> int:
                                   index, x, q, radius, eps, xs64, hn64,
                                   (looped_main, looped_graph))
     if not phase_done("phase 3", t):
+        return 1
+    del index, x, q, xs64, hn64
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    Checks.note(f"device memory held before phase 4: "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    bag_launches, bag_paths, breakdown, ra = phase_recsys(torch, chk, K, ref,
+                                                          snn, clock)
+    for rec in kernels:
+        if rec["name"] in ra:
+            rec["launches_by_path"]["retrieve_above"] = ra[rec["name"]]
+            rec["launches"] += ra[rec["name"]]
+    main_bag = bag_paths["dlrm-mlperf:serve_bulk:serve full-vocabulary"]
+    kernels.append({
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:41",
+        "launches": sum(bag_launches.values()),
+        "launches_by_path": bag_launches, **main_bag["bags"]["lookup"],
+        "paths": bag_paths, "device_breakdown": breakdown})
+    if not phase_done("phase 4", t):
         return 1
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
-"""The query hot loop's kernels for the H100, with their plain versions.
+"""The port's kernels for the H100, with their plain versions.
 
-* snn_query — the hand-written CUDA count and compact kernels (csrc/) and
+* snn_query — the hand-written CUDA kernels (csrc/: the query hot loop's
+              count, compact and filter, and the recsys embedding bag) and
               their ctypes wrappers; built with nvcc at first use
 * ref       — plain PyTorch versions of the kernels and the shared formulas
 * ops       — the padding contract and the CSR capacity ladder

@@ -13,8 +13,9 @@ padded on the host in numpy, as in the reference, and the engine moves them
 to the device once per batch.
 
 `snn_filter`, `snn_count` and `snn_compact` are the public single-segment
-ops over padded operands, dispatched by `kernels.registry` (the CUDA
-kernels for CUDA tensors, the plain versions for CPU tensors).
+ops over padded operands, and `embedding_bag` the recsys table lookup, all
+dispatched by `kernels.registry` (the CUDA kernels for CUDA tensors, the
+plain versions for CPU tensors).
 """
 from __future__ import annotations
 
@@ -121,3 +122,22 @@ def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
     """
     return _registry.snn_compact(q, aq, r, thresh, offsets, xs, alphas,
                                  half_norms, pq, px, nnz=nnz, bn=bn)
+
+
+def embedding_bag(ids, table, *, mode: str = "sum"):
+    """EmbeddingBag over (B, F) int32 ids with -1 (any id < 0) padding:
+    (B, D) in the table's dtype; modes ``sum`` | ``mean``.
+
+    The sum is the kernel's (slot order, rounded to the table's dtype after
+    each add); ``mean`` divides it by ``max(#ids >= 0, 1)`` in the table's
+    dtype, as ``repro.kernels.ops.embedding_bag`` does.  An id at or above
+    V reads row V - 1, on the card and on the CPU alike (the Pallas
+    kernel's clamp; XLA's ``jnp.take`` would give NaN rows instead).
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"unknown mode {mode!r}")
+    out = _registry.embedding_bag(ids, table)
+    if mode == "mean":
+        cnt = (ids >= 0).sum(dim=1).clamp_min(1).to(out.dtype)
+        out = out / cnt[:, None]
+    return out

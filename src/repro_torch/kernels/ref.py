@@ -238,3 +238,30 @@ def snn_compact_stacked_ref(q, aq, r, thresh, offsets, xs, alphas,
     out_idx[slots] = cols.to(torch.int32)
     out_dh[slots] = dh[rows, cols]
     return out_idx, out_dh
+
+
+def embedding_bag_ref(ids, table):
+    """Plain version of the embedding_bag kernel: (B, F) int32 ids over a
+    (V, D) table -> (B, D) in the table's dtype.
+
+    It follows the Pallas TPU kernel's arithmetic
+    (``repro.kernels.embedding_bag._bag_kernel``), not XLA's reduce: the
+    output starts at zero in the table's dtype and adds
+    ``w_f * table[max(id, 0)]``, ``w_f = (id >= 0)``, for f = 0 .. F-1 in
+    order, rounding to the table's dtype after each add.  For float32 that
+    is the plain sequential sum; for bfloat16 bags of more than one id it
+    can differ from ``repro.kernels.ref.embedding_bag_ref``, which XLA sums
+    in another order and rounds once.
+
+    An id at or above V reads row V - 1, as the Pallas kernel's block index
+    does off the TPU (its dynamic slice is clamped into the table) and as
+    the CUDA kernel does.
+    """
+    out = torch.zeros((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    last = table.shape[0] - 1
+    for f in range(ids.shape[1]):
+        col = ids[:, f]
+        w = (col >= 0).to(table.dtype)[:, None]
+        out = out + w * table[col.clamp(0, last).long()]
+    return out

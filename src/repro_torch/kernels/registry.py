@@ -15,7 +15,9 @@ The entry points, each with the launch it makes on the card:
   (n_pad, d_pad) segment, the same kernels on a stack of one, grid
   (m_pad / 64, n_pad / bn, 1);
 * `snn_filter`: the dense (m_pad, n_pad) masked half distances, grid
-  (m_pad / 64, n_pad / bn); `snn_filter_stacked` flattens a stack into it.
+  (m_pad / 64, n_pad / bn); `snn_filter_stacked` flattens a stack into it;
+* `embedding_bag`: the recsys table lookup, (B, F) ids over a (V, D) table,
+  one launch of B * D * itemsize / 16 threads (B * D for ragged widths).
 
 Every call also records a (op, shapes, static arguments) launch signature;
 the first sighting of a signature bumps ``engine.DISPATCH_STATS.
@@ -169,3 +171,12 @@ def snn_filter_stacked(q, aq, r, thresh, xs, alphas, half_norms, pq=None,
     return snn_filter(q, aq, r, thresh, xs.reshape(S * n_pad, d),
                       alphas.reshape(-1), half_norms.reshape(-1), pq,
                       None if px2 is None else px2.contiguous(), bn=bn)
+
+
+def embedding_bag(ids, table):
+    """(B, D) bag sums of a (V, D) table over (B, F) int32 ids, ids < 0
+    padding: the CUDA kernel for a CUDA table, the plain version for a CPU
+    one."""
+    note_launch_signature("embedding_bag", _sig(ids, table))
+    fn = _kernels.embedding_bag if _on_card(table) else _ref.embedding_bag_ref
+    return fn(ids, table)

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels of the query hot loop, and their wrappers.
+"""The port's hand-written CUDA kernels, and their wrappers.
 
-Five entry points on the shared predicate of ``csrc/snn_predicate.cuh``:
+Five entry points of the query hot loop on the shared predicate of
+``csrc/snn_predicate.cuh``:
 
 * `snn_count_stacked` (``csrc/snn_query.cu``) replaces the Pallas TPU kernel
   ``repro.kernels.snn_query.snn_count_stacked``: per-(segment, query)
@@ -17,6 +18,12 @@ Five entry points on the shared predicate of ``csrc/snn_predicate.cuh``:
 * `snn_filter` (``csrc/snn_filter.cu``) replaces ``snn_query.snn_filter``:
   the dense (m_pad, n_pad) masked half distances, +BIG where a pair is
   pruned.
+
+And the recsys models' table lookup:
+
+* `embedding_bag` (``csrc/embedding_bag.cu``) replaces ``repro.kernels.
+  embedding_bag.embedding_bag``: ``out[b] = sum_f table[ids[b, f]]`` with
+  ids < 0 as padding, summed in slot order in the table's dtype.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source, all started together, then linked into one shared
@@ -42,7 +49,7 @@ from .ref import BIG
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("snn_query.cu", "snn_filter.cu")
+SOURCES = ("snn_query.cu", "snn_filter.cu", "embedding_bag.cu")
 HEADERS = ("snn_predicate.cuh",)
 # no fast math: the sentinels need IEEE inf/NaN, and --fmad=false leaves the
 # explicit fmaf of the dot products as the only contracted multiply-adds
@@ -131,6 +138,9 @@ def _library() -> ctypes.CDLL:
             lib.snn_compact.restype = i32
             lib.snn_filter.argtypes = single + [ptr, ptr]
             lib.snn_filter.restype = i32
+            lib.embedding_bag.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                          ctypes.c_longlong, i32, i32, ptr]
+            lib.embedding_bag.restype = i32
             _lib = lib
     return _lib
 
@@ -399,8 +409,60 @@ def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
 
 snn_filter.launches = 0
 
+_BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def embedding_bag(ids, table):
+    """``out[b] = sum_f w_f * table[max(ids[b, f], 0)]``, ``w_f = ids >= 0``,
+    in one launch.
+
+    ``ids`` (B, F) int32 and ``table`` (V, D) float32 or bfloat16, both
+    contiguous on one CUDA device; returns (B, D) in the table's dtype,
+    summed in slot order with a rounding to that dtype after each add (the
+    TPU kernel's arithmetic, bit-identical to `ref.embedding_bag_ref`).
+    An id at or above V reads row V - 1, as in the plain version and in
+    the Pallas kernel run off the TPU.
+    """
+    if not (isinstance(table, torch.Tensor) and table.is_cuda):
+        raise ValueError("the CUDA kernels take CUDA tensors; "
+                         f"got {getattr(table, 'device', type(table))}")
+    if ids.device != table.device:
+        raise ValueError(f"ids are on {ids.device}, table on {table.device}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if table.dtype not in _BAG_DTYPES:
+        raise TypeError(f"table must be float32 or bfloat16, got "
+                        f"{table.dtype}")
+    if ids.dim() != 2 or table.dim() != 2:
+        raise ValueError(f"ids must be (B, F) and table (V, D); got "
+                         f"{tuple(ids.shape)} and {tuple(table.shape)}")
+    if not (ids.is_contiguous() and table.is_contiguous()):
+        raise ValueError("ids and table must be contiguous")
+    (B, F), (V, D) = ids.shape, table.shape
+    if V == 0 and F:
+        raise ValueError("an empty table has no rows to look up")
+    dev = table.device
+    out = torch.empty((B, D), dtype=table.dtype, device=dev)
+    if not (B and D):
+        return out
+    vec16 = ((D * table.element_size()) % 16 == 0
+             and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    threads = B * (D * table.element_size() // 16 if vec16 else D)
+    if max(B, F, D) >= 2 ** 31 or threads >= 2 ** 31 * 256:
+        raise ValueError(f"bags ({B}, {F}) x {D} exceed the kernel's grid")
+    rc = _library().embedding_bag(
+        _ptr(ids), _ptr(table), _ptr(out), B, F, D, V,
+        _BAG_DTYPES[table.dtype], int(vec16), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"embedding_bag launch failed: CUDA error {rc}")
+    embedding_bag.launches += 1
+    return out
+
+
+embedding_bag.launches = 0
+
 KERNELS = (snn_count_stacked, snn_compact_stacked, snn_count, snn_compact,
-           snn_filter)
+           snn_filter, embedding_bag)
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,174 @@
+"""Step builders of the port: per (arch x shape) the step function, its
+analytic model FLOPs, and a constructor of concrete arguments.
+
+The counterpart of ``repro.launch.steps`` for the recsys serving path: the
+kinds ``rs_serve`` (DLRM, Wide & Deep, MIND) and MIND's ``rs_retrieval``.
+``StepDef`` keeps the JAX package's ``name``, ``fn``, ``model_flops`` and
+``init_args``; its PartitionSpec, sharding and donation fields have no
+meaning on one card and are left out.  The batch is the JAX package's numpy
+batch for the same ``default_rng(0)``; the parameters are made on the
+device from a seeded ``torch.Generator`` (``models.recsys.params_from_jax``
+carries the JAX package's own instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..configs.registry import ArchSpec, get_arch, list_archs
+from ..kernels import registry as _registry
+from ..models import recsys as rs
+
+SEED = 0
+
+
+@dataclasses.dataclass
+class StepDef:
+    name: str
+    fn: Callable
+    model_flops: float
+    init_args: Callable   # (device=None) -> concrete args, on the card by default
+
+
+def _mlp_flops(sizes):
+    return sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
+
+
+def rs_model_flops(arch_id, cfg, shape) -> float:
+    """Analytic model FLOPs of one step: ``repro.launch.steps``'s count for
+    the ported kinds (serving, and MIND's candidate scoring)."""
+    kind = shape["kind"]
+    b = shape.get("batch", 1)
+    if arch_id == "dlrm-mlperf":
+        n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2
+        per = _mlp_flops((cfg.n_dense,) + cfg.bot_mlp) + \
+            (cfg.n_sparse + 1) ** 2 * cfg.embed_dim * 2 + \
+            _mlp_flops((n_int + cfg.bot_mlp[-1],) + cfg.top_mlp)
+    elif arch_id == "wide-deep":
+        n_f = len(cfg.vocab_sizes)
+        per = _mlp_flops((n_f * cfg.embed_dim + cfg.n_dense,) + cfg.deep_mlp
+                         + (1,))
+    elif arch_id == "mind":
+        d, s, k = cfg.embed_dim, cfg.hist_len, cfg.n_interests
+        per = 2 * s * d * d + cfg.capsule_iters * (4 * s * k * d)
+        if kind == "rs_retrieval":
+            per += 2 * shape["n_candidates"] * d * k
+    else:
+        raise KeyError(arch_id)
+    return per * b
+
+
+def _rs_init_model(arch_id, cfg, generator, device):
+    if arch_id == "dlrm-mlperf":
+        return rs.dlrm_init(cfg, generator=generator, device=device)
+    if arch_id == "wide-deep":
+        return rs.widedeep_init(cfg, generator=generator, device=device)
+    if arch_id == "mind":
+        return rs.mind_init(cfg, generator=generator, device=device)
+    raise KeyError(arch_id)
+
+
+def _rs_batch(arch_id, cfg, b, rng, kind):
+    """The concrete numpy batch of ``repro.launch.steps._rs_batch``: the
+    same arrays for the same generator state."""
+    if arch_id in ("dlrm-mlperf", "wide-deep"):
+        nf = cfg.n_sparse if arch_id == "dlrm-mlperf" else len(cfg.vocab_sizes)
+        vmax = min(cfg.vocab_sizes)
+        batch = {
+            "dense": rng.normal(size=(b, cfg.n_dense)).astype(np.float32),
+            "sparse": rng.integers(0, vmax, (b, nf)).astype(np.int32),
+            "labels": rng.integers(0, 2, b).astype(np.float32),
+        }
+    elif arch_id == "mind":
+        batch = {
+            "hist": rng.integers(-1, cfg.n_items,
+                                 (b, cfg.hist_len)).astype(np.int32),
+            "target": rng.integers(0, cfg.n_items, b).astype(np.int32),
+            "negatives": rng.integers(0, cfg.n_items,
+                                      cfg.n_neg).astype(np.int32),
+        }
+    else:
+        raise NotImplementedError(f"no batch for {arch_id!r} in the port")
+    if kind == "rs_serve":
+        batch.pop("labels", None)
+        batch.pop("negatives", None)
+        batch.pop("target", None)
+    return batch
+
+
+def _on(device, arrays: dict) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               "(ROADMAP.md lists what is left)")
+
+
+def build_rs_step(spec: ArchSpec, shape_name: str, *,
+                  reduced: bool) -> StepDef:
+    arch_id = spec.arch_id
+    cfg = spec.make_config(shape_name, reduced)
+    shape = dict(spec.shapes[shape_name])
+    if reduced:
+        shape = {**shape, "batch": 8, "n_candidates": 128}
+    kind = shape["kind"]
+    if kind == "rs_train":
+        raise _not_ported(f"{arch_id}:{shape_name} (training)")
+    if kind == "rs_retrieval" and arch_id != "mind":
+        raise _not_ported(f"{arch_id}:{shape_name} (ranking-model candidate "
+                          "scoring)")
+    rng = np.random.default_rng(SEED)
+    flops = rs_model_flops(arch_id, cfg, shape) if not reduced else 0.0
+    b = shape.get("batch", 1)
+
+    def init_model(device):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return dev, _rs_init_model(arch_id, cfg, gen, dev)
+
+    if kind == "rs_serve":
+        np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
+        fwd = {"dlrm-mlperf": lambda m, b_: m(b_["dense"], b_["sparse"]),
+               "wide-deep": lambda m, b_: m(b_["dense"], b_["sparse"]),
+               "mind": lambda m, b_: m(b_["hist"])}[arch_id]
+
+        @torch.inference_mode()
+        def step(model, batch):
+            return fwd(model, batch)
+
+        def init_args(device=None):
+            dev, model = init_model(device)
+            return model, _on(dev, np_batch)
+
+        return StepDef(name=f"{arch_id}:{shape_name}:serve", fn=step,
+                       model_flops=flops, init_args=init_args)
+
+    # rs_retrieval (MIND): a user's history scored against n_candidates
+    c = shape["n_candidates"]
+
+    @torch.inference_mode()
+    def step(model, query):
+        cand = model.items[:c]
+        return torch.topk(model.score_candidates(query["hist"], cand), 100,
+                          dim=1)
+
+    def init_args(device=None):
+        dev, model = init_model(device)
+        hist = rng.integers(0, cfg.n_items, (b, cfg.hist_len))
+        return model, _on(dev, {"hist": hist.astype(np.int32)})
+
+    return StepDef(name=f"{arch_id}:{shape_name}:retrieval", fn=step,
+                   model_flops=flops, init_args=init_args)
+
+
+def build_step(arch_id: str, shape_name: str, *,
+               reduced: bool = False) -> StepDef:
+    """The step of ``arch_id`` at ``shape_name`` (``reduced`` = the arch's
+    small config, batch 8 and 128 candidates, as in the JAX package)."""
+    if arch_id not in list_archs():
+        raise _not_ported(f"arch {arch_id!r} (ported: {list_archs()})")
+    return build_rs_step(get_arch(arch_id), shape_name, reduced=reduced)

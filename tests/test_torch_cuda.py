@@ -20,6 +20,7 @@ from repro_torch.core import snn as tsnn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import snn_query as tsq
+from repro_torch.launch import steps as tsteps
 
 # the package exports the function `join`, which shadows the module name
 tjoin = importlib.import_module("repro_torch.core.join")
@@ -194,3 +195,106 @@ def test_looped_and_packed_graph_on_the_card_equal_the_cpu(card):
         np.testing.assert_array_equal(got.indices, want.indices)
     assert tsq.snn_count.launches > 0 and tsq.snn_compact.launches > 0
     assert tsq.snn_count_stacked.launches > 0
+
+
+
+# --------------------------------------------------------------------------- #
+# embedding_bag and the recsys serving path                                    #
+# --------------------------------------------------------------------------- #
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _lattice_bags(seed, B, F, D, V, dtype):
+    """(B, F) ids with -1 padding (bag 1 all padding) over an integer-valued
+    (V, D) table: sums up to 400 in magnitude, so bfloat16 rounds on the way
+    (after each add in slot order, as the plain version does)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.2] = -1
+    ids[1, :] = -1
+    table = rng.integers(-4, 5, (V, D)).astype(np.float32)
+    return torch.from_numpy(ids), torch.from_numpy(table).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 3, 32, 64, 128])
+@pytest.mark.parametrize("F", [1, 40, 100])
+def test_cuda_embedding_bag_matches_plain(card, dtype, D, F):
+    ids, table = _lattice_bags(D + F, 300, F, D, 1000, dtype)
+    ids, table = ids.to(card), table.to(card)
+    tsq.reset_launch_counts()
+    got = tsq.embedding_bag(ids, table)
+    want = tref.embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    assert tsq.embedding_bag.launches == 1
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    assert not bool(got[1].any())
+    mean = tops.embedding_bag(ids, table, mode="mean")
+    assert torch.equal(_bits(mean.cpu()), _bits(tops.embedding_bag(
+        ids.cpu(), table.cpu(), mode="mean")))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_embedding_bag_unaligned_table_takes_the_scalar_path(card,
+                                                                  dtype):
+    ids, table = _lattice_bags(5, 64, 7, 128, 200, dtype)
+    buf = torch.zeros(table.numel() + 1, dtype=dtype, device=card)
+    buf[1:] = table.reshape(-1).to(card)
+    view = buf[1:].view(table.shape)               # 2 or 4 bytes off 16
+    got = tsq.embedding_bag(ids.to(card), view)
+    assert torch.equal(_bits(got.cpu()),
+                       _bits(tref.embedding_bag_ref(ids, table)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_embedding_bag_ids_past_the_table_read_its_last_row(card,
+                                                                 dtype):
+    # the CUDA kernel, the plain version and the Pallas kernel off the TPU
+    # all read row V - 1 for an id at or above V
+    ids, table = _lattice_bags(6, 32, 5, 64, 100, dtype)
+    ids[0, :] = torch.tensor([100, 101, 2 ** 31 - 1, -1, 3])
+    ids[4, 2] = 99
+    got = tsq.embedding_bag(ids.to(card), table.to(card))
+    want = tref.embedding_bag_ref(ids, table)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+    assert torch.equal(want, tref.embedding_bag_ref(ids.clamp_max(99), table))
+
+
+def test_cuda_embedding_bag_reads_rows_past_2_31_elements(card):
+    # a bfloat16 table of 2^31 / D + 64 rows (4.3 GB): the last rows start
+    # past element 2^31, so their offsets need 64 bits
+    D = 128
+    V = 2 ** 31 // D + 64
+    table = torch.zeros((V, D), dtype=torch.bfloat16, device=card)
+    rows = torch.arange(V - 128, V, device=card)
+    vals = (rows[:, None] * 7 + torch.arange(D, device=card)[None, :]) % 9 - 4
+    table[rows] = vals.to(torch.bfloat16)
+    ids = rows.to(torch.int32).view(16, 8).clone()
+    ids[3, ::2] = -1
+    ids[0, 0] = 2 ** 31 // D                       # the first row past 2^31
+    ids[0, 1] = V - 1
+    got = tsq.embedding_bag(ids, table)
+    want = tref.embedding_bag_ref(ids, table)
+    exact = (table[ids.clamp_min(0).long()].double()
+             * (ids >= 0)[..., None]).sum(1)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(got.double(), exact) and bool(got.any())
+
+
+@pytest.mark.parametrize("arch,lookups", [("dlrm-mlperf", 1),
+                                          ("wide-deep", 2), ("mind", 1)])
+def test_cuda_serve_steps_equal_the_cpu(card, arch, lookups):
+    sd = tsteps.build_step(arch, "serve_p99", reduced=True)
+    model, batch = sd.init_args(device="cpu")
+    want = sd.fn(model, batch)
+    model = model.to(card)
+    batch = {k: v.to(card) for k, v in batch.items()}
+    tsq.reset_launch_counts()
+    got = sd.fn(model, batch)
+    torch.cuda.synchronize()
+    assert tsq.embedding_bag.launches == lookups
+    # float32 GEMMs in another order than the CPU's: 2^-16 of the scale
+    tol = 2.0 ** -16 * float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= tol

@@ -1,7 +1,8 @@
 """Rules of the port that a correct result cannot show.
 
 * No module of ``repro_torch`` and no line of ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro``: the port stands alone on the card.
+  ``jax``, the JAX package ``repro`` or ``ml_dtypes`` (JAX's bfloat16
+  type): the port stands alone on the card.
 * The public entry points run on the CUDA device by default and never
   quietly on the CPU: without a card they raise unless the caller passes
   ``device="cpu"``.
@@ -15,13 +16,14 @@ import pytest
 import torch
 
 from repro_torch.core import snn as tsnn
+from repro_torch.launch import steps as tsteps
 
 # the package exports the function `join`, which shadows the module name
 tjoin = importlib.import_module("repro_torch.core.join")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(path: Path):
@@ -57,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_import_scan_catches_a_forbidden_import(tmp_path):
     # the scan itself must see every spelling it is meant to refuse
     for src in ("import jax.numpy as jnp\n", "from repro.core import snn\n",
-                "import importlib\nimportlib.import_module('repro.core')\n"):
+                "import importlib\nimportlib.import_module('repro.core')\n",
+                "import ml_dtypes\n"):
         p = tmp_path / "m.py"
         p.write_text(src)
         assert any(m.split(".")[0] in FORBIDDEN for m in _imported_modules(p))
@@ -99,3 +102,13 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     res = tsnn.query_radius_csr(idx, q, 1.5, device="cpu")
     counts = tjoin.query_counts(idx, q, 1.5, device="cpu")
     np.testing.assert_array_equal(counts, np.diff(res.indptr))
+
+
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
+def test_recsys_steps_build_on_the_card_by_default(no_card, shape):
+    sd = tsteps.build_step("mind", shape, reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sd.init_args()
+    model, batch = sd.init_args(device="cpu")
+    assert model.items.device.type == "cpu"
+    assert all(v.device.type == "cpu" for v in batch.values())

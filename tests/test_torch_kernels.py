@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import embedding_bag as jbag
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import snn_query as jsq
@@ -334,3 +335,115 @@ def test_single_segment_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
     assert all(fn.launches == 0 for fn in tsq.KERNELS)
+
+
+# --------------------------------------------------------------------------- #
+# embedding_bag                                                                #
+# --------------------------------------------------------------------------- #
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _bag_operands(seed, B, F, D, V=300, dtype="float32"):
+    """(B, F) ids with -1 padding (about a fifth, and bag 1 all padding) and
+    a (V, D) normal table in ``dtype``, as (jax ids, jax table, torch ids,
+    torch table) with the same bits on both sides."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, (B, F)).astype(np.int32)
+    ids[rng.random((B, F)) < 0.2] = -1
+    ids[1, :] = -1
+    jdt, tdt = DTYPES[dtype]
+    jt = jnp.asarray(rng.normal(size=(V, D)).astype(np.float32)).astype(jdt)
+    tt = torch.from_numpy(np.array(_bits(jt))).view(tdt)
+    return jnp.asarray(ids), jt, torch.from_numpy(ids), tt
+
+
+def _bits(a):
+    """The raw bits of a float32 or bfloat16 array or tensor, as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16 if a.element_size() == 2
+                      else torch.int32).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 128])
+@pytest.mark.parametrize("F", [1, 40])
+def test_embedding_bag_matches_pallas_tpu_interpret(dtype, D, F):
+    # the plain version (what ops.embedding_bag runs on a CPU tensor) is the
+    # Pallas kernel's arithmetic: slot order, rounded after each add
+    jids, jt, tids, tt = _bag_operands(10 + D + F, 6, F, D, dtype=dtype)
+    want = jbag.embedding_bag(jids, jt, interpret=True)
+    got = tops.embedding_bag(tids, tt)
+    assert got.dtype == tt.dtype and tuple(got.shape) == (6, D)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert not got[1].any()                          # the all-padding bag
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_mean_matches_reference_ops(dtype):
+    jids, jt, tids, tt = _bag_operands(21, 9, 7, 16, dtype=dtype)
+    want = jops.embedding_bag(jids, jt, mode="mean", use_pallas=True)
+    got = tops.embedding_bag(tids, tt, mode="mean")
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    with pytest.raises(ValueError, match="unknown mode"):
+        tops.embedding_bag(tids, tt, mode="max")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_plain_version_against_xla_reference(dtype):
+    """What the JAX package's XLA oracle (``ref.embedding_bag_ref``, a
+    gather and a reduce) gives beside the kernel's arithmetic.  Bags of one
+    are the gathered row in both (0 + 1 * row): bit-equal.  For bags of 40
+    the two sum in different orders: on this input XLA's float32 sum
+    differs from the slot-order sum in the last bits, and in bfloat16 it
+    rounds once where the kernel rounds after every add, so the two differ
+    by bfloat16 rounding steps; both stay within the recursive-summation
+    bound F * u * sum |row| (u = 2^-24, or 2^-8 for bfloat16)."""
+    for F, seed in ((1, 31), (40, 32)):
+        jids, jt, tids, tt = _bag_operands(seed, 16, F, 64, dtype=dtype)
+        xla = np.asarray(jref.embedding_bag_ref(jids, jt).astype(jnp.float32))
+        got = tops.embedding_bag(tids, tt).float().numpy()
+        if F == 1:
+            np.testing.assert_array_equal(got, xla)
+            continue
+        assert not np.array_equal(got, xla)
+        rows = np.abs(tt.float().numpy())[np.maximum(tids.numpy(), 0)]
+        absum = (rows * (tids.numpy() >= 0)[..., None]).sum(1)
+        u = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -24
+        assert np.all(np.abs(got - xla) <= F * u * absum)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_ids_past_the_table_read_its_last_row(dtype):
+    """Ids at or above V: the Pallas kernel off the TPU clamps its block
+    index into the table and reads row V - 1; the port does the same on the
+    CPU (and the CUDA kernel on the card), bit for bit."""
+    jids, jt, tids, tt = _bag_operands(43, 6, 5, 8, V=50, dtype=dtype)
+    ids = tids.numpy().copy()
+    ids[0, :] = [50, 51, 2 ** 31 - 1, -1, 3]
+    ids[2, 1] = 49
+    want = jbag.embedding_bag(jnp.asarray(ids), jt, interpret=True)
+    got = tops.embedding_bag(torch.from_numpy(ids), tt)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    clamped = torch.from_numpy(np.minimum(ids, 49))
+    assert torch.equal(got, tops.embedding_bag(clamped, tt))
+
+
+def test_embedding_bag_registry_sends_cpu_tensors_to_plain_version():
+    _, _, tids, tt = _bag_operands(41, 5, 3, 8)
+    tsq.reset_launch_counts()
+    treg.reset_compile_counts()
+    got = treg.embedding_bag(tids, tt)
+    assert torch.equal(got, tref.embedding_bag_ref(tids, tt))
+    assert tsq.embedding_bag.launches == 0
+    assert treg.compile_counts() == {"embedding_bag": 1}
+
+
+def test_embedding_bag_wrapper_refuses_cpu_tensors():
+    _, _, tids, tt = _bag_operands(42, 5, 3, 8)
+    tsq.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tsq.embedding_bag(tids, tt)
+    assert tsq.embedding_bag.launches == 0
