@@ -12,7 +12,12 @@ or note, and each phase's time:
    lattice inputs where every product is exact: the stacked count and
    compact, the single-segment count, compact and filter; counts equal,
    flat ids equal, dhalf bit-equal, sentinels in unwritten and trash slots,
-   the overflow guard writing nothing; and embedding_bag bit for bit on
+   the overflow guard writing nothing, and a capacity that cuts the rows
+   short; on a small stack and on a sparse-survivor stack (most query
+   tiles without a survivor in most row blocks, one tile with survivors
+   for one query only, two survivors across a 128-row sub-tile boundary,
+   a ragged m_pad of 300), each with the launch geometry it gets; and
+   embedding_bag bit for bit on
    integer-valued float32 and bfloat16 tables (D 1/32/64/128, bags of
    1/40/100 ids with -1 padding and an all-padding bag, sum and mean);
 2. the port's main path at full size, on the SIFT-1M deployment of
@@ -24,14 +29,18 @@ or note, and each phase's time:
    executor (``packed=False``) bit-identical to the packed one;
 2b. the eps-neighbour graph and DBSCAN on the same index: the plain and
    the symmetric self-join at ``query_chunk=2048`` and 512-row segments
-   (eps giving about 30 neighbours a point), DBSCAN labels of both, sampled
+   (eps giving about 30 neighbours a point), DBSCAN labels of both, the
+   graph's pairs and clusters equal to the recorded ones, sampled
    rows against ``query_radius_csr`` and a float64 brute force, the rows
    where the two graphs differ against the float64 brute force, the
    stacked kernels against their plain versions (and timed) on one graph
    chunk's live stack, and the looped executor over 8 sampled query chunks
    bit-identical to the packed one;
-3. each kernel's time at the shapes its path gives it beside its plain
-   version, its bound and one PyTorch call of the same product;
+3. each kernel's time at the shapes its path gives it (by CUDA events a
+   call, and the kernel alone on the card's clock by torch.profiler) beside
+   its plain version, its bound and one PyTorch call of the same product,
+   with the launch geometry, and at the graph's segment shape a block for
+   every SM;
 4. the recsys serving path through ``launch.steps.build_step`` at full
    width: DLRM (the MLPerf stacked table, 187,767,424 x 128 bfloat16,
    48.07 GB), Wide & Deep and MIND, each at ``serve_p99`` (512) and
@@ -44,14 +53,16 @@ or note, and each phase's time:
    items) and ``retrieve_above`` of its 4 capsules against a float64 brute
    force.
 
-Exits non-zero on any failed check, and without a CUDA device.  The last
-lines are the kernel table as JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+Before phase 1 it prints each kernel's registers, static shared memory
+and spills from the build.  Exits non-zero on any failed check, and
+without a CUDA device.  The last lines are the kernel table as JSON, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +85,10 @@ N_GRAPH_ROWS, N_GRAPH_ORACLE, N_LOOPED_CHUNKS = 256, 64, 8
 # rows in which the plain and the symmetric graph may differ, each checked
 # against the float64 brute force
 MAX_DIFF_ROWS = 1024
+# the graph and its DBSCAN labelling as this script's earlier runs on the
+# H100 found them (PERF.md section 5): pairs, clusters, noise points, points
+# in the largest cluster; an exact pass gives them again
+GRAPH_RECORD = (32_788_237, 97, 248_527, 751_084)
 # NVIDIA's data sheet for the H100 SXM at its 700 W limit: FP32 outside the
 # tensor cores (FLOP/s) and device memory (bytes/s)
 FP32_PEAK = 67e12
@@ -122,6 +137,22 @@ def timed(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds a call of ``fn()`` spends in the port's kernels
+    (``snn_*``) on the card's own clock (torch.profiler), without the
+    host's time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if "snn_" in e.key)
+    return total_us / reps / 1e3
+
+
 # --------------------------------------------------------------------------- #
 # phase 1                                                                      #
 # --------------------------------------------------------------------------- #
@@ -164,60 +195,195 @@ def lattice_operands(torch, ref, ke: int, seed: int):
     return ops
 
 
+def sparse_operands(torch, ref, ke: int, seed: int):
+    """A 2-segment stack of 12,288-row segments on which survivors are rare,
+    and 290 queries padded to a ragged 300, all on exact lattice points.
+
+    Each segment's rows form groups of 16 at one alpha (coordinate 0, two
+    apart from group to group; segment 1 sits beyond segment 0), the 16 on a
+    4 x 4 grid of pitch 3 in coordinates 1-2, with (0, 0) last in odd groups
+    and first in even ones: rows 127 and 128, the last row of one 128-row
+    sub-tile and the first of the next, are (14, 0, 0) and (16, 0, 0).
+    Query 0, at (15, 0, 0) with r = 1, has exactly those two survivors;
+    queries 1-127 sit between the lattice points with r = 1 (their windows
+    meet rows, their balls none), so every query tile that holds query 0
+    has survivors for that one query only; queries 128-289 sit on random
+    rows of row blocks 5 and 17 with r = 1 (one survivor) or r = 3 (up to
+    seven), or between the points with r = 0.5 (none)."""
+    rng = np.random.default_rng(seed)
+    S, n_pad, d, d_pad, m, m_pad = 2, 12288, 3, 128, 290, 300
+    n_s, a_seg = n_pad - 200, 2000.0
+    big = np.float32(ref.BIG)
+    grid = np.array([(y, z) for y in (0, 3, 6, 9) for z in (0, 3, 6, 9)],
+                    np.float32)
+    xs = np.zeros((S, n_pad, d_pad), np.float32)
+    al = np.full((S, n_pad), big, np.float32)
+    hn = np.full((S, n_pad), big, np.float32)
+    px = np.full((S, max(ke, 1), n_pad), big, np.float32)
+    for s in range(S):
+        g = np.arange(n_s) // 16
+        pos = np.arange(n_s) % 16
+        pos = np.where(g % 2 == 1, 15 - pos, pos)   # (0, 0) last in odd groups
+        pts = np.zeros((n_s, d), np.float32)
+        pts[:, 0] = 2.0 * g + a_seg * s
+        pts[:, 1:3] = grid[pos]
+        xs[s, :n_s, :d] = pts
+        al[s, :n_s] = pts[:, 0]
+        hn[s, :n_s] = 0.5 * np.sum(pts * pts, axis=1)
+        px[s, :ke, :n_s] = pts[:, 1:1 + ke].T
+    qi = np.zeros((m, d), np.float32)
+    r = np.ones(m, np.float32)
+    # the queries off the lattice sit between two groups anywhere; the
+    # others on rows of two row blocks of a segment
+    def between(k):
+        a = 2.0 * rng.integers(0, n_s // 16 - 1, k) + 1
+        return np.stack([a + a_seg * rng.integers(0, S, k), np.ones(k),
+                         np.ones(k)], 1)
+
+    qi[0] = (15.0, 0.0, 0.0)
+    qi[1:128] = between(127)
+    kind = rng.integers(0, 3, m - 128)
+    rows = 512 * rng.choice([5, 17], m - 128) + rng.integers(0, 512, m - 128)
+    segs = rng.integers(0, S, m - 128)
+    qi[128:] = xs[segs, rows, :d]
+    r[128:] = np.where(kind == 0, 1.0, np.where(kind == 1, 3.0, 0.5))
+    off = kind == 2
+    qi[128:][off] = between(int(off.sum()))
+    q = np.zeros((m_pad, d_pad), np.float32)
+    q[:m, :d] = qi
+    rp = np.full(m_pad, -big, np.float32)
+    th = np.full(m_pad, -big, np.float32)
+    rp[:m] = r
+    th[:m] = (r * r - np.sum(qi * qi, axis=1)) / 2.0
+    aq = q[:, 0].copy()
+    pq = np.ascontiguousarray(q[:, 1:1 + ke].T)
+    dev = DEVICE
+    ops = [torch.from_numpy(a).to(dev) for a in (q, aq, rp, th, xs, al, hn)]
+    if ke:
+        ops += [torch.from_numpy(pq).to(dev),
+                torch.from_numpy(np.ascontiguousarray(px[:, :ke])).to(dev)]
+    else:
+        ops += [None, None]
+    return ops
+
+
+def geometry_note(K, xs, m_pad: int, bn: int, ke: int) -> str:
+    """The query tile, threads and blocks each pass launches on a stack."""
+    S, n_pad = int(xs.shape[0]), int(xs.shape[1])
+    parts = []
+    for kernel in ("count", "compact"):
+        g = K.launch_geometry(kernel, S, m_pad, n_pad, bn, ke)
+        parts.append(f"{kernel} {g['query_tile']}-query tiles, "
+                     f"{g['blocks']} blocks of {g['threads']}")
+    return "; ".join(parts)
+
+
 def phase_kernels(torch, chk: Checks, K, ref, ops_mod) -> None:
     print("phase 1: kernels vs plain versions on exact lattice inputs")
-    bn = 512
     for ke in (0, 2):
-        q, aq, r, th, xs, al, hn, pq, px = lattice_operands(torch, ref, ke,
-                                                            SEED + ke)
-        args = (q, aq, r, th)
-        p_per, p_part = ref.snn_count_stacked_ref(
-            *args, xs, al, hn, pq, px, bn=bn, with_partials=True)
-        total = int(p_per.sum())
-        for mixed in (False, True):
-            k_per, k_part = K.snn_count_stacked(
-                *args, xs, al, hn, pq, px, bn=bn, mixed=mixed,
-                with_partials=True)
-            pm = ref.snn_count_stacked_ref(*args, xs, al, hn, pq, px, bn=bn,
-                                           mixed=mixed)
-            torch.cuda.synchronize()
-            chk.ok(torch.equal(k_per, pm) and torch.equal(pm, p_per),
-                   f"count ke={ke} mixed={mixed}: kernel == plain "
-                   f"({total} survivors)")
-            chk.ok(torch.equal(k_part, p_part),
-                   f"count ke={ke} mixed={mixed}: per-block partials == plain")
-        _, _, offsets = ref.stacked_prefix(p_per)
-        nnz = ops_mod.csr_capacity(total)
-        p_idx, p_dh = ref.snn_compact_stacked_ref(
-            *args, offsets, xs, al, hn, pq, px, nnz=nnz)
-        for handed in (True, False):
-            part = K.snn_count_stacked(*args, xs, al, hn, pq, px, bn=bn,
-                                       with_partials=True)[1] if handed else None
-            k_idx, k_dh = K.snn_compact_stacked(
-                *args, offsets, xs, al, hn, pq, px, nnz=nnz, bn=bn,
-                partials=part)
-            torch.cuda.synchronize()
-            tag = f"compact ke={ke} partials={'handed' if handed else 'recounted'}"
-            chk.ok(torch.equal(k_idx, p_idx), f"{tag}: idx == plain (nnz={total})")
-            chk.ok(torch.equal(k_dh.view(torch.int32), p_dh.view(torch.int32)),
-                   f"{tag}: dhalf bit-equal to plain")
-            chk.ok(bool((k_idx[total:] == -1).all())
-                   and bool((k_dh[total:] == ref.BIG).all())
-                   and bool((k_idx[:total] >= 0).all()),
-                   f"{tag}: -1/+BIG in the {nnz - total} unwritten and "
-                   f"trash slots, every data slot written")
-        k_idx, k_dh = K.snn_compact_stacked(*args, offsets, xs, al, hn, pq,
-                                            px, nnz=total, bn=bn)
+        stack_checks(torch, chk, K, ref, ops_mod,
+                     lattice_operands(torch, ref, ke, SEED + ke), f"ke={ke}",
+                     "lattice stack")
+    for ke in (0, 2):
+        ops = sparse_operands(torch, ref, ke, SEED + 20 + ke)
+        sparse_properties(torch, chk, ref, ops, f"sparse ke={ke}")
+        stack_checks(torch, chk, K, ref, ops_mod, ops, f"sparse ke={ke}",
+                     "sparse-survivor stack")
+
+
+def sparse_properties(torch, chk: Checks, ref, ops, tag: str) -> None:
+    """What the sparse-survivor stack is built to hold, read from the plain
+    versions' partials."""
+    bn = 512
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    per, part = ref.snn_count_stacked_ref(q, aq, r, th, xs, al, hn, pq, px,
+                                          bn=bn, with_partials=True)
+    S, m_pad, nb = part.shape
+    empty = []
+    for tq in (128, 32, 8):
+        n_t = -(-m_pad // tq)
+        padded = torch.zeros((S, n_t * tq, nb), dtype=part.dtype,
+                             device=part.device)
+        padded[:, :m_pad] = part
+        tiles = padded.reshape(S, n_t, tq, nb)
+        empty.append(float((tiles.sum(2) == 0).float().mean()))
+    seg0 = part[0, 0]
+    tile0 = part[:, :8].sum(2) > 0       # the smallest tile holding query 0
+    chk.ok(min(empty) > 0.9 and int(per[:, 0].sum()) == 2
+           and int(seg0[0]) == 2 and int(tile0.sum()) == 1
+           and int((part[:, 1:128] > 0).sum()) == 0 and m_pad % 128 != 0,
+           f"{tag}: {min(empty):.4f} of the (query tile, row block) cells "
+           "empty at every tile size (128/32/8); query 0 has 2 survivors, "
+           f"both in row block 0; queries 1-127 none; m_pad={m_pad}, "
+           f"{int(per.sum())} survivors")
+    keep = ref.snn_filter_ref(q, aq, r, th, xs[0], al[0], hn[0], pq,
+                              None if px is None else px[0])[0] < ref.BIG
+    chk.ok(torch.equal(torch.nonzero(keep).flatten().cpu(),
+                       torch.tensor([127, 128])),
+           f"{tag}: query 0's survivors are rows 127 and 128, the last row "
+           "of one 128-row sub-tile and the first of the next")
+
+
+def stack_checks(torch, chk: Checks, K, ref, ops_mod, ops, tag: str,
+                 what: str) -> None:
+    """The stacked count (mixed off and on) and compact (partials handed and
+    recounted, the overflow guard) on one stack, then the single-segment
+    kernels on each of its segments, all against the plain versions."""
+    bn = 512
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    args = (q, aq, r, th)
+    m_pad, ke = q.shape[0], 0 if pq is None else pq.shape[0]
+    chk.note(f"{tag} ({what}, S={xs.shape[0]}, n_pad={xs.shape[1]}, "
+             f"m_pad={m_pad}): stacked "
+             f"{geometry_note(K, xs, m_pad, bn, ke)}; one segment "
+             f"{geometry_note(K, xs[:1], m_pad, bn, ke)}")
+    p_per, p_part = ref.snn_count_stacked_ref(
+        *args, xs, al, hn, pq, px, bn=bn, with_partials=True)
+    total = int(p_per.sum())
+    for mixed in (False, True):
+        k_per, k_part = K.snn_count_stacked(
+            *args, xs, al, hn, pq, px, bn=bn, mixed=mixed,
+            with_partials=True)
+        pm = ref.snn_count_stacked_ref(*args, xs, al, hn, pq, px, bn=bn,
+                                       mixed=mixed)
         torch.cuda.synchronize()
-        chk.ok(bool((k_idx == -1).all()) and bool((k_dh == ref.BIG).all()),
-               f"compact ke={ke}: overflow guard (nnz={total} < total + 1) "
-               f"writes nothing")
-        k_per = K.snn_count_stacked(*args, xs, al, hn, pq, px, bn=bn)
-        for s in range(xs.shape[0]):
-            seg = (xs[s].contiguous(), al[s].contiguous(), hn[s].contiguous(),
-                   pq, None if px is None else px[s].contiguous())
-            single_segment_checks(torch, chk, K, ref, ops_mod, args, seg,
-                                  k_per[s], f"ke={ke} segment {s}")
+        chk.ok(torch.equal(k_per, pm) and torch.equal(pm, p_per),
+               f"count {tag} mixed={mixed}: kernel == plain "
+               f"({total} survivors)")
+        chk.ok(torch.equal(k_part, p_part),
+               f"count {tag} mixed={mixed}: per-block partials == plain")
+    _, _, offsets = ref.stacked_prefix(p_per)
+    nnz = ops_mod.csr_capacity(total)
+    p_idx, p_dh = ref.snn_compact_stacked_ref(
+        *args, offsets, xs, al, hn, pq, px, nnz=nnz)
+    for handed in (True, False):
+        part = K.snn_count_stacked(*args, xs, al, hn, pq, px, bn=bn,
+                                   with_partials=True)[1] if handed else None
+        k_idx, k_dh = K.snn_compact_stacked(
+            *args, offsets, xs, al, hn, pq, px, nnz=nnz, bn=bn,
+            partials=part)
+        torch.cuda.synchronize()
+        t2 = f"compact {tag} partials={'handed' if handed else 'recounted'}"
+        chk.ok(torch.equal(k_idx, p_idx), f"{t2}: idx == plain (nnz={total})")
+        chk.ok(torch.equal(k_dh.view(torch.int32), p_dh.view(torch.int32)),
+               f"{t2}: dhalf bit-equal to plain")
+        chk.ok(bool((k_idx[total:] == -1).all())
+               and bool((k_dh[total:] == ref.BIG).all())
+               and bool((k_idx[:total] >= 0).all()),
+               f"{t2}: -1/+BIG in the {nnz - total} unwritten and "
+               f"trash slots, every data slot written")
+    k_idx, k_dh = K.snn_compact_stacked(*args, offsets, xs, al, hn, pq,
+                                        px, nnz=total, bn=bn)
+    torch.cuda.synchronize()
+    chk.ok(bool((k_idx == -1).all()) and bool((k_dh == ref.BIG).all()),
+           f"compact {tag}: overflow guard (nnz={total} < total + 1) "
+           f"writes nothing")
+    k_per = K.snn_count_stacked(*args, xs, al, hn, pq, px, bn=bn)
+    for s in range(xs.shape[0]):
+        seg = (xs[s].contiguous(), al[s].contiguous(), hn[s].contiguous(),
+               pq, None if px is None else px[s].contiguous())
+        single_segment_checks(torch, chk, K, ref, ops_mod, args, seg,
+                              k_per[s], f"{tag} segment {s}")
 
 
 def single_segment_checks(torch, chk: Checks, K, ref, ops_mod, args, seg,
@@ -263,6 +429,18 @@ def single_segment_checks(torch, chk: Checks, K, ref, ops_mod, args, seg,
                and bool((k_idx[lead:lead + total] >= 0).all()),
                f"{t2}: -1/+BIG in the {nnz - total} unwritten and trash "
                "slots, every data slot written")
+    # a capacity that cuts the rows short: slots at or past nnz - 1 (the
+    # trash slot) are skipped, as in the plain version
+    short = lead + total // 2 + 1
+    k_idx, k_dh = K.snn_compact(*args, off, xs, al, hn, pq, px, nnz=short,
+                                bn=bn)
+    p_idx, p_dh = ref.snn_compact_ref(*args, off, xs, al, hn, pq, px,
+                                      nnz=short)
+    torch.cuda.synchronize()
+    chk.ok(torch.equal(k_idx, p_idx)
+           and torch.equal(k_dh.view(torch.int32), p_dh.view(torch.int32)),
+           f"snn_compact {tag} nnz={short} for {total} survivors: the slots "
+           "in range == plain, none written past them")
     k_f = K.snn_filter(*ops, bn=bn)
     p_f = ref.snn_filter_ref(*ops)
     torch.cuda.synchronize()
@@ -556,13 +734,17 @@ def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
     lab_plain = dbscan.labels_from_graph(plain, MIN_SAMPLES)
     lab_sym = dbscan.labels_from_graph(sym, MIN_SAMPLES)
     n_clusters = int(lab_plain.max()) + 1
+    largest = (int(np.bincount(lab_plain[lab_plain >= 0]).max())
+               if n_clusters else 0)
+    found = (int(plain.nnz), n_clusters, int((lab_plain < 0).sum()), largest)
     chk.note(f"DBSCAN min_samples={MIN_SAMPLES}: {n_clusters} clusters, "
-             f"{int((lab_plain < 0).sum())} noise points, "
-             f"{int(np.bincount(lab_plain[lab_plain >= 0]).max()) if n_clusters else 0} "
-             f"in the largest; labels of both graphs in "
-             f"{time.perf_counter() - t:.2f} s (host)")
+             f"{found[2]} noise points, {largest} in the largest; labels of "
+             f"both graphs in {time.perf_counter() - t:.2f} s (host)")
     chk.ok(np.array_equal(lab_plain, lab_sym),
            "DBSCAN labels of the plain and the symmetric graph identical")
+    chk.ok(found == GRAPH_RECORD,
+           f"graph pairs, clusters, noise points and largest cluster {found} "
+           f"== the recorded {GRAPH_RECORD}")
 
     rows = rng.choice(n, N_GRAPH_ROWS, replace=False)
     t = time.perf_counter()
@@ -701,6 +883,51 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
+def compact_work(torch, partials, al, aq64, r64, d_pad: int, ke: int,
+                 bn: int):
+    """The work the compact pass needs once the count's partials are known:
+    the alpha-window rows of every (segment, query, row block) cell with a
+    survivor, and nothing of the other cells.  ``partials`` (S, m_pad, nb)
+    and ``al`` (S, n_pad, each segment sorted, +BIG padding) are on the card,
+    ``aq64``/``r64`` the m real queries' alphas and radii in float64.
+    Returns (window pairs of those cells, FP32 operations (2*DIM a pair),
+    bytes: read once, the union of those rows (d_pad features, alpha, half
+    norm and ke projections a row), the listed queries (d_pad features, aq,
+    r, th and ke projections), every partial and the listed cells' bases;
+    written once, the (id, dhalf) of each survivor)."""
+    dev = partials.device
+    part = partials.reshape(-1, *partials.shape[-2:])
+    S, m_pad, nb = part.shape
+    m = aq64.size
+    listed = part[:, :m] > 0
+    al64 = al.reshape(S, -1).double().contiguous()
+    n_pad = al64.shape[1]
+    aq = torch.from_numpy(aq64).to(dev)
+    rr = torch.from_numpy(r64).to(dev)
+    lo = torch.searchsorted(al64, (aq - rr).expand(S, m).contiguous(),
+                            side="left")
+    hi = torch.searchsorted(al64, (aq + rr).expand(S, m).contiguous(),
+                            side="right")
+    b0 = torch.arange(nb, device=dev) * bn
+    start = torch.maximum(lo[..., None], b0)
+    end = torch.minimum(hi[..., None], b0 + bn)
+    live = listed & (end > start)
+    pairs = int(torch.where(live, end - start, 0).sum())
+    # the union of the listed windows' rows: +1 at each start, -1 at each
+    # end, a running sum along each segment
+    seg = torch.arange(S, device=dev).view(S, 1, 1).expand_as(start)[live]
+    base = seg * (n_pad + 1)
+    marks = torch.zeros(S * (n_pad + 1), dtype=torch.int32, device=dev)
+    ones = torch.ones(base.numel(), dtype=torch.int32, device=dev)
+    marks.index_add_(0, base + start[live], ones)
+    marks.index_add_(0, base + end[live], -ones)
+    rows = int((marks.view(S, n_pad + 1).cumsum(1) > 0).sum())
+    n_q = int(listed.any(2).any(0).sum())
+    nbytes = 4 * (rows * (d_pad + 2 + ke) + n_q * (d_pad + 3 + ke)
+                  + part.numel() + int(listed.sum())) + 8 * int(part.sum())
+    return pairs, 2.0 * DIM * pairs, nbytes
+
+
 def stacked_kernels(torch, chk: Checks, K, ref, ops_mod, engine, pack, live,
                     kq: int, dev_ops, host, m: int, tag: str) -> dict:
     """snn_count_stacked and snn_compact_stacked on the live stack of
@@ -759,6 +986,11 @@ def stacked_kernels(torch, chk: Checks, K, ref, ops_mod, engine, pack, live,
     k_compact_ms = timed(torch, lambda: K.snn_compact_stacked(
         *args, k_off, xs, al, hn, pqd, px, nnz=nnz, bn=bn, partials=k_part),
         reps)
+    k_count_dev = device_ms(torch, lambda: K.snn_count_stacked(
+        *args, xs, al, hn, pqd, px, bn=bn, with_partials=True), reps)
+    k_compact_dev = device_ms(torch, lambda: K.snn_compact_stacked(
+        *args, k_off, xs, al, hn, pqd, px, nnz=nnz, bn=bn, partials=k_part),
+        reps)
     p_count_ms = timed(torch, lambda: ref.snn_count_stacked_ref(
         *args, xs, al, hn, pqd, px, bn=bn, with_partials=True), 2)
     p_compact_ms = timed(torch, lambda: ref.snn_compact_stacked_ref(
@@ -776,27 +1008,44 @@ def stacked_kernels(torch, chk: Checks, K, ref, ops_mod, engine, pack, live,
                                            px) if t is not None)
     count_bytes = in_bytes + 4 * S * m_pad * (1 + n_pad // bn)
     c_bound, c_by = bound_ms(flops, count_bytes)
-    p_bound, p_by = bound_ms(flops, count_bytes + 4 * S * m_pad + 8 * nnz)
+    ke = 0 if pqd is None else int(pqd.shape[0])
+    p_pairs, p_flops, p_bytes = compact_work(
+        torch, k_part, al, host[1][:m].astype(np.float64),
+        host[2][:m].astype(np.float64), d_pad, ke, bn)
+    p_bound, p_by = bound_ms(p_flops, p_bytes)
     chk.note(f"{tag}: {pairs} alpha-window pairs of {m * al_rows.size} "
              f"({pairs / (m * al_rows.size):.4f}), {flops:.4e} FP32 "
-             "operations a pass")
+             f"operations for the count; the compact's: {p_pairs} window "
+             f"pairs in the row blocks its partials list, {p_flops:.4e} "
+             f"operations, {p_bytes / 1e6:.2f} MB")
     chk.note(f"{tag}: snn_count_stacked {k_count_ms:.4f} ms "
-             f"({flops / k_count_ms / 1e9:.2f} TFLOP/s), mixed "
+             f"({flops / k_count_ms / 1e9:.2f} TFLOP/s; the kernel alone "
+             f"{k_count_dev:.4f} ms), mixed "
              f"{k_mixed_ms:.4f} ms, plain {p_count_ms:.4f} ms, bound "
              f"{c_bound:.4f} ms ({c_by}); snn_compact_stacked "
-             f"{k_compact_ms:.4f} ms, plain {p_compact_ms:.4f} ms, bound "
+             f"{k_compact_ms:.4f} ms (alone {k_compact_dev:.4f} ms), plain "
+             f"{p_compact_ms:.4f} ms, bound "
              f"{p_bound:.4f} ms ({p_by}); torch.matmul {lib_ms:.4f} ms")
+    geo = geometries(K, S, m_pad, n_pad, bn, pqd)
+    chk.note(f"{tag}: launches {geo}")
     shape = {"S": int(S), "m_pad": m_pad, "n_pad": int(n_pad)}
     return {
         "snn_count_stacked": dict(
             shape, max_abs_err=float(count_err), ms=k_count_ms,
-            plain_ms=p_count_ms, bound_ms=c_bound, bound_by=c_by,
-            library_ms=lib_ms, mixed_ms=k_mixed_ms),
+            device_ms=k_count_dev, plain_ms=p_count_ms, bound_ms=c_bound,
+            bound_by=c_by, library_ms=lib_ms, mixed_ms=k_mixed_ms,
+            geometry=geo["count"]),
         "snn_compact_stacked": dict(
             shape, max_abs_err=dh_err, ms=k_compact_ms,
-            plain_ms=p_compact_ms, bound_ms=p_bound, bound_by=p_by,
-            library_ms=lib_ms),
+            device_ms=k_compact_dev, plain_ms=p_compact_ms, bound_ms=p_bound,
+            bound_by=p_by, library_ms=lib_ms, geometry=geo["compact"]),
     }
+
+
+def geometries(K, S, m_pad, n_pad, bn, pq) -> dict:
+    ke = 0 if pq is None else int(pq.shape[0])
+    return {k: K.launch_geometry(k, int(S), int(m_pad), int(n_pad), bn, ke)
+            for k in ("count", "compact")}
 
 
 def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, engine, index, q,
@@ -877,6 +1126,10 @@ def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
                                                   with_partials=True), reps)
     k_compact_ms = timed(torch, lambda: K.snn_compact(
         *ops[:4], k_off, *ops[4:], nnz=nnz, partials=k_part), reps)
+    k_count_dev = device_ms(torch, lambda: K.snn_count(
+        *ops, with_partials=True), reps)
+    k_compact_dev = device_ms(torch, lambda: K.snn_compact(
+        *ops[:4], k_off, *ops[4:], nnz=nnz, partials=k_part), reps)
     p_count_ms = timed(torch, lambda: ref.snn_count_ref(
         *ops, with_partials=True), plain_reps)
     p_compact_ms = timed(torch, lambda: ref.snn_compact_ref(
@@ -892,20 +1145,30 @@ def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
                     + pqd.numel() + seg.projs.numel())
     part_bytes = 4 * m_pad * (1 + n_pad // 512)
     c_bound, c_by = bound_ms(flops, in_bytes + part_bytes)
-    p_bound, p_by = bound_ms(flops, in_bytes + part_bytes + 8 * nnz)
-    chk.note(f"{tag}: m_pad={m_pad} n_pad={n_pad}, {pairs} window pairs; "
-             f"snn_count {k_count_ms:.4f} ms (mixed {k_mixed_ms:.4f}), plain "
+    p_pairs, p_flops, p_bytes = compact_work(
+        torch, k_part, seg.alphas, aqp[:m].astype(np.float64),
+        rp[:m].astype(np.float64), int(qd.shape[1]), int(pqd.shape[0]), 512)
+    p_bound, p_by = bound_ms(p_flops, p_bytes)
+    chk.note(f"{tag}: m_pad={m_pad} n_pad={n_pad}, {pairs} window pairs "
+             f"(the compact's row blocks with a survivor: {p_pairs}); "
+             f"snn_count {k_count_ms:.4f} ms (the kernel alone "
+             f"{k_count_dev:.4f}, mixed {k_mixed_ms:.4f}), plain "
              f"{p_count_ms:.4f}, bound {c_bound:.4f} ({c_by}); snn_compact "
-             f"{k_compact_ms:.4f} ms, plain {p_compact_ms:.4f}, bound "
-             f"{p_bound:.4f} ({p_by}); torch.matmul {lib_ms:.4f} ms")
+             f"{k_compact_ms:.4f} ms (alone {k_compact_dev:.4f}), plain "
+             f"{p_compact_ms:.4f}, bound {p_bound:.4f} ({p_by}); "
+             f"torch.matmul {lib_ms:.4f} ms")
+    geo = geometries(K, 1, m_pad, n_pad, 512, pqd)
+    chk.note(f"{tag}: launches {geo}")
     shape = {"m_pad": int(m_pad), "n_pad": int(n_pad)}
     return {
-        "count": dict(shape, ms=k_count_ms, mixed_ms=k_mixed_ms,
-                      plain_ms=p_count_ms, bound_ms=c_bound, bound_by=c_by,
-                      library_ms=lib_ms, max_abs_err=float(count_err)),
-        "compact": dict(shape, ms=k_compact_ms, plain_ms=p_compact_ms,
-                        bound_ms=p_bound, bound_by=p_by, library_ms=lib_ms,
-                        max_abs_err=dh_err),
+        "count": dict(shape, ms=k_count_ms, device_ms=k_count_dev,
+                      mixed_ms=k_mixed_ms, plain_ms=p_count_ms,
+                      bound_ms=c_bound, bound_by=c_by, library_ms=lib_ms,
+                      max_abs_err=float(count_err), geometry=geo["count"]),
+        "compact": dict(shape, ms=k_compact_ms, device_ms=k_compact_dev,
+                        plain_ms=p_compact_ms, bound_ms=p_bound, bound_by=p_by,
+                        library_ms=lib_ms, max_abs_err=dh_err,
+                        geometry=geo["compact"]),
         "ops": ops, "pairs": pairs, "qp": qp,
     }
 
@@ -924,6 +1187,11 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
                      x[index.order[mid:mid + QUERY_CHUNK]], eps, mid,
                      SEGMENT_ROWS, xs64, hn64,
                      "graph segment shape (the chunk's own segment)", 200, 20)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = {k: g[k]["geometry"]["blocks"] for k in ("count", "compact")}
+    chk.ok(min(blocks.values()) >= sms,
+           f"graph segment shape: blocks a launch {blocks}, at least one for "
+           f"each of the card's {sms} SMs")
 
     # snn_filter: the public op at the main path's shapes, a path of its own
     ops = main["ops"]
@@ -1407,6 +1675,43 @@ def mind_retrieval(torch, chk: Checks, K, ref, snn, steps, rs, clock,
     return ra
 
 
+def ptxas_table(log: str, nvcc: str) -> dict:
+    """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
+    "spill_loads"}} from nvcc's ``-Xptxas -v`` output, the names demangled
+    with the toolkit's cu++filt where it has one."""
+    table, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            table[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            table[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            table[name].update(registers=int(m[1]),
+                               smem_bytes=int(smem[1]) if smem else 0)
+    names = list(table)
+    try:
+        out = subprocess.run([str(Path(nvcc).with_name("cu++filt"))],
+                             input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        out = names
+    short = {}
+    for mangled, plain in zip(names, out):
+        m = (re.search(r"\w+_kernel(<[^>]*>)?", plain) if plain != mangled
+             else re.search(r"[a-z_]+_kernel(I\w+?E)?", mangled))
+        short[m.group(0) if m else mangled] = table[mangled]
+    return short
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1458,10 +1763,12 @@ def main() -> int:
     t = time.perf_counter()
     lib = K.build()
     print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t:.2f} s")
-    for line in K.build_log().splitlines():
-        if ("registers" in line or "spill" in line or "error" in line
-                or "Compiling entry" in line):
-            print(f"  {line.strip()}")
+    ptxas = ptxas_table(K.build_log(), K._nvcc())
+    for name, v in ptxas.items():
+        print(f"  {name}: {v.get('registers')} registers, "
+              f"{v.get('smem_bytes')} B static shared memory, spills "
+              f"{v.get('spill_stores')} B stored / {v.get('spill_loads')} B "
+              "loaded")
     chk = Checks()
     t = time.perf_counter()
     phase_kernels(torch, chk, K, ref, ops_mod)
@@ -1513,6 +1820,12 @@ def main() -> int:
         "paths": bag_paths, "device_breakdown": breakdown})
     if not phase_done("phase 4", t):
         return 1
+    for rec in kernels:
+        base = {"snn_count": "snn_count_stacked",
+                "snn_compact": "snn_compact_stacked"}.get(rec["name"],
+                                                          rec["name"])
+        rec["ptxas"] = {k: v for k, v in ptxas.items()
+                        if k.startswith(f"{base}_kernel")}
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

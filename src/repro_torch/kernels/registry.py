@@ -9,11 +9,15 @@ plain version; a tensor on any other device raises.
 The entry points, each with the launch it makes on the card:
 
 * `snn_count_stacked` / `snn_compact_stacked`: the packed executor's two
-  passes, one launch each over a (S, n_pad, d_pad) segment stack, grid
-  (m_pad / 64, n_pad / bn, S);
+  passes, one launch each over a (S, n_pad, d_pad) segment stack; the count
+  a one-dimensional grid of m_pad / 128 x n_pad / 128 x S blocks of 256
+  threads, the compact m_pad / 128 x n_pad / bn x S blocks of 256 threads
+  (`kernels.snn_query.launch_geometry`);
 * `snn_count` / `snn_compact`: the looped executor's two passes over one
-  (n_pad, d_pad) segment, the same kernels on a stack of one, grid
-  (m_pad / 64, n_pad / bn, 1);
+  (n_pad, d_pad) segment, the same kernels on a stack of one.  Where the
+  full query tile would leave SMs without a block, as at a graph chunk's
+  own 512-row segment, the count takes 32-query tiles (blocks of 64
+  threads) and the compact 32- or 8-query tiles;
 * `snn_filter`: the dense (m_pad, n_pad) masked half distances, grid
   (m_pad / 64, n_pad / bn); `snn_filter_stacked` flattens a stack into it;
 * `embedding_bag`: the recsys table lookup, (B, F) ids over a (V, D) table,

@@ -7,14 +7,18 @@ Five entry points of the query hot loop on the shared predicate of
   ``repro.kernels.snn_query.snn_count_stacked``: per-(segment, query)
   survivor counts over a (S, n_pad, d_pad) stack of segments, with the
   optional bf16 count pass (``mixed=True``) under the margin certificate.
+  One block a (128-query x 128-row) tile, or a 32-query tile when the grid
+  would otherwise have fewer blocks than the card has SMs.
 * `snn_compact_stacked` (``csrc/snn_query.cu``) replaces ``repro.kernels.
-  snn_query.snn_compact_stacked``: it re-runs the predicate and writes every
-  survivor as (pack-flat id ``s * n_pad + row``, dhalf) into its flat CSR
-  slot.
+  snn_query.snn_compact_stacked``: one block a (query tile, bn-row block)
+  cell; it runs the predicate again only for the queries whose count-pass
+  partials say they have a survivor there, and writes every survivor as
+  (pack-flat id ``s * n_pad + row``, dhalf) into its flat CSR slot.
 * `snn_count` and `snn_compact` (``csrc/snn_query.cu``) replace the
   single-segment ``snn_query.snn_count`` / ``snn_compact``: the two stacked
-  kernels launched on a stack of one, so the looped and the packed executor
-  evaluate one compiled predicate.
+  kernels launched on a stack of one.  Every launch shape computes a pair's
+  dot product as the same fmaf chain, so the looped and the packed executor
+  agree bit for bit.
 * `snn_filter` (``csrc/snn_filter.cu``) replaces ``snn_query.snn_filter``:
   the dense (m_pad, n_pad) masked half distances, +BIG where a pair is
   pruned.
@@ -56,7 +60,7 @@ HEADERS = ("snn_predicate.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
-ROW_TILE = 128    # rows per sub-tile (csrc: kTR); bn must be a multiple
+ROW_TILE = 128    # rows per tile (csrc: kRows); bn must be a multiple
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -128,14 +132,16 @@ def _library() -> ctypes.CDLL:
             operands = [ptr] * 9 + [i32] * 6
             lib.snn_count_stacked.argtypes = operands + [i32, ptr, ptr, ptr]
             lib.snn_count_stacked.restype = i32
-            lib.snn_compact_stacked.argtypes = operands + [ptr, ptr, i32, ptr,
-                                                           ptr, ptr]
+            lib.snn_compact_stacked.argtypes = operands + [ptr, ptr, ptr, i32,
+                                                           ptr, ptr, ptr]
             lib.snn_compact_stacked.restype = i32
             single = [ptr] * 9 + [i32] * 5
             lib.snn_count.argtypes = single + [i32, ptr, ptr, ptr]
             lib.snn_count.restype = i32
-            lib.snn_compact.argtypes = single + [ptr, i32, ptr, ptr, ptr]
+            lib.snn_compact.argtypes = single + [ptr, ptr, i32, ptr, ptr, ptr]
             lib.snn_compact.restype = i32
+            lib.snn_launch_geometry.argtypes = [i32] * 6 + [ptr]
+            lib.snn_launch_geometry.restype = i32
             lib.snn_filter.argtypes = single + [ptr, ptr]
             lib.snn_filter.restype = i32
             lib.embedding_bag.argtypes = [ptr, ptr, ptr, i32, i32, i32,
@@ -145,8 +151,12 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
-    """Validate the kernels' operands; returns (S, m_pad, n_pad, d_pad, ke)."""
+def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn,
+                    stacked=True):
+    """Validate the kernels' operands, a (S, n_pad, d_pad) stack or, with
+    ``stacked=False``, one (n_pad, d_pad) segment (alphas/half_norms
+    without the S axis, px (ke, n_pad)); returns (S, m_pad, n_pad, d_pad,
+    ke), S = 1 for a segment."""
     if not (isinstance(xs, torch.Tensor) and xs.is_cuda):
         raise ValueError("the CUDA kernels take CUDA tensors; "
                          f"got {getattr(xs, 'device', type(xs))}")
@@ -156,24 +166,28 @@ def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
                  half_norms=half_norms)
     if pq is not None:
         named.update(pq=pq, px=px)
+    dev = xs.get_device()
     for name, t in named.items():
-        if t.device != xs.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, xs on {xs.device}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if xs.dim() != 3:
-        raise ValueError(f"xs must be (S, n_pad, d_pad), got {tuple(xs.shape)}")
-    S, n_pad, d_pad = xs.shape
+    if xs.dim() != 2 + stacked:
+        raise ValueError(f"xs must be {'(S, ' if stacked else '('}n_pad, "
+                         f"d_pad), got {tuple(xs.shape)}")
+    S = xs.shape[0] if stacked else 1
+    n_pad, d_pad = xs.shape[-2:]
+    seg = (S,) if stacked else ()
     m_pad = q.shape[0]
     ke = 0 if pq is None else pq.shape[0]
     want = dict(q=(m_pad, d_pad), aq=(m_pad,), r=(m_pad,), thresh=(m_pad,),
-                alphas=(S, n_pad), half_norms=(S, n_pad))
+                alphas=seg + (n_pad,), half_norms=seg + (n_pad,))
     if pq is not None:
-        want.update(pq=(ke, m_pad), px=(S, ke, n_pad))
+        want.update(pq=(ke, m_pad), px=seg + (ke, n_pad))
     for name, shape in want.items():
-        if tuple(named[name].shape) != shape:
+        if named[name].shape != shape:
             raise ValueError(f"{name} has shape {tuple(named[name].shape)}, "
                              f"expected {shape}")
     if bn <= 0 or bn % ROW_TILE or n_pad % bn:
@@ -181,14 +195,43 @@ def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
                          f"that divides n_pad={n_pad}")
     if d_pad % 32:
         raise ValueError(f"d_pad={d_pad} must be a multiple of 32")
-    if S * n_pad >= 2 ** 31 or n_pad // bn > 65535 or S > 65535:
+    if q.data_ptr() % 16 or xs.data_ptr() % 16:
+        raise ValueError("q and xs must start on a 16-byte boundary (the "
+                         "kernels load them in 16-byte chunks)")
+    if S * n_pad >= 2 ** 31 or n_pad // bn > 65535:
         raise ValueError(f"stack (S={S}, n_pad={n_pad}) exceeds the kernels' "
-                         "int32 pack-flat ids or grid limits")
+                         "int32 pack-flat ids or the filter's grid")
     return S, m_pad, n_pad, d_pad, ke
 
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def write_bases(offsets, partials):
+    """The compact's write base of every (segment, query, row block): the
+    flat slot of its first survivor, ``offsets`` (the row block 0 base, (S,
+    m_pad) or (m_pad,)) plus the exclusive prefix of ``partials`` (the count
+    pass's per-row-block counts, one more trailing axis) over row blocks.
+    With one row block that is ``offsets`` itself: a scan along a trailing
+    axis of length 1 over millions of rows is slow on the card."""
+    if partials.shape[-1] == 1:
+        return offsets[..., None].contiguous()
+    return offsets[..., None] + (torch.cumsum(partials, -1, dtype=torch.int32)
+                                 - partials)
+
+
+def launch_geometry(kernel: str, S: int, m_pad: int, n_pad: int, bn: int,
+                    ke: int = 0) -> dict:
+    """The launch ``kernel`` ("count" or "compact", stacked or single) makes
+    for a (S, n_pad) stack and m_pad queries on the current device:
+    {"query_tile", "threads", "blocks", "smem_bytes"} (dynamic shared
+    memory).  The query tile shrinks when the full one would leave SMs
+    without a block."""
+    out = (ctypes.c_longlong * 4)()
+    _library().snn_launch_geometry(("count", "compact").index(kernel), S,
+                                   m_pad, n_pad, bn, ke, ctypes.addressof(out))
+    return dict(zip(("query_tile", "threads", "blocks", "smem_bytes"), out))
 
 
 def _stream(device) -> int:
@@ -214,7 +257,7 @@ def snn_count_stacked(q, aq, r, thresh, xs, alphas, half_norms,
     counts = torch.zeros((S, m_pad), dtype=torch.int32, device=dev)
     partials = None
     if with_partials:
-        partials = torch.empty((S, m_pad, n_pad // bn), dtype=torch.int32,
+        partials = torch.zeros((S, m_pad, n_pad // bn), dtype=torch.int32,
                                device=dev)
     if S and m_pad and n_pad:
         lib = _library()
@@ -226,8 +269,6 @@ def snn_count_stacked(q, aq, r, thresh, xs, alphas, half_norms,
             raise RuntimeError(f"snn_count_stacked launch failed: CUDA error "
                                f"{rc}")
         snn_count_stacked.launches += 1
-    elif partials is not None:
-        partials.zero_()
     return (counts, partials) if with_partials else counts
 
 
@@ -247,7 +288,9 @@ def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
     (segment, row) order.  When ``total + 1 > nnz`` nothing is written, and
     the kernel reads ``total`` on the device, so no host sync is needed
     between the passes.  ``partials`` is the count pass's per-row-block
-    output; without it this wrapper launches the count kernel to get it.
+    output, which gives every row block its write base (`write_bases`) and
+    names the queries that have a survivor in it; without it this wrapper
+    launches the count kernel to get it.
     """
     S, m_pad, n_pad, d_pad, ke = _check_operands(
         q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn)
@@ -270,15 +313,14 @@ def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
             or tuple(partials.shape) != (S, m_pad, nb):
         raise ValueError(f"partials must be int32 ({S}, {m_pad}, {nb}) "
                          f"on {dev}")
-    bases = offsets[:, :, None] + (torch.cumsum(partials, 2, dtype=torch.int32)
-                                   - partials)
+    bases = write_bases(offsets, partials)
     total = partials.sum(dtype=torch.int32)
     lib = _library()
     rc = lib.snn_compact_stacked(
         _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
         _ptr(half_norms), _ptr(pq), _ptr(px), S, m_pad, n_pad, d_pad, ke, bn,
-        _ptr(bases), _ptr(total), int(nnz), _ptr(idx), _ptr(dh),
-        _stream(dev))
+        _ptr(bases), _ptr(partials), _ptr(total), int(nnz), _ptr(idx),
+        _ptr(dh), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"snn_compact_stacked launch failed: CUDA error "
                            f"{rc}")
@@ -287,20 +329,6 @@ def snn_compact_stacked(q, aq, r, thresh, offsets, xs, alphas, half_norms,
 
 
 snn_compact_stacked.launches = 0
-
-
-def _check_single(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn):
-    """Validate one segment's operands as a stack of one; returns
-    (m_pad, n_pad, d_pad, ke)."""
-    if not (isinstance(xs, torch.Tensor) and xs.is_cuda):
-        raise ValueError("the CUDA kernels take CUDA tensors; "
-                         f"got {getattr(xs, 'device', type(xs))}")
-    if xs.dim() != 2:
-        raise ValueError(f"xs must be (n_pad, d_pad), got {tuple(xs.shape)}")
-    _, m_pad, n_pad, d_pad, ke = _check_operands(
-        q, aq, r, thresh, xs[None], alphas[None], half_norms[None], pq,
-        None if px is None else px[None], bn)
-    return m_pad, n_pad, d_pad, ke
 
 
 def snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
@@ -313,13 +341,13 @@ def snn_count(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
     compiled predicate.  ``with_partials`` also returns the (m_pad,
     n_pad // bn) per-row-block counts `snn_compact` takes.
     """
-    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
-                                            half_norms, pq, px, bn)
+    _, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn, stacked=False)
     dev = xs.device
     counts = torch.zeros((m_pad,), dtype=torch.int32, device=dev)
     partials = None
     if with_partials:
-        partials = torch.empty((m_pad, n_pad // bn), dtype=torch.int32,
+        partials = torch.zeros((m_pad, n_pad // bn), dtype=torch.int32,
                                device=dev)
     if m_pad and n_pad:
         rc = _library().snn_count(
@@ -345,11 +373,12 @@ def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
     row order within each query, with -1 / +BIG in unwritten slots and in
     the trash slot; a slot outside ``[0, nnz - 1)`` is not written.
     ``partials`` is `snn_count`'s per-row-block output, which gives every
-    row block its own write base (the blocks run in parallel); without it
-    this wrapper launches `snn_count` to get it.
+    row block its own write base (the blocks run in parallel) and names the
+    queries that have a survivor in it; without it this wrapper launches
+    `snn_count` to get it.
     """
-    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
-                                            half_norms, pq, px, bn)
+    _, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn, stacked=False)
     dev = xs.device
     nb = n_pad // bn
     if offsets.device != dev or offsets.dtype != torch.int32 \
@@ -367,12 +396,12 @@ def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
     if partials.device != dev or partials.dtype != torch.int32 \
             or tuple(partials.shape) != (m_pad, nb):
         raise ValueError(f"partials must be int32 ({m_pad}, {nb}) on {dev}")
-    bases = offsets[:, None] + (torch.cumsum(partials, 1, dtype=torch.int32)
-                                - partials)
+    bases = write_bases(offsets, partials)
     rc = _library().snn_compact(
         _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
         _ptr(half_norms), _ptr(pq), _ptr(px), m_pad, n_pad, d_pad, ke, bn,
-        _ptr(bases), int(nnz), _ptr(idx), _ptr(dh), _stream(dev))
+        _ptr(bases), _ptr(partials), int(nnz), _ptr(idx), _ptr(dh),
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(f"snn_compact launch failed: CUDA error {rc}")
     snn_compact.launches += 1
@@ -390,8 +419,8 @@ def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
     elsewhere; row blocks that no query window of a 64-query tile meets are
     written +BIG without a product.
     """
-    m_pad, n_pad, d_pad, ke = _check_single(q, aq, r, thresh, xs, alphas,
-                                            half_norms, pq, px, bn)
+    _, m_pad, n_pad, d_pad, ke = _check_operands(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn, stacked=False)
     dev = xs.device
     if not (m_pad and n_pad):
         return torch.full((m_pad, n_pad), BIG, dtype=torch.float32,

@@ -174,6 +174,180 @@ def test_cuda_snn_compact_matches_plain(card, ke):
         assert bool((ki[5 + total:] == -1).all())
 
 
+def _sparse_stack(seed, ke, S=2, n_pad=12288, m=290, m_pad=300):
+    """A stack on which survivors are rare, on exact lattice points: rows in
+    groups of 16 at one alpha (two apart), on a 4 x 4 grid of pitch 3 in
+    coordinates 1-2 with (0, 0) last in odd groups and first in even ones,
+    so rows 127 and 128 are (14, 0, 0) and (16, 0, 0).  Query 0 at
+    (15, 0, 0), r = 1, has exactly those two survivors, across a 128-row
+    sub-tile boundary; queries 1-127 sit between the points (windows meet
+    rows, balls none); the rest sit on rows of two row blocks with r = 1 or
+    3, or between the points.  m_pad is not a multiple of 128."""
+    rng = np.random.default_rng(seed)
+    big = np.float32(tref.BIG)
+    d, d_pad, n_s, a_seg = 3, 128, n_pad - 200, 2000.0
+    grid = np.array([(y, z) for y in (0, 3, 6, 9) for z in (0, 3, 6, 9)],
+                    np.float32)
+    xs = np.zeros((S, n_pad, d_pad), np.float32)
+    al = np.full((S, n_pad), big, np.float32)
+    hn = np.full((S, n_pad), big, np.float32)
+    px = np.full((S, ke, n_pad), big, np.float32)
+    g = np.arange(n_s) // 16
+    pos = np.where(g % 2 == 1, 15 - np.arange(n_s) % 16, np.arange(n_s) % 16)
+    for s in range(S):
+        pts = np.zeros((n_s, d), np.float32)
+        pts[:, 0] = 2.0 * g + a_seg * s
+        pts[:, 1:3] = grid[pos]
+        xs[s, :n_s, :d] = pts
+        al[s, :n_s] = pts[:, 0]
+        hn[s, :n_s] = 0.5 * np.sum(pts * pts, axis=1)
+        px[s, :, :n_s] = pts[:, 1:1 + ke].T
+
+    def between(k):
+        a = 2.0 * rng.integers(0, n_s // 16 - 1, k) + 1
+        return np.stack([a + a_seg * rng.integers(0, S, k), np.ones(k),
+                         np.ones(k)], 1)
+
+    qi = np.zeros((m, d), np.float32)
+    r = np.ones(m, np.float32)
+    qi[0] = (15.0, 0.0, 0.0)
+    qi[1:128] = between(127)
+    kind = rng.integers(0, 3, m - 128)
+    rows = 512 * rng.choice([5, 17], m - 128) + rng.integers(0, 512, m - 128)
+    qi[128:] = xs[rng.integers(0, S, m - 128), rows, :d]
+    r[128:] = np.where(kind == 0, 1.0, np.where(kind == 1, 3.0, 0.5))
+    qi[128:][kind == 2] = between(int((kind == 2).sum()))
+    th = ((r * r - np.sum(qi * qi, axis=1)) / 2.0).astype(np.float32)
+    q, aq, r, th, _ = tops.pad_queries(qi, qi[:, 0], r, th, tq=m_pad)
+    pq = tops.pad_components(qi[:, 1:1 + ke].T, m_pad)
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+            for a in (q, aq, r, th, xs, al, hn, pq if ke else None,
+                      px if ke else None)]
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cuda_sparse_survivors_match_plain_stacked(card, ke, mixed):
+    ops = [None if t is None else t.to(card) for t in _sparse_stack(81 + ke,
+                                                                    ke)]
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    per, part = tsq.snn_count_stacked(*ops, bn=512, mixed=mixed,
+                                      with_partials=True)
+    want, want_part = tref.snn_count_stacked_ref(*ops, bn=512,
+                                                 with_partials=True)
+    torch.cuda.synchronize()
+    assert int(want[0, 0]) == 2 and int(want[:, 1:128].sum()) == 0
+    assert float((want_part == 0).float().mean()) > 0.9
+    assert torch.equal(per, want) and torch.equal(part, want_part)
+    _, _, off = tref.stacked_prefix(want)
+    total = int(want.sum())
+    nnz = tops.csr_capacity(total)
+    pi, pd = tref.snn_compact_stacked_ref(q, aq, r, th, off, xs, al, hn, pq,
+                                          px, nnz=nnz)
+    for handed in (part, None):
+        ki, kd = tsq.snn_compact_stacked(q, aq, r, th, off, xs, al, hn, pq,
+                                         px, nnz=nnz, bn=512, partials=handed)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi)
+        assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    # query 0's survivors are the last row of one sub-tile and the first of
+    # the next, in that order
+    assert ki[:2].tolist() == [127, 128]
+    oi, od = tsq.snn_compact_stacked(q, aq, r, th, off, xs, al, hn, pq, px,
+                                     nnz=total, bn=512, partials=part)
+    assert bool((oi == -1).all()) and bool((od == tref.BIG).all())
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_cuda_sparse_survivors_match_plain_single(card, ke, mixed):
+    ops = [None if t is None else t.to(card) for t in _sparse_stack(91 + ke,
+                                                                    ke)]
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    stacked = tsq.snn_count_stacked(*ops, bn=512)
+    for s in range(xs.shape[0]):
+        seg = (xs[s].contiguous(), al[s].contiguous(), hn[s].contiguous(), pq,
+               None if px is None else px[s].contiguous())
+        cnt, part = tsq.snn_count(q, aq, r, th, *seg, bn=512, mixed=mixed,
+                                  with_partials=True)
+        want, want_part = tref.snn_count_ref(q, aq, r, th, *seg, bn=512,
+                                             with_partials=True)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, want) and torch.equal(part, want_part)
+        assert torch.equal(cnt, stacked[s])
+        total = int(want.sum())
+        off = (torch.cumsum(want, 0, dtype=torch.int32) - want) + 3
+        for nnz in (tops.csr_capacity(total + 3), 3 + total // 2 + 1):
+            pi, pd = tref.snn_compact_ref(q, aq, r, th, off, *seg, nnz=nnz)
+            ki, kd = tsq.snn_compact(q, aq, r, th, off, *seg, nnz=nnz, bn=512,
+                                     partials=part)
+            torch.cuda.synchronize()
+            assert torch.equal(ki, pi)
+            assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+
+
+def _real_stack(seed, S, ke, n_pad=512, d=128, m_pad=2048):
+    """Real-valued Gaussian rows cut into S sorted 512-row segments, and
+    2048 Gaussian queries at a radius that keeps about one pair in a
+    thousand: the graph builder's segment shape, with float32 rounding."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(S * n_pad, d)).astype(np.float32)
+    x = x[np.argsort(x[:, 0], kind="stable")]
+    qi = rng.normal(size=(m_pad, d)).astype(np.float32)
+    d2 = ((qi[:64, None, :] - x[None, ::97, :]) ** 2).sum(-1)
+    r = np.full(m_pad, np.sqrt(np.quantile(d2, 1e-3)), np.float32)
+    th = ((r * r - np.sum(qi * qi, axis=1)) / 2.0).astype(np.float32)
+    xs = x.reshape(S, n_pad, d)
+    hn = (0.5 * np.sum(xs * xs, axis=2)).astype(np.float32)
+    px = np.ascontiguousarray(xs[:, :, 1:1 + ke].transpose(0, 2, 1))
+    pq = np.ascontiguousarray(qi[:, 1:1 + ke].T)
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+            for a in (qi, qi[:, 0], r, th, xs, xs[:, :, 0], hn,
+                      pq if ke else None, px if ke else None)]
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_cuda_looped_equals_packed_at_the_graph_segment_shape(card, ke):
+    """One stack of 12 segments against each segment alone: different query
+    tiles and block counts, the same fmaf chain a pair, so counts, ids and
+    dhalf agree bit for bit."""
+    ops = [None if t is None else t.to(card) for t in _real_stack(7, 12, ke)]
+    q, aq, r, th, xs, al, hn, pq, px = ops
+    S, n_pad = xs.shape[:2]
+    assert tsq.launch_geometry("count", S, 2048, n_pad, 512, ke) != \
+        tsq.launch_geometry("count", 1, 2048, n_pad, 512, ke)
+    per, part = tsq.snn_count_stacked(*ops, bn=512, with_partials=True)
+    _, _, off = tref.stacked_prefix(per)
+    total = int(per.sum())
+    assert total > 0
+    nnz = tops.csr_capacity(total)
+    pi, pd = tsq.snn_compact_stacked(q, aq, r, th, off, xs, al, hn, pq, px,
+                                     nnz=nnz, bn=512, partials=part)
+    for s in range(S):
+        seg = (xs[s].contiguous(), al[s].contiguous(), hn[s].contiguous(), pq,
+               None if px is None else px[s].contiguous())
+        cnt, spart = tsq.snn_count(q, aq, r, th, *seg, bn=512,
+                                   with_partials=True)
+        assert torch.equal(cnt, per[s]) and torch.equal(spart, part[s])
+        li, ld = tsq.snn_compact(q, aq, r, th, off[s].contiguous(), *seg,
+                                 nnz=nnz, bn=512, partials=spart)
+        torch.cuda.synchronize()
+        mine = li >= 0
+        assert torch.equal(li[mine] + s * n_pad, pi[mine])
+        assert torch.equal(ld[mine].view(torch.int32),
+                           pd[mine].view(torch.int32))
+        assert int(mine.sum()) == int(per[s].sum())
+
+
+def test_cuda_graph_segment_shape_fills_the_card(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for kernel in ("count", "compact"):
+        small = tsq.launch_geometry(kernel, 1, 2048, 512, 512, 2)
+        assert small["blocks"] >= sms
+        big = tsq.launch_geometry(kernel, 1, 1024, 1_000_448, 512, 2)
+        assert big["query_tile"] == 128 and big["threads"] == 256
+
+
 def test_looped_and_packed_graph_on_the_card_equal_the_cpu(card):
     from repro_torch.core import graph as tgraph
 

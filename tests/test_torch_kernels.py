@@ -183,6 +183,37 @@ def test_padding_contract_matches_reference():
         assert tops.csr_capacity(t) == jops.csr_capacity(t)
 
 
+@pytest.mark.parametrize("ke", [0, 2])
+@pytest.mark.parametrize("bn", [128, 256])
+def test_write_bases_place_each_row_block_at_its_first_survivor(ke, bn):
+    """The compact kernel's write bases, built on the CPU from the count
+    pass's partials: each (segment, query, row block) cell's slots, from its
+    base on for its partial, hold that cell's survivors in the plain stacked
+    compact, and the bases of consecutive blocks are partials apart."""
+    q, aq, r, th, xs, al, hn, pq, px = _torch(_lattice_stack(21 + ke, ke))
+    per, part = tref.snn_count_stacked_ref(q, aq, r, th, xs, al, hn, pq, px,
+                                           bn=bn, with_partials=True)
+    _, _, off = tref.stacked_prefix(per)
+    bases = tsq.write_bases(off, part)
+    S, m_pad, nb = part.shape
+    assert bases.dtype == torch.int32 and tuple(bases.shape) == (S, m_pad, nb)
+    assert torch.equal(bases[:, :, 0], off)
+    assert torch.equal(bases[:, :, 1:] - bases[:, :, :-1], part[:, :, :-1])
+    total = int(per.sum())
+    idx, _ = tref.snn_compact_stacked_ref(q, aq, r, th, off, xs, al, hn, pq,
+                                          px, nnz=tops.csr_capacity(total))
+    n_pad = xs.shape[1]
+    block = (idx[:total] % n_pad) // bn          # row block of every slot
+    seg = idx[:total] // n_pad
+    for s, k, b in torch.nonzero(part).tolist():
+        lo = int(bases[s, k, b])
+        hi = lo + int(part[s, k, b])
+        assert bool((seg[lo:hi] == s).all()) and bool((block[lo:hi] == b)
+                                                      .all())
+    # the single-segment form: offsets (m_pad,), partials (m_pad, nb)
+    assert torch.equal(tsq.write_bases(off[1], part[1]), bases[1])
+
+
 def test_registry_sends_cpu_tensors_to_plain_versions():
     ops = _torch(_lattice_stack(9, 2))
     tsq.reset_launch_counts()
