@@ -40,7 +40,10 @@ or note, and each phase's time:
    call, and the kernel alone on the card's clock by torch.profiler) beside
    its plain version, its bound and one PyTorch call of the same product,
    with the launch geometry, and at the graph's segment shape a block for
-   every SM;
+   every SM; the filter's finite entries at the main shape equal to the
+   compact's survivors there bit for bit, and the pairs its 128 x 128
+   tiles compute with the queries in alpha order, in the given order and
+   in the alpha windows;
 4. the recsys serving path through ``launch.steps.build_step`` at full
    width: DLRM (the MLPerf stacked table, 187,767,424 x 128 bfloat16,
    48.07 GB), Wide & Deep and MIND, each at ``serve_p99`` (512) and
@@ -1070,13 +1073,12 @@ def phase_times(torch, chk: Checks, K, ref, ops_mod, snn, engine, index, q,
                                ("snn_compact_stacked", 549))]
 
 
-def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
-                 qraw, radius, row0: int, n_rows: int, xs64, hn64, tag: str,
-                 reps: int, plain_reps: int):
-    """Times of snn_count and snn_compact on one segment (sorted rows
-    ``row0 : row0 + n_rows`` of the index) for the queries ``qraw``, beside
-    their plain versions and torch.matmul, with the kernel-vs-plain check.
-    Returns {"count": {...}, "compact": {...}, "ops": ...}."""
+def segment_operands(torch, ops_mod, snn, engine, index, qraw, radius,
+                     row0: int, n_rows: int):
+    """The single-segment kernels' operands for the queries ``qraw`` against
+    sorted rows ``row0 : row0 + n_rows`` of the index, as the looped
+    executor builds them: (ops on the card, the segment, the padded host
+    queries, their alphas, radii and thresholds, m)."""
     xq, aq, r32, th, _ = snn.prepare_query_predicates(index, qraw, radius)
     qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r32, th, tq=128,
                                               bucket=True)
@@ -1091,7 +1093,22 @@ def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
                               block=512, projs=index.projs[1:, sl])
     ops = (qd, aqd, rd, thd, seg.xs, seg.alphas, seg.half_norms, pqd,
            seg.projs)
+    return ops, seg, qp, aqp, rp, thp, m
+
+
+def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
+                 qraw, radius, row0: int, n_rows: int, xs64, hn64, tag: str,
+                 reps: int, plain_reps: int):
+    """Times of snn_count and snn_compact on one segment (sorted rows
+    ``row0 : row0 + n_rows`` of the index) for the queries ``qraw``, beside
+    their plain versions and torch.matmul, with the kernel-vs-plain check.
+    Returns {"count": {...}, "compact": {...}, "ops": ..., "csr": the
+    kernels' (counts, idx, dhalf), ...}."""
+    ops, seg, qp, aqp, rp, thp, m = segment_operands(
+        torch, ops_mod, snn, engine, index, qraw, radius, row0, n_rows)
+    qd, pqd = ops[0], ops[7]
     m_pad, n_pad = qd.shape[0], seg.xs.shape[0]
+    sl = slice(row0, row0 + n_rows)
     k_cnt, k_part = K.snn_count(*ops, with_partials=True)
     p_cnt = ref.snn_count_ref(*ops)
     k_off = torch.cumsum(k_cnt, 0, dtype=torch.int32) - k_cnt
@@ -1169,12 +1186,77 @@ def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
                         plain_ms=p_compact_ms, bound_ms=p_bound, bound_by=p_by,
                         library_ms=lib_ms, max_abs_err=dh_err,
                         geometry=geo["compact"]),
-        "ops": ops, "pairs": pairs, "qp": qp,
+        "ops": ops, "pairs": pairs, "qp": qp, "csr": (k_cnt, k_idx, k_dh),
     }
 
 
+def tile_pairs(al, aq, r, order) -> tuple[int, np.ndarray]:
+    """Pairs of the 128 x 128 tiles that the filter computes when its query
+    tiles take the queries in ``order``: a tile is computed when the float32
+    window of one of its queries meets the tile's alpha range (the kernel's
+    slot_meets).  ``al`` (n_pad,) are the segment's sorted alphas, ``aq``,
+    ``r`` (m_pad,) the padded queries', all float32 numpy.  Returns (pairs,
+    the (query tiles, row tiles) bool map of computed tiles)."""
+    hi, lo = aq + r, aq - r                   # float32, as on the card
+    meets = ((hi[:, None] >= al[0::128][None, :])
+             & (lo[:, None] <= al[127::128][None, :]))[order]
+    meets = np.pad(meets, ((0, (-len(order)) % 128), (0, 0)))
+    tiles = meets.reshape(-1, 128, meets.shape[1]).any(1)
+    return int(tiles.sum()) * 128 * 128, tiles
+
+
+def filter_checks(torch, chk: Checks, ref, f, ops, csr, pairs: int,
+                  ptxas: dict) -> None:
+    """The filter's output ``f`` at the main shape against the compact's
+    survivors there (``csr``: the kernels' counts, ids, dhalf).  Notes the
+    pairs its alpha-ordered tiles compute against the given order and the
+    window pairs: a host copy of the kernel's skip test, not a measurement,
+    so they stay out of the kernels line."""
+    k_cnt, k_idx, k_dh = csr
+    m_pad, n_pad = f.shape
+    total = int(k_cnt.sum())
+    finite = f < ref.BIG
+    fq, fj = torch.nonzero(finite, as_tuple=True)
+    rows = torch.arange(m_pad, device=f.device).repeat_interleave(
+        k_cnt.long())
+    same = (fq.numel() == total and torch.equal(fq, rows)
+            and torch.equal(fj, k_idx[:total].long())
+            and torch.equal(f[fq, fj].view(torch.int32),
+                            k_dh[:total].view(torch.int32)))
+    chk.ok(same, f"snn_filter at m_pad={m_pad} n_pad={n_pad}: its "
+           f"{fq.numel()} finite entries are snn_compact's {total} "
+           "survivors, (query, row) for (query, row), dhalf bit for bit")
+    del fq, fj, rows
+    aq, r = ops[1], ops[2]
+    order = torch.argsort(aq, stable=True)     # the wrapper's order
+    al = ops[5].cpu().numpy()
+    aq_h, r_h = aq.cpu().numpy(), r.cpu().numpy()
+    alpha_pairs, tiles = tile_pairs(al, aq_h, r_h, order.cpu().numpy())
+    given_pairs, _ = tile_pairs(al, aq_h, r_h, np.arange(m_pad))
+    # a tile the host count calls skipped holds no finite entry
+    nqt, nrt = tiles.shape
+    fin_tiles = finite.view(m_pad, nrt, 128).any(2)[order]
+    fin_tiles = torch.nn.functional.pad(fin_tiles, (0, 0, 0, nqt * 128
+                                                    - m_pad))
+    fin_tiles = fin_tiles.view(nqt, 128, nrt).any(1).cpu().numpy()
+    chk.ok(not (fin_tiles & ~tiles).any(),
+           f"snn_filter: every finite entry lies in one of the {tiles.sum()} "
+           f"of {tiles.size} 128 x 128 tiles computed in alpha order")
+    chk.note(f"snn_filter pairs computed: {alpha_pairs} in 128 x 128 tiles "
+             f"with the queries in alpha order, {given_pairs} in the given "
+             f"order (also the single-segment count's at this shape), "
+             f"{pairs} window pairs; alpha order computes "
+             f"{alpha_pairs / given_pairs:.4f} of the given order's pairs, "
+             f"{alpha_pairs / pairs:.4f} of the window pairs")
+    for name, v in ptxas.items():
+        if name.startswith("snn_filter_kernel"):
+            chk.note(f"{name}: {v.get('registers')} registers, spills "
+                     f"{v.get('spill_stores')} B stored / "
+                     f"{v.get('spill_loads')} B loaded")
+
+
 def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
-                       index, x, q, radius, eps, xs64, hn64, looped):
+                       index, x, q, radius, eps, xs64, hn64, looped, ptxas):
     """The three single-segment kernels: count and compact at both shapes
     the looped executor gives them, and the filter through its public op."""
     print("phase 3 (single-segment kernels)")
@@ -1202,6 +1284,7 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
     torch.cuda.synchronize()
     f_launches = K.snn_filter.launches
     chk.ok(f_launches == 1, "kernels.ops.snn_filter launched the kernel once")
+    filter_checks(torch, chk, ref, f, ops, main["csr"], main["pairs"], ptxas)
     pf = ref.snn_filter_ref(*ops)
     kf, kp = f < ref.BIG, pf < ref.BIG
     both = kf & kp
@@ -1220,6 +1303,7 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
            f"max |diff| {f_err:.3e} within d*2^-23*(hn + sum|q x|)")
     del f, pf, kf, kp, both, err, qi, j, absdot, tol
     k_ms = timed(torch, lambda: K.snn_filter(*ops), 5)
+    k_dev = device_ms(torch, lambda: K.snn_filter(*ops), 5)
     p_ms = timed(torch, lambda: ref.snn_filter_ref(*ops), 2)
     hn_row = hn1[None, :]
     lib_ms = timed(torch, lambda: torch.addmm(hn_row, qd, xs1.T, beta=1.0,
@@ -1227,7 +1311,8 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
     in_bytes = 4 * sum(t.numel() for t in ops)
     f_bound, f_by = bound_ms(2.0 * DIM * main["pairs"],
                              in_bytes + 4 * m_pad * n_pad)
-    chk.note(f"snn_filter {k_ms:.4f} ms, plain {p_ms:.4f}, bound "
+    chk.note(f"snn_filter {k_ms:.4f} ms (the kernel alone {k_dev:.4f}), "
+             f"plain {p_ms:.4f}, bound "
              f"{f_bound:.4f} ({f_by}; {4 * m_pad * n_pad / 1e9:.2f} GB "
              f"written), torch.addmm {lib_ms:.4f} ms")
 
@@ -1248,9 +1333,10 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
                 "replaces": "src/repro/kernels/snn_query.py:245",
                 "launches": f_launches,
                 "launches_by_path": {"kernels.ops.snn_filter": f_launches},
-                "max_abs_err": f_err, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": f_bound, "bound_by": f_by, "library_ms": lib_ms,
-                "m_pad": int(m_pad), "n_pad": int(n_pad)})
+                "max_abs_err": f_err, "ms": k_ms, "device_ms": k_dev,
+                "plain_ms": p_ms, "bound_ms": f_bound, "bound_by": f_by,
+                "library_ms": lib_ms, "m_pad": int(m_pad),
+                "n_pad": int(n_pad)})
     return out
 
 
@@ -1796,7 +1882,7 @@ def main() -> int:
                    graph_shape=g_shape[rec["name"]])
     kernels += phase_times_single(torch, chk, K, ref, ops_mod, snn, engine,
                                   index, x, q, radius, eps, xs64, hn64,
-                                  (looped_main, looped_graph))
+                                  (looped_main, looped_graph), ptxas)
     if not phase_done("phase 3", t):
         return 1
     del index, x, q, xs64, hn64

@@ -1,5 +1,5 @@
 // The shared SNN predicate, and the tile product of the count and compact
-// kernels (snn_query.cu).
+// kernels (snn_query.cu) and the filter (snn_filter.cu).
 //
 // Both passes of the CSR engine must make the same keep decision for every
 // (query, row) pair: pass 1 sizes each CSR row, pass 2 fills it.  They agree
@@ -7,10 +7,11 @@
 // every dot product as one fmaf chain over the feature axis in ascending
 // order, whatever the tile or the block it lands in, and one elementwise
 // predicate written as the same float32 expression tree as the plain version
-// (repro_torch/kernels/ref.py).  The filter (snn_filter.cu) keeps its own
-// tile loop but the same chain and the same predicate terms.  The files are
-// built with --fmad=false, so no other multiply-add is contracted, and
-// without fast math: the padding sentinels rely on IEEE inf and NaN.
+// (repro_torch/kernels/ref.py).  The filter calls the same product and the
+// same keep decisions, so its finite entries are the compact's dhalf.  The
+// files are built with --fmad=false, so no other multiply-add is
+// contracted, and without fast math: the padding sentinels rely on IEEE inf
+// and NaN.
 //
 // What bounds the product on an H100: the exact predicate needs IEEE float32
 // products, which Hopper's tensor cores do not offer, so it runs on FFMA
@@ -103,7 +104,7 @@ __device__ __forceinline__ bool in_box(float px, float pq, float lim) {
 }
 
 // ---------------------------------------------------------------------------
-// The tile product of the count and compact kernels.
+// The tile product of the count, compact and filter kernels.
 // ---------------------------------------------------------------------------
 
 // A block has kTeams teams of 16 threads.  Thread (team ty, lane tx) holds

@@ -57,10 +57,9 @@
 // The grid is one-dimensional: the query tile varies fastest, so the blocks
 // that read a row tile run together and find it in L2, and the database is
 // read from device memory about once.
-#include <atomic>
-#include <climits>
 #include <cstdint>
 
+#include "snn_launch.cuh"
 #include "snn_predicate.cuh"
 
 namespace snn {
@@ -369,36 +368,8 @@ Operands make_operands(const float* q, const float* aq, const float* r,
                   S, m_pad, n_pad, d_pad, ke, bn};
 }
 
-// The current device and its SM count; the count is asked of the runtime
-// once a device.
-constexpr int kMaxDevices = 64;
-struct Device {
-  int id, sms;
-};
-Device current_device() {
-  static std::atomic<int> known[kMaxDevices];
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return {0, 1};
-  if (dev < kMaxDevices &&
-      (n = known[dev].load(std::memory_order_relaxed)) > 0)
-    return {dev, n};
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || n < 1)
-    return {dev, 1};
-  if (dev < kMaxDevices) known[dev].store(n, std::memory_order_relaxed);
-  return {dev, n};
-}
-
-long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
-
 // The launch geometry of each pass: the largest query tile whose grid still
 // has a block for every SM, else the smallest.
-struct Geometry {
-  int query_tile, threads;
-  long long blocks;
-  size_t smem;
-};
-
 Geometry count_geometry(int sms, int S, int m_pad, int n_pad, int ke) {
   using Big = CountTile<16>;
   using Small = CountTile<4>;
@@ -421,26 +392,6 @@ Geometry compact_geometry(int sms, int S, int m_pad, int n_pad, int bn,
   const int tq = ceil_div(m_pad, 32) * cells >= sms ? 32 : 8;
   return {tq, Small::kThreads, ceil_div(m_pad, tq) * cells,
           Small::smem_bytes(ke)};
-}
-
-// Launch kKernel with geometry g on device dev.  Static and dynamic shared
-// memory together may pass the default 48 KB, so the kernel's dynamic limit
-// is raised on a device the first time a launch needs more than it was
-// given: the looped executor launches thousands of times a graph, and the
-// attribute call would add host time to each.
-template <auto kKernel, class... Args>
-cudaError_t launch(const Geometry& g, int dev, cudaStream_t st, Args... args) {
-  static std::atomic<int> raised[kMaxDevices];  // this kernel's limit a device
-  if (g.blocks > INT_MAX || dev >= kMaxDevices)
-    return cudaErrorInvalidConfiguration;
-  if ((int)g.smem > raised[dev].load(std::memory_order_relaxed)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
-    if (e != cudaSuccess) return e;
-    raised[dev].store((int)g.smem, std::memory_order_relaxed);
-  }
-  kKernel<<<(unsigned)g.blocks, g.threads, g.smem, st>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -18,8 +18,10 @@ The entry points, each with the launch it makes on the card:
   full query tile would leave SMs without a block, as at a graph chunk's
   own 512-row segment, the count takes 32-query tiles (blocks of 64
   threads) and the compact 32- or 8-query tiles;
-* `snn_filter`: the dense (m_pad, n_pad) masked half distances, grid
-  (m_pad / 64, n_pad / bn); `snn_filter_stacked` flattens a stack into it;
+* `snn_filter`: the dense (m_pad, n_pad) masked half distances, a
+  one-dimensional grid of m_pad / 128 x n_pad / 128 blocks of 256 threads,
+  the queries tiled in alpha order (a stable argsort on the card first);
+  `snn_filter_stacked` flattens a stack into it;
 * `embedding_bag`: the recsys table lookup, (B, F) ids over a (V, D) table,
   one launch of B * D * itemsize / 16 threads (B * D for ragged widths).
 
@@ -165,8 +167,9 @@ def snn_filter_stacked(q, aq, r, thresh, xs, alphas, half_norms, pq=None,
     stack, columns pack-flat (``s * n_pad + row``).
 
     The stack flattens into one database and goes through `snn_filter`:
-    every segment is padded to a block multiple, so no row block straddles
-    two segments and the per-block window skip is as sharp as per segment.
+    every segment is padded to a multiple of ``bn``, itself a multiple of
+    the kernel's 128-row tile, so no tile straddles two segments and the
+    per-tile window skip is as sharp as per segment.
     """
     S, n_pad, d = xs.shape
     px2 = None

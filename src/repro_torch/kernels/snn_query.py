@@ -21,7 +21,9 @@ Five entry points of the query hot loop on the shared predicate of
   agree bit for bit.
 * `snn_filter` (``csrc/snn_filter.cu``) replaces ``snn_query.snn_filter``:
   the dense (m_pad, n_pad) masked half distances, +BIG where a pair is
-  pruned.
+  pruned: the count's tile product over 128-query x 128-row tiles, the
+  queries tiled in alpha order, so its finite entries are the compact's
+  dhalf bit for bit.
 
 And the recsys models' table lookup:
 
@@ -54,7 +56,7 @@ from .ref import BIG
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("snn_query.cu", "snn_filter.cu", "embedding_bag.cu")
-HEADERS = ("snn_predicate.cuh",)
+HEADERS = ("snn_launch.cuh", "snn_predicate.cuh")
 # no fast math: the sentinels need IEEE inf/NaN, and --fmad=false leaves the
 # explicit fmaf of the dot products as the only contracted multiply-adds
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -142,7 +144,7 @@ def _library() -> ctypes.CDLL:
             lib.snn_compact.restype = i32
             lib.snn_launch_geometry.argtypes = [i32] * 6 + [ptr]
             lib.snn_launch_geometry.restype = i32
-            lib.snn_filter.argtypes = single + [ptr, ptr]
+            lib.snn_filter.argtypes = single + [ptr, ptr, ptr]
             lib.snn_filter.restype = i32
             lib.embedding_bag.argtypes = [ptr, ptr, ptr, i32, i32, i32,
                                           ctypes.c_longlong, i32, i32, ptr]
@@ -198,9 +200,9 @@ def _check_operands(q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn,
     if q.data_ptr() % 16 or xs.data_ptr() % 16:
         raise ValueError("q and xs must start on a 16-byte boundary (the "
                          "kernels load them in 16-byte chunks)")
-    if S * n_pad >= 2 ** 31 or n_pad // bn > 65535:
+    if S * n_pad >= 2 ** 31:
         raise ValueError(f"stack (S={S}, n_pad={n_pad}) exceeds the kernels' "
-                         "int32 pack-flat ids or the filter's grid")
+                         "int32 pack-flat ids")
     return S, m_pad, n_pad, d_pad, ke
 
 
@@ -416,8 +418,12 @@ def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
     """Masked half distances (m_pad, n_pad) float32 over one segment.
 
     ``hn - q.x`` where the window, radius and box tests keep the pair, +BIG
-    elsewhere; row blocks that no query window of a 64-query tile meets are
-    written +BIG without a product.
+    elsewhere.  The kernel tiles the queries 128 at a time in alpha order
+    (``torch.argsort(aq, stable=True)``, one small sort on the card) against
+    128-row tiles, and writes +BIG without a product over a tile that no
+    window of its queries meets.  ``bn`` must be a positive multiple of 128
+    that divides n_pad (`_check_operands`), so no 128-row tile straddles two
+    row blocks, nor two segments of `registry.snn_filter_stacked`.
     """
     _, m_pad, n_pad, d_pad, ke = _check_operands(
         q, aq, r, thresh, xs, alphas, half_norms, pq, px, bn, stacked=False)
@@ -425,11 +431,12 @@ def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
     if not (m_pad and n_pad):
         return torch.full((m_pad, n_pad), BIG, dtype=torch.float32,
                           device=dev)
+    order = torch.argsort(aq, stable=True)
     out = torch.empty((m_pad, n_pad), dtype=torch.float32, device=dev)
     rc = _library().snn_filter(
         _ptr(q), _ptr(aq), _ptr(r), _ptr(thresh), _ptr(xs), _ptr(alphas),
         _ptr(half_norms), _ptr(pq), _ptr(px), m_pad, n_pad, d_pad, ke, bn,
-        _ptr(out), _stream(dev))
+        _ptr(order), _ptr(out), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"snn_filter launch failed: CUDA error {rc}")
     snn_filter.launches += 1

@@ -129,9 +129,38 @@ def _lattice_segment(card, seed, ke):
                       None if px is None else px[0])]
 
 
+def _arranged_segment(card, seed, ke, m_pad, arrange):
+    """A lattice segment (1024 rows, 70 of them padding) and m_pad - m_pad
+    // 8 real lattice queries, the rest padding (alpha 0, so they land
+    inside the alpha order), the real ones sorted by alpha, reversed, in
+    random order, or all moved to alpha 1."""
+    m = m_pad - max(1, m_pad // 8)
+    q, aq, r, th, xs, al, hn, pq, px = _lattice_stack(
+        seed, ke, S=1, n_pad=1024, m=m, m_pad=m_pad)
+    if arrange == "one alpha":
+        q[:m, 0] = 1.0
+        aq[:m] = 1.0
+        th[:m] = (r[:m] * r[:m] - (q[:m] * q[:m]).sum(1)) / 2.0  # exact
+    else:
+        up = torch.argsort(aq[:m], stable=True)
+        perm = {"sorted": up, "reversed": up.flip(0),
+                "random": torch.from_numpy(
+                    np.random.default_rng(seed).permutation(m))}[arrange]
+        for t in (q, aq, r, th):
+            t[:m] = t[:m][perm]
+        if pq is not None:
+            pq[:, :m] = pq[:, :m][:, perm]
+    return [None if t is None else t.to(card).contiguous()
+            for t in (q, aq, r, th, xs[0], al[0], hn[0], pq,
+                      None if px is None else px[0])]
+
+
 @pytest.mark.parametrize("ke", [0, 2])
-def test_cuda_snn_filter_matches_plain(card, ke):
-    ops = _lattice_segment(card, 41 + ke, ke)
+@pytest.mark.parametrize("m_pad", [8, 128, 136, 1024])
+@pytest.mark.parametrize("arrange", ["sorted", "reversed", "random",
+                                     "one alpha"])
+def test_cuda_snn_filter_matches_plain(card, ke, m_pad, arrange):
+    ops = _arranged_segment(card, 41 + ke + m_pad, ke, m_pad, arrange)
     tsq.reset_launch_counts()
     got = tsq.snn_filter(*ops, bn=256)
     want = tref.snn_filter_ref(*ops)
@@ -139,6 +168,33 @@ def test_cuda_snn_filter_matches_plain(card, ke):
     assert tsq.snn_filter.launches == 1
     assert 0 < int((want < tref.BIG).sum()) < want.numel()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("ke", [0, 2])
+def test_cuda_snn_filter_finite_entries_are_the_compacts_survivors(card, ke):
+    """Real-valued rows and queries, with float32 rounding in every dot: the
+    filter's finite entries are exactly the compact's survivors, in the same
+    (query, row) order, and their bits are the survivors' dhalf."""
+    q, aq, r, th, xs, al, hn, pq, px = (
+        None if t is None else t.to(card)
+        for t in _real_stack(13 + ke, 1, ke, n_pad=4096, m_pad=1024))
+    seg = (xs[0].contiguous(), al[0].contiguous(), hn[0].contiguous(), pq,
+           None if px is None else px[0].contiguous())
+    ops = (q, aq, r, th, *seg)
+    f = tsq.snn_filter(*ops, bn=512)
+    cnt, part = tsq.snn_count(*ops, bn=512, with_partials=True)
+    total = int(cnt.sum())
+    off = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt
+    ki, kd = tsq.snn_compact(q, aq, r, th, off, *seg,
+                             nnz=tops.csr_capacity(total), bn=512,
+                             partials=part)
+    torch.cuda.synchronize()
+    fq, fj = torch.nonzero(f < tref.BIG, as_tuple=True)
+    assert total > 0 and fq.numel() == total
+    rows = torch.arange(q.shape[0], device=card).repeat_interleave(cnt)
+    assert torch.equal(fq, rows) and torch.equal(fj, ki[:total].long())
+    assert torch.equal(f[fq, fj].view(torch.int32),
+                       kd[:total].view(torch.int32))
 
 
 @pytest.mark.parametrize("ke", [0, 2])

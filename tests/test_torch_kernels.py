@@ -245,11 +245,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # --------------------------------------------------------------------------- #
 # the single-segment kernels: snn_filter, snn_count, snn_compact               #
 # --------------------------------------------------------------------------- #
-def _lattice_segment(seed, ke, n_pad=1024, d=128, m=100, m_pad=128):
+def _lattice_segment(seed, ke, n_pad=1024, d=128, m=100, m_pad=128,
+                     spread=False):
     """One segment of sparse ternary lattice points in d = 128 (alpha =
     coordinate 0, shifted so windows prune blocks; the extra projections =
     coordinates 1..ke) and lattice queries: every product and threshold is
-    exact in float32."""
+    exact in float32.  With ``spread`` the query alphas are drawn over -4..16,
+    past both ends of the rows' -1..12, in no order."""
     rng = np.random.default_rng(seed)
     big = np.float32(jref.BIG)
     n = n_pad - 90
@@ -271,6 +273,8 @@ def _lattice_segment(seed, ke, n_pad=1024, d=128, m=100, m_pad=128):
     px = np.full((ke, n_pad), big, np.float32)
     px[:, :n] = pts[:, 1:1 + ke].T
     qi = points(m)
+    if spread:
+        qi[:, 0] = rng.integers(-4, 17, size=m)
     r = rng.choice([2.0, 2.5, 3.0, 3.5], size=m).astype(np.float32)
     th = ((r * r - np.sum(qi * qi, axis=1)) / 2.0).astype(np.float32)
     q, aq, r, th, _ = tops.pad_queries(qi, qi[:, 0], r, th, tq=m_pad)
@@ -278,14 +282,23 @@ def _lattice_segment(seed, ke, n_pad=1024, d=128, m=100, m_pad=128):
     return q, aq, r, th, xs, al, hn, (pq if ke else None), (px if ke else None)
 
 
-@pytest.mark.parametrize("ke", [0, 2])
-def test_plain_filter_matches_pallas_tpu_interpret(ke):
-    ops = _lattice_segment(41 + ke, ke)
+@pytest.mark.parametrize("ke,spread", [(0, False), (2, False), (0, True),
+                                       (2, True)],
+                         ids=["0", "2", "spread-0", "spread-2"])
+def test_plain_filter_matches_pallas_tpu_interpret(ke, spread):
+    # spread: 230 real queries of 256 over two query tiles, their alphas in
+    # no order and past the rows' range, so some windows meet no row block
+    shape = dict(m=230, m_pad=256, spread=True) if spread else {}
+    ops = _lattice_segment(41 + ke, ke, **shape)
     want = np.asarray(jsq.snn_filter(*_jax(ops), tq=128, bn=512,
                                      interpret=True))
     got = tref.snn_filter_ref(*_torch(ops)).numpy()
     finite = want < jref.BIG
     assert 0 < finite.sum() < finite.size
+    if spread:
+        aq = ops[1][:230]
+        assert np.any(np.diff(aq) < 0) and aq.min() < -1 and aq.max() > 12
+        assert not finite[np.argmax(aq)].any()   # alpha 16, r <= 3.5
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
