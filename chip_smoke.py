@@ -49,12 +49,16 @@ or note, and each phase's time:
    48.07 GB), Wide & Deep and MIND, each at ``serve_p99`` (512) and
    ``serve_bulk`` (262,144), DLRM also on a batch drawn from each field's
    whole vocabulary; per step the embedding_bag launches, 512 sampled
-   outputs against a float64 forward (and a TF32 control), the batch time,
-   and each lookup's ids held against the plain version bit for bit and
-   timed beside it, F.embedding_bag and the bound; the last rows of the
-   48 GB table; MIND's ``retrieval_cand`` (GEMM + top-100 over 1,000,000
-   items) and ``retrieve_above`` of its 4 capsules against a float64 brute
-   force.
+   outputs against a float64 forward (and a TF32 control), the batch time
+   and a torch.profiler breakdown of one bulk batch, and each lookup's ids
+   held against the plain version bit for bit, with the path and order it
+   took (for the blocked order, its range list against a torch.sort of the
+   range keys), and timed beside the earlier design's recorded time, the
+   plain version, F.embedding_bag, the write floor (every id -1) and the
+   bound;
+   the last rows of the 48 GB table; MIND's ``retrieval_cand`` (GEMM +
+   top-100 over 1,000,000 items) and ``retrieve_above`` of its 4 capsules
+   against a float64 brute force.
 
 Before phase 1 it prints each kernel's registers, static shared memory
 and spills from the build.  Exits non-zero on any failed check, and
@@ -1367,18 +1371,88 @@ def path_bags(rs, arch: str, model, batch):
     return [("history gather", batch["hist"].reshape(-1, 1), model.items)]
 
 
+# the earlier design's time of each bulk lookup's kernel, before the bag
+# kernels were redesigned (one thread a 16-byte column chunk of a bag):
+# PERF.md section 6, row 11 at commit b2e471f, this script's phase 4 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W.  Shown beside this run's times, not
+# measured here.  (path, lookup) -> ms
+EARLIER_BAG_MS = {
+    ("dlrm-mlperf:serve_bulk:serve", "lookup"): 0.854,
+    ("dlrm-mlperf:serve_bulk:serve full-vocabulary", "lookup"): 1.146,
+    ("wide-deep:serve_bulk:serve", "deep lookup"): 0.977,
+    ("wide-deep:serve_bulk:serve", "wide bag"): 0.132,
+    ("mind:serve_bulk:serve", "history gather"): 2.282,
+}
+# the kernels of the embedding_bag op, by name in the build's ptxas report
+# and in a profiler trace
+BAG_KERNELS = ("embedding_bag_kernel", "bag_of_one_kernel",
+               "bag_range_histogram_kernel", "bag_range_scatter_kernel",
+               "staged_bag_kernel")
+
+
+def bag_write_floor(torch, K, ids, table, reps: int) -> float:
+    """Milliseconds of the lookup's kernel in bag order with every id -1:
+    each bag reads row 0, which stays in L1 and L2, and writes its output
+    row, so the call costs the ids and the output's writes alone (as the
+    filter's every-tile-skipped run did).  Calls the C function directly,
+    so no launch is counted."""
+    (n_bags, n_slots), (v, d) = ids.shape, table.shape
+    pad = torch.full_like(ids, -1)
+    out = torch.empty((n_bags, d), dtype=table.dtype, device=table.device)
+    lib = K._library()
+
+    def call():
+        rc = lib.embedding_bag(
+            pad.data_ptr(), None, table.data_ptr(), out.data_ptr(), n_bags,
+            n_slots, d, v, K._BAG_DTYPES[table.dtype],
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"embedding_bag: CUDA error {rc}")
+
+    return timed(torch, call, reps)
+
+
+def range_list_check(torch, chk: Checks, K, ref, ids, table, path: dict,
+                     tag: str) -> None:
+    """The blocked order's list against a plain torch.sort of the bags'
+    range keys: a permutation of the bags, each with its own id, grouped by
+    range in range order, and the histogram's counts."""
+    v = table.shape[0]
+    rows, n_ranges = path["rows_per_range"], path["n_ranges"]
+    pairs, counts = K.bag_range_list(ids, v, rows, n_ranges)
+    keys = ref.bag_range_keys(ids[:, 0], v, rows)
+    sorted_keys = torch.sort(keys).values
+    bags = pairs[:, 0].long()
+    perm = torch.equal(torch.sort(bags).values,
+                       torch.arange(ids.shape[0], device=ids.device))
+    own = torch.equal(pairs[:, 1], ids[bags, 0]) if perm else False
+    grouped = torch.equal(keys[bags], sorted_keys) if perm else False
+    hist = torch.equal(counts.long(), torch.bincount(keys,
+                                                     minlength=n_ranges))
+    chk.ok(perm and own and grouped and hist,
+           f"{tag}: the blocked order's list of {ids.shape[0]} (bag, id) "
+           f"pairs is a permutation of the bags with their own ids "
+           f"({perm and own}), grouped by range as torch.sort of the range "
+           f"keys orders them ({grouped}), counts == bincount ({hist}); "
+           f"{n_ranges} ranges of {rows} rows")
+
+
 def bag_stats(torch, chk: Checks, K, ref, ids, table, tag: str,
-              reps: int) -> dict:
+              reps: int, earlier_ms: float | None = None) -> dict:
     """embedding_bag against its plain version on one path's ids, bit for
-    bit, then timed beside the plain version, one F.embedding_bag call of
-    the same bags (``per_sample_weights`` = the padding mask) and its bound:
-    the distinct rows the bags need and the output rows, each moved once,
-    and the ids, over the card's memory rate."""
+    bit, then timed beside the earlier design's time (`EARLIER_BAG_MS`,
+    shown in the note only: it was not measured here), the plain version, one
+    F.embedding_bag call of the same bags (``per_sample_weights`` = the
+    padding mask), the write floor (`bag_write_floor`) and its bound: the
+    distinct rows the bags need and the output rows, each moved once, and
+    the ids, over the card's memory rate.  For the blocked order, also the
+    range list (`range_list_check`)."""
     import torch.nn.functional as F
 
     n_bags, n_slots = ids.shape
     d, size = table.shape[1], table.element_size()
     bits = torch.int16 if size == 2 else torch.int32
+    path = K.bag_path(ids, table)
     k = K.embedding_bag(ids, table)
     p = ref.embedding_bag_ref(ids, table)
     torch.cuda.synchronize()
@@ -1393,20 +1467,32 @@ def bag_stats(torch, chk: Checks, K, ref, ids, table, tag: str,
     distinct = int(torch.unique(ids[valid]).numel())
     nbytes = (distinct + n_bags) * d * size + 4 * ids.numel()
     bound = 1e3 * nbytes / HBM_RATE
+    order = (f"{path['path']}, {path['order']} order" if path["path"] ==
+             "bag of one" else f"{path['path']} path")
     chk.ok(same, f"{tag}: embedding_bag == plain bit for bit ({n_bags} bags "
            f"of {n_slots} over ({table.shape[0]}, {d}) "
-           f"{str(table.dtype)[6:]}, {distinct} distinct rows)")
+           f"{str(table.dtype)[6:]}, {distinct} distinct rows; {order})")
+    if path["order"] == "blocked":
+        range_list_check(torch, chk, K, ref, ids, table, path, tag)
     ms = timed(torch, lambda: K.embedding_bag(ids, table), reps)
+    floor = bag_write_floor(torch, K, ids, table, reps)
     plain_ms = timed(torch, lambda: ref.embedding_bag_ref(ids, table), 3)
     lib_ms = timed(torch, lambda: F.embedding_bag(
         safe, table, mode="sum", per_sample_weights=weights), reps)
-    chk.note(f"{tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"F.embedding_bag {lib_ms:.4f} ms (max |diff| vs the kernel "
-             f"{lib_diff:.3e}, not asserted: it sums in its own order), "
-             f"bound {bound:.4f} ms (bytes, {nbytes / 1e9:.3f} GB)")
+    was = (" (earlier design: not recorded at this shape)"
+           if earlier_ms is None else
+           f" (earlier design, b2e471f: {earlier_ms} ms, PERF.md row 11)")
+    chk.note(f"{tag}: kernel {ms:.4f} ms{was}, write floor {floor:.4f} ms "
+             f"({n_bags * d * size / floor / 1e9:.3f} TB/s of output), "
+             f"plain {plain_ms:.4f} ms, F.embedding_bag {lib_ms:.4f} ms (max "
+             f"|diff| vs the kernel {lib_diff:.3e}, not asserted: it sums in "
+             f"its own order), bound {bound:.4f} ms (bytes, "
+             f"{nbytes / 1e9:.3f} GB); {order}")
     return {"shape": [int(n_bags), int(n_slots), int(d)],
             "dtype": str(table.dtype)[6:], "distinct_rows": distinct,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "path": path["path"], "order": path["order"],
+            "n_ranges": path["n_ranges"], "max_abs_err": err, "ms": ms,
+            "write_floor_ms": floor, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
             "library_max_abs_diff": lib_diff}
 
@@ -1522,7 +1608,7 @@ def sample_check(torch, chk: Checks, arch: str, model, batch, out, tag):
 
 
 def serve_path(torch, chk: Checks, K, ref, rs, arch, sd, model, batch,
-               tag: str, reps: int):
+               tag: str, reps: int, path: str):
     """One serve step through ``sd.fn`` with the launch counts read around
     it, its output checked, the batch timed, and each lookup of the path
     held against the plain version and timed.  Returns (launches, record).
@@ -1548,7 +1634,8 @@ def serve_path(torch, chk: Checks, K, ref, rs, arch, sd, model, batch,
              f"{n / ms * 1e3:.4e} samples/s, model FLOPs "
              f"{sd.model_flops / ms / 1e9:.3f} TFLOP/s")
     bags = {name: bag_stats(torch, chk, K, ref, ids, table,
-                            f"{tag} {name}", 2 * reps)
+                            f"{tag} {name}", 2 * reps,
+                            EARLIER_BAG_MS.get((path, name)))
             for name, ids, table in path_bags(rs, arch, model, batch)}
     return launches, {"batch_ms": ms, "samples_per_s": n / ms * 1e3,
                       "bags": bags}
@@ -1557,19 +1644,33 @@ def serve_path(torch, chk: Checks, K, ref, rs, arch, sd, model, batch,
 def device_breakdown(torch, chk: Checks, fn, tag: str) -> dict:
     """One call of ``fn`` under torch.profiler: wall time, the card's busy
     time (the sum of its kernels and copies), and that time split into the
-    embedding_bag kernel, GEMMs and the rest."""
-    from torch.profiler import ProfilerActivity, profile
+    embedding_bag op's kernels (`BAG_KERNELS`), GEMMs and the rest.
+
+    The profiler can lose the first device activity of a trace: CUPTI asks
+    for its first activity buffer when that activity arrives, and a record
+    made before the buffer is there is dropped (the kernel is missing from
+    the trace while the launch is in it).  MIND's forward starts with its
+    lookup, which is how that kernel went missing from MIND's bulk trace.
+    So a small kernel runs first, outside the measured call, and only the
+    device activity that starts inside ``measured`` counts."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
+        torch.zeros(1, device=DEVICE)                    # the first activity
         torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t)
+        with record_function("measured"):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == "measured")
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.time_range.start >= start and e.name != "measured"):
             us = getattr(e, "device_time_total", None)
             us = e.cuda_time_total if us is None else us
             by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
@@ -1577,18 +1678,24 @@ def device_breakdown(torch, chk: Checks, fn, tag: str) -> dict:
     groups = {"embedding_bag": 0.0, "gemm": 0.0, "other": 0.0}
     for name, v in by_name.items():
         low = name.lower()
-        key = ("embedding_bag" if "embedding_bag" in low else "gemm"
+        key = ("embedding_bag" if any(k in low for k in BAG_KERNELS)
+               else "gemm"
                if any(s in low for s in ("gemm", "cutlass", "xmma", "cublas"))
                else "other")
         groups[key] += v
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    bag = {re.search(r"\w+_kernel(<[^>]*>)?", k).group(0): v
+           for k, v in by_name.items() if any(b in k for b in BAG_KERNELS)}
     chk.note(f"{tag} (torch.profiler, one call): wall {wall:.3f} ms, card "
              f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); embedding_bag "
-             f"{groups['embedding_bag']:.3f} ms, GEMMs {groups['gemm']:.3f} "
-             f"ms, other {groups['other']:.3f} ms; most time: "
+             f"{groups['embedding_bag']:.3f} ms ("
+             + ", ".join(f"{k} {v:.3f}" for k, v in bag.items())
+             + f"), GEMMs {groups['gemm']:.3f} ms, other "
+             f"{groups['other']:.3f} ms; most time: "
              + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
     return {"wall_ms": wall, "busy_ms": busy,
-            **{f"{k}_ms": v for k, v in groups.items()}}
+            **{f"{k}_ms": v for k, v in groups.items()},
+            "embedding_bag_kernels_ms": bag}
 
 
 def full_vocab_batch(torch, cfg, batch, seed: int) -> dict:
@@ -1653,7 +1760,7 @@ def phase_recsys(torch, chk: Checks, K, ref, snn, clock):
                                               SEED + 30)))
             for path, what, b in runs:
                 n, rec = serve_path(torch, chk, K, ref, rs, arch, sd, model,
-                                    b, f"{sd.name} {what}", reps)
+                                    b, f"{sd.name} {what}", reps, path)
                 by_path[path], paths[path] = n, rec
             if shape == "serve_bulk":
                 breakdown[sd.name] = device_breakdown(
@@ -1688,7 +1795,8 @@ def mind_retrieval(torch, chk: Checks, K, ref, snn, steps, rs, clock,
     hist = query["hist"]
     paths[sd.name] = {"batch_ms": ms, "bags": {"history gather": bag_stats(
         torch, chk, K, ref, hist.reshape(-1, 1), model.items,
-        f"{sd.name} history gather", 20)}}
+        f"{sd.name} history gather", 20,
+        EARLIER_BAG_MS.get((sd.name, "history gather")))}}
     with torch.inference_mode():
         u = model(hist)[0]                                    # (4, 64)
         cand = model.items[:n_cand]
@@ -1910,8 +2018,10 @@ def main() -> int:
         base = {"snn_count": "snn_count_stacked",
                 "snn_compact": "snn_compact_stacked"}.get(rec["name"],
                                                           rec["name"])
+        prefixes = (BAG_KERNELS if base == "embedding_bag"
+                    else (f"{base}_kernel",))
         rec["ptxas"] = {k: v for k, v in ptxas.items()
-                        if k.startswith(f"{base}_kernel")}
+                        if k.startswith(prefixes)}
     print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -265,3 +265,12 @@ def embedding_bag_ref(ids, table):
         w = (col >= 0).to(table.dtype)[:, None]
         out = out + w * table[col.clamp(0, last).long()]
     return out
+
+
+def bag_range_keys(ids, n_rows: int, rows_per_range: int):
+    """Plain version of the blocked order's range key: the range
+    ``clamp(id, 0, n_rows - 1) // rows_per_range`` of table rows each id
+    reads (padding reads row 0, an id past the table row n_rows - 1), as
+    int64."""
+    rows = ids.to(torch.int64).clamp(0, n_rows - 1)
+    return torch.div(rows, rows_per_range, rounding_mode="floor")

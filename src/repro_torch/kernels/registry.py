@@ -22,8 +22,14 @@ The entry points, each with the launch it makes on the card:
   one-dimensional grid of m_pad / 128 x n_pad / 128 blocks of 256 threads,
   the queries tiled in alpha order (a stable argsort on the card first);
   `snn_filter_stacked` flattens a stack into it;
-* `embedding_bag`: the recsys table lookup, (B, F) ids over a (V, D) table,
-  one launch of B * D * itemsize / 16 threads (B * D for ragged widths).
+* `embedding_bag`: the recsys table lookup, (B, F) ids over a (V, D) table:
+  bags of one a block for every 256 bags (with fewer than 256 an SM, one
+  thread a 16-byte chunk), in bag order or, over a table larger than the
+  L2 with more ids than rows, after a range histogram and a scatter
+  (three launches and a memset in one call); the wide bag's
+  narrow rows a block of one warp of bags with its ids staged in shared
+  memory; other shapes one thread a 16-byte (or one-element) column chunk
+  of a bag (`kernels.snn_query.bag_path`).
 
 Every call also records a (op, shapes, static arguments) launch signature;
 the first sighting of a signature bumps ``engine.DISPATCH_STATS.

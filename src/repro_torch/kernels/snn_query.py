@@ -29,7 +29,12 @@ And the recsys models' table lookup:
 
 * `embedding_bag` (``csrc/embedding_bag.cu``) replaces ``repro.kernels.
   embedding_bag.embedding_bag``: ``out[b] = sum_f table[ids[b, f]]`` with
-  ids < 0 as padding, summed in slot order in the table's dtype.
+  ids < 0 as padding, summed in slot order in the table's dtype.  Bags of
+  one take a 16-byte gather, in bag order or, over a table larger than the
+  L2 with more ids than rows (`bag_order`), grouped by ranges of table rows
+  a fraction of the L2 wide, by a histogram and a scatter kernel first;
+  bags of many over rows narrower than 16 bytes stage their ids in shared
+  memory (`bag_path`).
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``nvcc`` per source, all started together, then linked into one shared
@@ -146,9 +151,17 @@ def _library() -> ctypes.CDLL:
             lib.snn_launch_geometry.restype = i32
             lib.snn_filter.argtypes = single + [ptr, ptr, ptr]
             lib.snn_filter.restype = i32
-            lib.embedding_bag.argtypes = [ptr, ptr, ptr, i32, i32, i32,
-                                          ctypes.c_longlong, i32, i32, ptr]
+            i64 = ctypes.c_longlong
+            lib.embedding_bag.argtypes = [ptr] * 4 + [i32] * 3 + [
+                i64, i32, ptr]
             lib.embedding_bag.restype = i32
+            lib.embedding_bag_path.argtypes = [i64, i32, i32, i32, ptr, i32]
+            lib.embedding_bag_path.restype = i32
+            lib.embedding_bag_list.argtypes = [ptr, i32, i64, i32, i32, ptr,
+                                               ptr, ptr]
+            lib.embedding_bag_list.restype = i32
+            lib.embedding_bag_l2_bytes.argtypes = [i32, ptr]
+            lib.embedding_bag_l2_bytes.restype = i32
             _lib = lib
     return _lib
 
@@ -446,18 +459,136 @@ def snn_filter(q, aq, r, thresh, xs, alphas, half_norms, pq=None, px=None, *,
 snn_filter.launches = 0
 
 _BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# ranges of table rows the blocked order may have (csrc: kMaxRanges, the
+# histogram's bins in shared memory)
+MAX_BAG_RANGES = 1024
+# a range's rows fill 1 / BAG_RANGE_L2_SHARE of the L2: of ranges of 1/2
+# to 1/64 of the L2, an eighth came within 1% of the best for MIND's
+# history gather (1.559 ms on the H100; 1.902 at a half, 1.543 at a
+# sixteenth) and for Wide & Deep's deep lookup (0.896 ms; 0.892 at a
+# quarter), list included (experiments/embedding_bag/run.py).  The L2 is
+# two partitions, each probably keeping its own copy of what its SMs read,
+# so a range has to fit well inside one
+BAG_RANGE_L2_SHARE = 8
+_l2: dict[int, int] = {}
+
+
+def bag_order(n_bags: int, n_slots: int, n_rows: int, row_bytes: int,
+              l2_bytes: int) -> str:
+    """The order in which embedding_bag walks bags of one: ``"blocked"``,
+    grouped by ranges of table rows a fraction of the L2 wide
+    (`bag_ranges`), or ``"direct"``, in bag order.
+
+    Blocked where it saves reads: bags of one over rows a multiple of 16
+    bytes, a table whose bytes exceed the L2 and more ids than table rows,
+    so that rows are hit again and again and a walk in bag order would read
+    most hits from HBM again.  On the H100 the blocked walk, its list
+    included, beat the bag order at 2 to 16 ids a row over tables of
+    256-byte rows (256 MB) and of 128-byte rows (512 MB) alike
+    (experiments/embedding_bag/run.py).  Every other shape walks in bag
+    order.  A function of the shapes and the device's L2 alone, so a CPU
+    test can pin it.
+    """
+    blocked = (n_slots == 1 and row_bytes % 16 == 0
+               and n_bags > n_rows and n_rows * row_bytes > l2_bytes)
+    return "blocked" if blocked else "direct"
+
+
+def bag_ranges(n_rows: int, row_bytes: int, l2_bytes: int) -> tuple[int,
+                                                                    int]:
+    """(rows a range, ranges) of the blocked order: ranges of consecutive
+    table rows whose bytes fill 1 / `BAG_RANGE_L2_SHARE` of the L2, and no
+    more than `MAX_BAG_RANGES` of them (wider ranges where the table would
+    need more).  Range r holds rows [r * rows, (r + 1) * rows); a bag reads
+    the range of ``ref.bag_range_keys``."""
+    rows = max(1, l2_bytes // BAG_RANGE_L2_SHARE // row_bytes,
+               -(-n_rows // MAX_BAG_RANGES))
+    return rows, -(-n_rows // rows)
+
+
+def l2_bytes(device) -> int:
+    """The L2 size of a CUDA device in bytes (cudaDevAttrL2CacheSize)."""
+    dev = torch.device(device).index
+    dev = torch.cuda.current_device() if dev is None else dev
+    if dev not in _l2:
+        out = ctypes.c_longlong()
+        rc = _library().embedding_bag_l2_bytes(dev, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error "
+                               f"{rc}")
+        _l2[dev] = int(out.value)
+    return _l2[dev]
+
+
+def _blocked_ranges(B: int, F: int, V: int, row: int, table) -> tuple[int,
+                                                                    int]:
+    """(rows a range, ranges) of the blocked order, (0, 0) for bag order:
+    `bag_order` on the table's device, with the cheap test first, since a
+    serve batch pays for this on every call."""
+    if not (F == 1 and B > V and row % 16 == 0
+            and table.data_ptr() % 16 == 0):
+        return 0, 0
+    l2 = l2_bytes(table.device)
+    if bag_order(B, F, V, row, l2) != "blocked":
+        return 0, 0
+    return bag_ranges(V, row, l2)
+
+
+# csrc/embedding_bag.cu::embedding_bag_path
+_BAG_PATHS = ("per element", "per chunk", "bag of one", "staged")
+
+
+def bag_path(ids, table) -> dict:
+    """How embedding_bag computes (B, F) ids over a (V, D) CUDA table:
+    {"path", "order", "rows_per_range", "n_ranges"}.  Paths, as the kernel
+    chooses them (``embedding_bag_path`` in the C interface): "bag of one",
+    the 16-byte gather of bags of one, in the order of `bag_order`
+    ("direct" or "blocked", with the ranges of `bag_ranges`), where the
+    bags are listed or at least 256 for each SM; "staged",
+    bags of many over rows narrower than 16 bytes, a warp of bags a block
+    with their ids in shared memory; "per chunk" and "per element", one
+    thread a 16-byte or a one-element column chunk of a bag."""
+    (B, F), (V, D) = ids.shape, table.shape
+    rows, n_ranges = _blocked_ranges(B, F, V, D * table.element_size(),
+                                     table)
+    code = _library().embedding_bag_path(B, F, D, _BAG_DTYPES[table.dtype],
+                                         _ptr(table), int(rows > 0))
+    return {"path": _BAG_PATHS[code], "order": "blocked" if rows else
+            "direct", "rows_per_range": rows, "n_ranges": n_ranges}
+
+
+def bag_range_list(ids, n_rows: int, rows_per_range: int, n_ranges: int):
+    """The blocked order's list of (B, 1) int32 ``ids`` over ``n_rows``
+    table rows: (pairs (B, 2) int32 of (bag, id), grouped by range in
+    range order (no set order inside a range), counts (n_ranges,) int32 of
+    bags by range), from the histogram and scatter kernels."""
+    B = ids.shape[0]
+    if not 1 <= n_ranges <= MAX_BAG_RANGES or rows_per_range < 1:
+        raise ValueError(f"{n_ranges} ranges of {rows_per_range} rows: "
+                         f"1 to {MAX_BAG_RANGES} ranges of 1 row or more")
+    scratch = torch.empty(2 * n_ranges, dtype=torch.int32, device=ids.device)
+    pairs = torch.empty((B, 2), dtype=torch.int32, device=ids.device)
+    rc = _library().embedding_bag_list(
+        _ptr(ids), B, int(n_rows), int(rows_per_range), int(n_ranges),
+        _ptr(scratch), _ptr(pairs), _stream(ids.device))
+    if rc != 0:
+        raise RuntimeError(f"embedding_bag list failed: CUDA error {rc}")
+    return pairs, scratch[:n_ranges]
 
 
 def embedding_bag(ids, table):
     """``out[b] = sum_f w_f * table[max(ids[b, f], 0)]``, ``w_f = ids >= 0``,
-    in one launch.
+    as one op call (`bag_path` says which kernels it runs).
 
     ``ids`` (B, F) int32 and ``table`` (V, D) float32 or bfloat16, both
     contiguous on one CUDA device; returns (B, D) in the table's dtype,
-    summed in slot order with a rounding to that dtype after each add (the
-    TPU kernel's arithmetic, bit-identical to `ref.embedding_bag_ref`).
-    An id at or above V reads row V - 1, as in the plain version and in
-    the Pallas kernel run off the TPU.
+    summed in slot order from +0.0 with a rounding to that dtype after each
+    add (the TPU kernel's arithmetic, bit-identical to
+    `ref.embedding_bag_ref`).  An id at or above V reads row V - 1, as in
+    the plain version and in the Pallas kernel run off the TPU.  The
+    blocked order of bags of one (`bag_order`) runs three kernels (the
+    range histogram, the scatter into range order, the gather over that
+    list) and takes 8 bytes a bag of scratch from the caching allocator.
     """
     if not (isinstance(table, torch.Tensor) and table.is_cuda):
         raise ValueError("the CUDA kernels take CUDA tensors; "
@@ -481,14 +612,14 @@ def embedding_bag(ids, table):
     out = torch.empty((B, D), dtype=table.dtype, device=dev)
     if not (B and D):
         return out
-    vec16 = ((D * table.element_size()) % 16 == 0
-             and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    threads = B * (D * table.element_size() // 16 if vec16 else D)
-    if max(B, F, D) >= 2 ** 31 or threads >= 2 ** 31 * 256:
+    if max(B, F, D) >= 2 ** 31 or B * D >= 2 ** 39:
         raise ValueError(f"bags ({B}, {F}) x {D} exceed the kernel's grid")
+    rows, n_ranges = _blocked_ranges(B, F, V, D * table.element_size(),
+                                     table)
+    pairs = bag_range_list(ids, V, rows, n_ranges)[0] if rows else None
     rc = _library().embedding_bag(
-        _ptr(ids), _ptr(table), _ptr(out), B, F, D, V,
-        _BAG_DTYPES[table.dtype], int(vec16), _stream(dev))
+        _ptr(ids), _ptr(pairs), _ptr(table), _ptr(out), B, F, D, V,
+        _BAG_DTYPES[table.dtype], _stream(dev))
     if rc != 0:
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {rc}")
     embedding_bag.launches += 1

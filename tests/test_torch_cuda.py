@@ -513,6 +513,102 @@ def test_cuda_embedding_bag_reads_rows_past_2_31_elements(card):
     assert torch.equal(got.double(), exact) and bool(got.any())
 
 
+def _blocked_bags(card, dtype, n_bags, seed):
+    """Bags of one over a table larger than the L2: 1M x 64 float32 or 1M x
+    128 bfloat16 (256 MB), integer values, every fourth row all -0.0, row 0
+    NaN and +-inf; ids with -1 padding (a tenth) and ids at or past V."""
+    V, D = 1_000_000, 64 if dtype == torch.float32 else 128
+    g = torch.Generator(device=card).manual_seed(seed)
+    table = torch.randint(-4, 5, (V, D), generator=g, device=card).to(dtype)
+    table[::4] = -0.0
+    table[0] = float("nan")
+    table[0, ::3] = float("inf")
+    table[0, 1::3] = -float("inf")
+    ids = torch.randint(0, V, (n_bags, 1), generator=g, device=card,
+                        dtype=torch.int32)
+    ids[::10] = -1
+    ids[5::97, 0] = V + torch.arange(ids[5::97].shape[0], device=card,
+                                     dtype=torch.int32)
+    ids[7] = 2 ** 31 - 1
+    return ids, table
+
+
+def _same_or_both_nan(got, want):
+    """NaN where the plain version has NaN (the NaN's bits may differ: the
+    kernel rounds a bfloat16 NaN to 0x7fff, PyTorch to 0x7fc0), bit-equal
+    everywhere else."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(_bits(got)[~nan], _bits(want)[~nan]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_bags,kernel,order", [
+    (4_000_000, "bag of one", "blocked"), (600_000, "bag of one", "direct"),
+    (5_000, "per chunk", "direct")])
+def test_cuda_embedding_bag_bags_of_one_both_orders(card, dtype, n_bags,
+                                                    kernel, order):
+    # -0.0 rows give +0.0, padded bags 0 * row0 (NaN for row 0's NaN and
+    # infs), ids past the table row V - 1, in either order of the walk, and
+    # on the per-chunk kernel that takes bags too few for a block an SM
+    ids, table = _blocked_bags(card, dtype, n_bags, 70)
+    path = tsq.bag_path(ids, table)
+    assert (path["path"], path["order"]) == (kernel, order)
+    tsq.reset_launch_counts()
+    got = tsq.embedding_bag(ids, table)
+    want = tref.embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    assert tsq.embedding_bag.launches == 1
+    assert _same_or_both_nan(got, want)
+    zero = (ids[:, 0] > 0) & (ids[:, 0] % 4 == 0) & (ids[:, 0] < 1_000_000)
+    assert int(zero.sum()) > 0 and not bool(_bits(got[zero]).any())
+    assert bool(torch.isnan(got[ids[:, 0] < 0]).all())
+
+
+def test_cuda_embedding_bag_blocked_order_matches_plain(card):
+    # the blocked order at a size that takes it: 1M x 64 float32, 4M bags of
+    # one with -1 padding and ids >= V, the table free of NaN, bit-equal;
+    # its list a permutation of the bags grouped by range in range order
+    ids, table = _blocked_bags(card, torch.float32, 4_000_000, 71)
+    table[0] = 3.0
+    path = tsq.bag_path(ids, table)
+    assert path["order"] == "blocked" and 1 < path["n_ranges"] <= 1024
+    got = tsq.embedding_bag(ids, table)
+    want = tref.embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    pairs, counts = tsq.bag_range_list(ids, table.shape[0],
+                                       path["rows_per_range"],
+                                       path["n_ranges"])
+    keys = tref.bag_range_keys(ids[:, 0], table.shape[0],
+                               path["rows_per_range"])
+    sorted_keys, _ = torch.sort(keys, stable=True)
+    bags = pairs[:, 0].long()
+    assert torch.equal(torch.sort(bags).values,
+                       torch.arange(ids.shape[0], device=card))
+    assert torch.equal(pairs[:, 1], ids[bags, 0])
+    assert torch.equal(keys[bags], sorted_keys)
+    assert torch.equal(counts.long(),
+                       torch.bincount(keys, minlength=path["n_ranges"]))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 1), (torch.float32, 3),
+                                     (torch.bfloat16, 1), (torch.bfloat16, 7)])
+def test_cuda_embedding_bag_staged_wide_bag(card, dtype, D):
+    # the wide model's bag of 40 ids over rows narrower than 16 bytes takes
+    # the staged path, a warp of bags a block; a ragged last block, -1
+    # padding, ids past V and an all-padding bag
+    ids, table = _lattice_bags(72 + D, 20_001, 40, D, 100_000, dtype)
+    ids[3, 5:9] = torch.tensor([100_000, 2 ** 31 - 1, 99_999, -5])
+    ids, table = ids.to(card), table.to(card)
+    path = tsq.bag_path(ids, table)
+    assert path["path"] == "staged"
+    got = tsq.embedding_bag(ids, table)
+    want = tref.embedding_bag_ref(ids, table)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want)) and not bool(got[1].any())
+
+
 @pytest.mark.parametrize("arch,lookups", [("dlrm-mlperf", 1),
                                           ("wide-deep", 2), ("mind", 1)])
 def test_cuda_serve_steps_equal_the_cpu(card, arch, lookups):

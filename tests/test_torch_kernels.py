@@ -491,3 +491,167 @@ def test_embedding_bag_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tsq.embedding_bag(tids, tt)
     assert tsq.embedding_bag.launches == 0
+
+
+# the semantics the CUDA kernel's paths keep (bags of one, the staged wide
+# bag), on the plain version against the Pallas kernel in interpret mode
+def _bag_case(case, seed, B, F, D, V, dtype):
+    jids, jt, tids, tt = _bag_operands(seed, B, F, D, V=V, dtype=dtype)
+    ids, table = tids.numpy().copy(), tt.float().numpy().copy()
+    if case == "negative zero":
+        table[1::2] = -0.0                      # every odd row all -0.0
+        ids[:, 0] = 2 * np.arange(B) % V + 1
+    elif case == "nan row 0":
+        table[0, :] = np.float32(np.nan)
+        table[0, ::3] = np.inf
+        table[0, 1::3] = -np.inf
+        ids[::2, :] = -1                         # padded bags read row 0
+    else:                                        # "past V"
+        ids[:, 0] = V + np.arange(B)
+        ids[0, 0] = 2 ** 31 - 1
+        ids[1, 0] = V - 1
+    jdt, tdt = DTYPES[dtype]
+    jt = jnp.asarray(table).astype(jdt)
+    tt = torch.from_numpy(np.array(_bits(jt))).view(tdt)
+    return jnp.asarray(ids), jt, torch.from_numpy(ids), tt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 40])
+@pytest.mark.parametrize("case", ["negative zero", "nan row 0", "past V"])
+def test_embedding_bag_semantics_the_kernel_paths_keep(case, F, dtype):
+    """A table of -0.0 rows gives +0.0 (the sum starts at +0.0), a padded
+    slot reads row 0 and gives 0 * row0, NaN where row 0 holds a NaN or an
+    inf, and an id at or above V reads row V - 1: the plain version equals
+    the Pallas kernel, NaN for NaN and bit for bit elsewhere."""
+    D = 1 if F > 1 else 64
+    jids, jt, tids, tt = _bag_case(case, 50 + F, 12, F, D, 30, dtype)
+    want = np.asarray(jbag.embedding_bag(jids, jt, interpret=True))
+    got = tops.embedding_bag(tids, tt)
+    nan = torch.isnan(got).numpy()
+    np.testing.assert_array_equal(nan, np.isnan(want.astype(np.float32)))
+    np.testing.assert_array_equal(_bits(got)[~nan], _bits(want)[~nan])
+    if case == "negative zero" and F == 1:
+        assert not _bits(got).any()              # +0.0, all bits clear
+    if case == "nan row 0":
+        assert nan[::2].all()                    # 0 * NaN and 0 * inf
+    if case == "past V":
+        clamped = torch.from_numpy(np.minimum(tids.numpy(), 29))
+        assert torch.equal(got, tops.embedding_bag(clamped, tt))
+
+
+# shapes (bags, slots, table rows, row bytes) of every lookup of the recsys
+# serve steps: the configs' widths at each serve shape
+def _serve_lookups():
+    from repro_torch.configs import registry as creg
+
+    out = {}
+    for arch in ("dlrm-mlperf", "wide-deep", "mind"):
+        spec = creg.get_arch(arch)
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            if shape == "retrieval_cand" and arch != "mind":
+                continue
+            cfg = spec.make_config(shape)
+            b = spec.shapes[shape]["batch"]
+            if arch == "mind":
+                out[(arch, shape, "history gather")] = (
+                    b * cfg.hist_len, 1, cfg.n_items, 4 * cfg.embed_dim)
+                continue
+            v, f = sum(cfg.vocab_sizes), len(cfg.vocab_sizes)
+            size = 2 if arch == "dlrm-mlperf" else 4
+            out[(arch, shape, "lookup")] = (b * f, 1, v, size * cfg.embed_dim)
+            if arch == "wide-deep":
+                out[(arch, shape, "wide bag")] = (b, f, v, 4)
+    return out
+
+
+H100_L2 = 50 * 2 ** 20          # what cudaDevAttrL2CacheSize gives there
+
+
+def test_bag_order_rule_takes_blocked_for_mind_and_the_deep_lookup():
+    """MIND's bulk history gather (13.1 ids a row over a 256 MB table) and
+    Wide & Deep's bulk deep lookup (2.6 ids a row over 512 MB) walk their
+    bags grouped by range; DLRM (fewer ids than rows), the wide bag (40
+    ids a bag) and every serve_p99 and retrieval lookup walk in bag
+    order."""
+    lookups = _serve_lookups()
+    assert len(lookups) == 9
+    blocked = {k for k, s in lookups.items()
+               if tsq.bag_order(*s, H100_L2) == "blocked"}
+    assert blocked == {("mind", "serve_bulk", "history gather"),
+                       ("wide-deep", "serve_bulk", "lookup")}
+    # the rule's conditions, each alone
+    n, v, row = 4_000_000, 1_000_000, 256
+    assert tsq.bag_order(n, 1, v, row, H100_L2) == "blocked"
+    assert tsq.bag_order(n, 1, v, 128, H100_L2) == "blocked"
+    assert tsq.bag_order(n, 2, v, row, H100_L2) == "direct"     # many ids
+    assert tsq.bag_order(n, 1, v, 264, H100_L2) == "direct"     # ragged row
+    assert tsq.bag_order(v, 1, v, row, H100_L2) == "direct"     # ids <= rows
+    assert tsq.bag_order(n, 1, v, row, v * row) == "direct"     # fits the L2
+
+
+@pytest.mark.parametrize("n_rows,row_bytes,l2,want", [
+    (1_000_000, 256, H100_L2, (25_600, 40)),         # MIND's items
+    (4_000_000, 128, H100_L2, (51_200, 79)),         # Wide & Deep's deep
+    (1000, 256, H100_L2, (25_600, 1)),               # one range
+    (187_767_424, 256, H100_L2, (183_367, 1024)),    # capped at 1024 ranges
+    (10, 16, 16, (1, 10)),                           # ranges of one row
+])
+def test_bag_ranges(n_rows, row_bytes, l2, want):
+    rows, n = tsq.bag_ranges(n_rows, row_bytes, l2)
+    assert (rows, n) == want
+    assert n <= tsq.MAX_BAG_RANGES and (n - 1) * rows < n_rows <= n * rows
+    keys = tref.bag_range_keys(torch.tensor([-7, -1, 0, n_rows - 1, n_rows,
+                                             2 ** 31 - 1], dtype=torch.int32),
+                               n_rows, rows)
+    # padding reads row 0 (range 0); ids at or past the table row n_rows - 1
+    assert keys.tolist() == [0, 0, 0, n - 1, n - 1, n - 1]
+
+
+def test_bag_range_keys_group_the_rows_in_order():
+    rng = np.random.default_rng(60)
+    ids = torch.from_numpy(rng.integers(-1, 1200, 5000).astype(np.int32))
+    rows, n = tsq.bag_ranges(1000, 64, 64 * 800)
+    assert (rows, n) == (100, 10)
+    keys = tref.bag_range_keys(ids, 1000, rows)
+    row = ids.long().clamp(0, 999)
+    assert torch.equal(keys, row // 100)
+    assert int(keys.min()) == 0 and int(keys.max()) == n - 1
+    assert torch.equal(torch.bincount(keys, minlength=n).sum(),
+                       torch.tensor(5000))
+
+
+_P99_LOOKUPS = sorted(k for k in _serve_lookups() if k[1] != "serve_bulk")
+
+
+@pytest.mark.parametrize("lookup", _P99_LOOKUPS + [
+    ("dlrm-mlperf", "serve_bulk", "lookup"),
+    ("wide-deep", "serve_bulk", "wide bag")])
+def test_bag_order_in_the_wrapper_skips_the_device_for_bag_order(
+        monkeypatch, lookup):
+    """The wrapper's order test on every call: each serve_p99 and retrieval
+    lookup, DLRM's bulk lookup and the wide bag walk in bag order without
+    asking the device for its L2 or reading the table's address (a serve
+    batch pays for each call on the host)."""
+    B, F, V, row = _serve_lookups()[lookup]
+
+    def no_device(*_):
+        raise AssertionError("asked the device")
+
+    class Table:
+        data_ptr = no_device
+        device = property(no_device)
+
+    monkeypatch.setattr(tsq, "l2_bytes", no_device)
+    assert tsq._blocked_ranges(B, F, V, row, Table()) == (0, 0)
+
+
+@pytest.mark.parametrize("lookup,want", [
+    (("mind", "serve_bulk", "history gather"), (25_600, 40)),
+    (("wide-deep", "serve_bulk", "lookup"), (51_200, 79))])
+def test_bag_order_in_the_wrapper_takes_the_ranges_of_the_l2(monkeypatch,
+                                                              lookup, want):
+    B, F, V, row = _serve_lookups()[lookup]
+    table = torch.zeros(4)
+    monkeypatch.setattr(tsq, "l2_bytes", lambda device: H100_L2)
+    assert tsq._blocked_ranges(B, F, V, row, table) == want
