@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs five phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs six phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -36,6 +36,18 @@ or note, and each phase's time:
    stacked kernels against their plain versions (and timed) on one graph
    chunk's live stack, and the looped executor over 8 sampled query chunks
    bit-identical to the packed one;
+2c. the front-ends over the engine on the same index and queries:
+   ``query_knn`` at k = 100 (its expansion rounds and launches) against a
+   float64 brute force top-100 on 64 queries, a per-query k and k > n;
+   ``join_counts`` against the CSR counts, ``degree_histogram`` of all 1M
+   points against phase 2b's graph, ``reverse_neighbors`` against the
+   forward CSR's transpose; the host Algorithm 2 ``query_radius_batch`` and
+   ``query_radius_fixed`` (K = 1024, through the filter) against the CSR
+   rows; DBSCAN's host backend ``snn`` against ``snn-csr`` on a 20,000-row
+   subset; and the streaming index over the 1M rows with 8 warmed appends
+   of 8,192 rows (a merge at the fifth), each generation against a float64
+   brute force, then its looped executor, its kNN against a fresh index,
+   a ``state_leaves``/``from_state`` restore and ``rebuild()``;
 3. each kernel's time at the shapes its path gives it (by CUDA events a
    call, and the kernel alone on the card's clock by torch.profiler) beside
    its plain version, its bound and one PyTorch call of the same product,
@@ -67,6 +79,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import bisect
 import importlib
 import json
 import re
@@ -92,6 +105,16 @@ N_GRAPH_ROWS, N_GRAPH_ORACLE, N_LOOPED_CHUNKS = 256, 64, 8
 # rows in which the plain and the symmetric graph may differ, each checked
 # against the float64 brute force
 MAX_DIFF_ROWS = 1024
+# phase 2c: neighbours a kNN query (the k of ann-benchmarks' ground truth
+# for sift-128-euclidean), query_radius_fixed's K, the rows of DBSCAN's host
+# backend, and benchmarks/bench_streaming.py's full-size cell: appends of
+# 8,192 rows, 8 of them, and the queries of the last generation's
+# kernel-against-plain check on the streaming plan
+KNN_K = 100
+FIXED_K = 1024
+DBSCAN_ROWS = 20_000
+APPEND_ROWS, N_APPENDS = 8192, 8
+STREAM_CHECK_Q = 256
 # the graph and its DBSCAN labelling as this script's earlier runs on the
 # H100 found them (PERF.md section 5): pairs, clusters, noise points, points
 # in the largest cluster; an exact pass gives them again
@@ -144,20 +167,83 @@ def timed(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds a call of ``fn()`` spends in the port's kernels
-    (``snn_*``) on the card's own clock (torch.profiler), without the
-    host's time between launches."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+def traced(torch, fn, reps: int = 1, kernels=(), launches=None,
+           need: int | None = None):
+    """The device activity of ``reps`` calls of ``fn`` under torch.profiler:
+    for each call whose records are all there its (name, milliseconds)
+    records, and the calls' wall milliseconds.
+
+    The profiler can lose device records: CUPTI asks for its activity
+    buffers when records arrive, and a record made before a buffer is there
+    is dropped (the kernel is missing from the trace while its launch is in
+    it).  It lost MIND's lookup, the first kernel of its forward, and after
+    heavy work (phase 2c) the records of the first measured calls.  So
+    two calls of ``fn`` run first in the same trace, and each measured
+    call runs in a range of its own, the card synchronized after it, so a
+    record belongs to the last call that began before it.  With ``kernels``
+    (parts of kernel names) and ``launches`` (the wrappers' launch count so
+    far), each call's records of those kernels are counted against the
+    launches its wrappers made, and a call that lost one is left out.  A
+    trace that keeps fewer than ``need`` calls (default: all) is taken
+    again, up to three times; then the measurement fails."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    need, tries = (reps if need is None else need), 3
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if "snn_" in e.key)
-    return total_us / reps / 1e3
+        made = [0] * reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(reps):
+                with record_function(f"measured {i}"):
+                    before = launches() if launches else 0
+                    fn()
+                    torch.cuda.synchronize()
+                    made[i] = (launches() if launches else 0) - before
+            wall = 1e3 * (time.perf_counter() - t)
+        events = prof.events()
+        starts = sorted((e.time_range.start, int(e.name.split()[1]))
+                        for e in events if e.name.startswith("measured ")
+                        and e.device_type != cuda)
+        bounds = [st for st, _ in starts]
+        calls: list[list] = [[] for _ in range(reps)]
+        for e in events:
+            if e.device_type == cuda and not e.name.startswith("measured"):
+                k = bisect.bisect_right(bounds, e.time_range.start) - 1
+                if k >= 0:
+                    us = getattr(e, "device_time_total", None)
+                    us = e.cuda_time_total if us is None else us
+                    calls[starts[k][1]].append((e.name, us / 1e3))
+        seen = [sum(any(k in name for k in kernels) for name, _ in c)
+                for c in calls]
+        whole = [c for c, m, n in zip(calls, made, seen)
+                 if not launches or m == n]
+        if len(whole) < reps:
+            lost = [i for i, (m, n) in enumerate(zip(made, seen)) if m != n]
+            print(f"  the profiler lost records of {len(lost)} of {reps} "
+                  f"calls, calls {lost[:8]} (trace {attempt + 1} of {tries})")
+        if len(whole) >= need:
+            return whole, wall
+    raise RuntimeError(f"torch.profiler kept {len(whole)} whole calls of "
+                       f"{reps} in each of {tries} traces, {need} needed")
+
+
+def device_ms(torch, K, fn, reps: int) -> float:
+    """Mean milliseconds a call of ``fn()`` spends in the port's kernels
+    (``snn_*``) on the card's own clock (torch.profiler, `traced`), without
+    the host's time between launches, over the calls whose every launch has
+    its record in the trace (at least half of them)."""
+    calls, _ = traced(torch, fn, reps, kernels=("snn_",),
+                      launches=lambda: sum(getattr(K, k).launches
+                                           for k in SNN_KERNELS),
+                      need=max(1, reps // 2))
+    return sum(ms for c in calls for name, ms in c
+               if "snn_" in name) / len(calls)
 
 
 # --------------------------------------------------------------------------- #
@@ -831,8 +917,473 @@ def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
            and np.array_equal(looped[1], g_idx),
            "looped rows bit-identical to the packed graph's rows")
     del segments
-    return launches, looped_launches, eps, graph_shape
+    return (launches, looped_launches, eps, graph_shape,
+            np.diff(plain.indptr))
 
+
+
+# --------------------------------------------------------------------------- #
+# phase 2c                                                                     #
+# --------------------------------------------------------------------------- #
+SNN_KERNELS = ("snn_count_stacked", "snn_compact_stacked", "snn_count",
+               "snn_compact", "snn_filter")
+
+
+def launch_counts(K) -> dict:
+    """The launches of each query kernel since the last reset."""
+    return {k: getattr(K, k).launches for k in SNN_KERNELS}
+
+
+def knn_oracle(index, xs64, hn64, q: np.ndarray, k: int):
+    """Float64 brute force over the index's own float32 rows: per query the
+    k nearest (ties by id) as (ids (m, k), squared distances (m, k)), all
+    squared distances (m, n) and their float32 rounding band in squared
+    units, 2 * (d*2^-23*(hn + sum|q x|))."""
+    xq, _ = index.prepare_queries(q, 1.0)
+    xq64 = xq.astype(np.float64)
+    sq = (2.0 * hn64[None, :] - 2.0 * (xq64 @ xs64.T)
+          + np.einsum("ij,ij->i", xq64, xq64)[:, None])
+    tol = 2.0 * DIM * EPS32 * (hn64[None, :] + np.abs(xq64) @ np.abs(xs64).T)
+    ids = np.empty((q.shape[0], k), np.int64)
+    for i in range(q.shape[0]):
+        near = np.argpartition(sq[i], k + 64)[:k + 64]
+        pick = near[np.lexsort((index.order[near], sq[i, near]))][:k]
+        ids[i] = index.order[pick]
+    return ids, sq, tol
+
+
+def knn_agreement(index, got_ids, want_ids, sq, tol):
+    """Ranks where the kNN ids differ from the oracle's (in-band ties) and
+    ranks where the k-th squared distances differ by more than the band."""
+    inv = np.empty_like(index.order)
+    inv[index.order] = np.arange(index.order.size)
+    ties = bad = 0
+    for i in range(got_ids.shape[0]):
+        g, w = inv[got_ids[i]], inv[want_ids[i]]
+        gap = np.abs(sq[i, g] - sq[i, w])
+        band = np.maximum(tol[i, g], tol[i, w])
+        ties += int(np.sum(g != w))
+        bad += int(np.sum(gap > band))
+    return ties, bad
+
+
+def stream_oracle(torch, stream, raw: np.ndarray, q: np.ndarray, radius):
+    """Float64 brute force over every row a streaming index holds, in its
+    index space (the raw rows centred by the frozen base mean in float32,
+    as its parts hold them): per query the original ids within the radius
+    and those inside the float32 rounding band, computed on the card."""
+    base = stream.base
+    mu = torch.from_numpy(base.mu).to(DEVICE)
+    xc = (torch.from_numpy(raw).to(DEVICE) - mu[None, :]).double()
+    xq, r = base.prepare_queries(q, radius)
+    xq64 = torch.from_numpy(xq.astype(np.float64)).to(DEVICE)
+    thr = torch.from_numpy((r * r - np.einsum(
+        "ij,ij->i", xq.astype(np.float64), xq.astype(np.float64))) / 2.0
+                           ).to(DEVICE)
+    hn = 0.5 * (xc * xc).sum(1)
+    dh = hn[:, None] - xc @ xq64.T
+    tol = (DIM * EPS32 * (hn[:, None] + xc.abs() @ xq64.abs().T)
+           + EPS32 * thr.abs()[None, :])
+    keep = (dh <= thr[None, :]).T.cpu().numpy()
+    band = ((dh - thr[None, :]).abs() <= tol).T.cpu().numpy()
+    del xc, dh, tol
+    return keep, band
+
+
+def sets_vs_oracle(res, rows, keep, band):
+    """(band pairs, pairs outside the band that differ) of CSR rows against
+    `stream_oracle` masks, as sets of original ids."""
+    n_band = n_bad = 0
+    for k, i in enumerate(rows):
+        got = res.indices[res.indptr[i]:res.indptr[i + 1]]
+        diff = np.setxor1d(got, np.nonzero(keep[k])[0])
+        n_band += int(band[k, diff].sum())
+        n_bad += int((~band[k, diff]).sum())
+    return n_band, n_bad
+
+
+def phase_knn(torch, chk: Checks, K, snn, knn, index, q, xs64, hn64, clock):
+    """query_knn at k = 100 for the main path's queries, against a float64
+    brute force on 64 of them; a per-query k and k > n."""
+    knn.query_knn(index, q, KNN_K, device=DEVICE)       # warm
+    K.reset_launch_counts()
+    knn.KNN_STATS.reset()
+    ids, dist = clock(f"query_knn k={KNN_K} (warm)",
+                      lambda: knn.query_knn(index, q, KNN_K, device=DEVICE))
+    launches = launch_counts(K)
+    st = knn.KNN_STATS.snapshot()
+    chk.note(f"query_knn: {st['rounds']} expansion rounds, "
+             f"{st['candidates']} candidates in the final pass "
+             f"({st['candidates'] / N_QUERIES:.1f} a query); host seconds "
+             + ", ".join(f"{k} {v:.3f}" for k, v in st["seconds"].items())
+             + f"; kernel launches {launches}")
+    chk.ok(launches["snn_count_stacked"] >= knn.KNN_STATS.rounds + 1
+           and launches["snn_compact_stacked"] >= 1,
+           "query_knn ran the stacked count (each round and the final "
+           "pass) and the compact")
+    chk.ok(ids.shape == (N_QUERIES, KNN_K) and ids.min() >= 0
+           and bool(np.all(np.isfinite(dist)))
+           and bool(np.all(np.diff(dist, axis=1) >= 0)),
+           f"query_knn: {KNN_K} ids a query, finite ascending distances")
+    t = time.perf_counter()
+    rows = np.random.default_rng(SEED + 4).choice(N_QUERIES, N_ORACLE,
+                                                  replace=False)
+    want, sq, tol = knn_oracle(index, xs64, hn64, q[rows], KNN_K)
+    ties, bad = knn_agreement(index, ids[rows], want, sq, tol)
+    inv = np.empty_like(index.order)
+    inv[index.order] = np.arange(index.order.size)
+    d_err = max(float(np.max(np.abs(
+        np.sqrt(np.maximum(sq[k, inv[ids[i]]], 0.0)) - dist[i])))
+        for k, i in enumerate(rows))
+    chk.note(f"float64 top-{KNN_K} of {N_ORACLE} queries: "
+             f"{time.perf_counter() - t:.2f} s (host)")
+    chk.ok(bad == 0, f"query_knn vs float64 top-{KNN_K} on {N_ORACLE} "
+           f"queries: {ties} ranks with another id, all in-band ties; "
+           f"{bad} ranks whose distances differ past the band; max "
+           f"|distance - float64| {d_err:.3e}")
+    chk.ok(d_err <= 1e-4, "query_knn distances within 1e-4 of the float64 "
+           "brute force")
+    kv = np.random.default_rng(SEED + 5).integers(0, KNN_K + 1, N_ORACLE)
+    kv[0] = KNN_K
+    ids_v = knn.query_knn(index, q[rows], kv, return_distance=False,
+                          device=DEVICE)
+    cols = np.arange(KNN_K)[None, :]
+    chk.ok(np.array_equal(np.where(cols < kv[:, None], ids[rows], -1), ids_v),
+           f"per-query k vector (0..100) on {N_ORACLE} queries: each row the "
+           "prefix of its k = 100 row, -1 past its k")
+    small = snn.build_index(xs64[:50].astype(np.float32) + index.mu,
+                            device=DEVICE)
+    si, sd = knn.query_knn(small, q[:8], 80, device=DEVICE)
+    chk.ok(bool(np.all(si[:, 50:] == -1)) and bool(np.all(np.isinf(sd[:, 50:])))
+           and bool(np.all(np.sort(si[:, :50], axis=1) == np.arange(50))),
+           "k = 80 > n = 50: every row once, then id -1 and +inf")
+    return launches
+
+
+def phase_counts(torch, chk: Checks, K, snn, join, index, x, q, radius, eps,
+                 degrees, csr, clock):
+    """join_counts, degree_histogram and reverse_neighbors on the card."""
+    out = {}
+    K.reset_launch_counts()
+    jc = clock("join_counts of the main path's queries",
+               lambda: join.join_counts(q, None, radius, b_index=index,
+                                        device=DEVICE))
+    out["join_counts"] = launch_counts(K)
+    chk.ok(np.array_equal(jc, np.diff(csr.indptr))
+           and out["join_counts"]["snn_compact_stacked"] == 0,
+           "join_counts == diff(query_radius_csr indptr), no compact launch")
+    K.reset_launch_counts()
+    hist, deg = clock(f"degree_histogram of all {index.n} points at the "
+                      "graph's eps",
+                      lambda: join.degree_histogram(x, eps, index=index,
+                                                    device=DEVICE))
+    out["degree_histogram"] = launch_counts(K)
+    chk.ok(np.array_equal(deg, degrees)
+           and np.array_equal(hist, np.bincount(degrees)),
+           f"degree_histogram == diff(graph indptr) of phase 2b, hist == "
+           f"bincount (mean degree {deg.mean():.2f}, max {deg.max()})")
+    radii = radius * np.random.default_rng(SEED + 6).uniform(0.9, 1.1,
+                                                             N_QUERIES)
+    fwd = snn.query_radius_csr(index, q, radii, return_distance=False,
+                               device=DEVICE)
+    K.reset_launch_counts()
+    rev = clock("reverse_neighbors of the main path's queries",
+                lambda: join.reverse_neighbors(q, x, radii,
+                                               target_index=index,
+                                               device=DEVICE))
+    out["reverse_neighbors"] = launch_counts(K)
+    rows = np.repeat(np.arange(N_QUERIES), np.diff(fwd.indptr))
+    order = np.lexsort((rows, fwd.indices))
+    back = np.repeat(np.arange(index.n), np.diff(rev.indptr))
+    chk.ok(rev.m == index.n and np.array_equal(back, fwd.indices[order])
+           and np.array_equal(rev.indices, rows[order]),
+           f"reverse_neighbors with per-query radii == the transpose of the "
+           f"forward CSR ({rev.nnz} pairs)")
+    return out
+
+
+def pair_band(index, xs64, hn64, q: np.ndarray, radius, qi, ids):
+    """For pairs (query ``qi[j]`` of ``q``, original id ``ids[j]``): whether
+    each lies inside the float32 rounding band of its threshold."""
+    inv = np.empty_like(index.order)
+    inv[index.order] = np.arange(index.order.size)
+    pos = inv[ids]
+    xq, r = index.prepare_queries(q, radius)
+    q64 = xq.astype(np.float64)
+    thr = (r * r - np.einsum("ij,ij->i", q64, q64)) / 2.0
+    return outside_band(xs64, hn64, q64, thr, qi, pos) == 0, pos
+
+
+def phase_host(torch, chk: Checks, K, snn, index, q, radius, csr, xs64,
+               hn64, clock):
+    """The host Algorithm 2 batch and query_radius_fixed through the
+    filter, against the CSR path."""
+    out = {}
+    rows = np.random.default_rng(SEED + 2).choice(N_QUERIES, N_ORACLE,
+                                                  replace=False)
+    K.reset_launch_counts()
+    batch = clock(f"query_radius_batch of {N_ORACLE} queries (host "
+                  "Algorithm 2, one GEMM a group on the card)",
+                  lambda: snn.query_radius_batch(index, q[rows], radius,
+                                                 return_distance=False))
+    out["query_radius_batch"] = launch_counts(K)
+    qi, ids = [], []
+    for k, i in enumerate(rows):
+        d = np.setxor1d(batch[k], csr.indices[csr.indptr[i]:csr.indptr[i + 1]])
+        qi += [k] * d.size
+        ids += d.tolist()
+    in_band = (pair_band(index, xs64, hn64, q[rows], radius,
+                         np.asarray(qi, np.int64),
+                         np.asarray(ids, np.int64))[0] if ids else True)
+    chk.ok(in_band and sum(out["query_radius_batch"].values()) == 0,
+           f"query_radius_batch == the CSR rows as sets on {N_ORACLE} "
+           f"queries, {len(ids)} pairs differing, all inside the float32 "
+           "band; no query kernel launched")
+
+    K.reset_launch_counts()
+    fi, fs, fv, fc = clock(f"query_radius_fixed K={FIXED_K}",
+                           lambda: snn.query_radius_fixed(index, q, radius,
+                                                          FIXED_K))
+    torch.cuda.synchronize()
+    out["query_radius_fixed"] = launch_counts(K)
+    chk.ok(out["query_radius_fixed"]["snn_filter"] == 1,
+           "query_radius_fixed launched the filter kernel once")
+    counts = np.diff(csr.indptr)
+    off = np.nonzero(fc != counts)[0]
+    # a query whose count differs: every pair between the two thresholds
+    # (the fixed path rounds its threshold in float32 as the reference's
+    # does, the CSR path from float64) must lie inside the band
+    in_band = True
+    for i in off:
+        xq, r = index.prepare_queries(q[i:i + 1], radius)
+        q64 = xq.astype(np.float64)
+        thr = (r * r - np.einsum("ij,ij->i", q64, q64)) / 2.0
+        dh = hn64 - xs64 @ q64[0]
+        tol = DIM * EPS32 * (hn64 + np.abs(xs64) @ np.abs(q64[0])) \
+            + EPS32 * abs(thr[0])
+        n_band = int(np.sum(np.abs(dh - thr[0]) <= tol))
+        in_band &= abs(int(fc[i]) - int(counts[i])) <= n_band
+    chk.ok(in_band, f"query_radius_fixed counts == CSR counts on "
+           f"{N_QUERIES - off.size} of {N_QUERIES} queries; the other "
+           f"{off.size} differ by pairs inside the float32 band")
+    inv = np.empty_like(index.order)
+    inv[index.order] = np.arange(index.order.size)
+    same = 0
+    for i in range(N_QUERIES):
+        s, e = csr.indptr[i], csr.indptr[i + 1]
+        cid = csr.indices[s:e]
+        want = cid[np.lexsort((inv[cid], csr.distances[s:e]))][:FIXED_K]
+        same += int(np.array_equal(fi[i][fv[i]], want))
+    chk.ok(same >= N_QUERIES - off.size,
+           f"query_radius_fixed valid ids == the {FIXED_K} nearest of the "
+           f"CSR row (ties by sorted row) on {same} of {N_QUERIES} queries "
+           f"(all but the {off.size} in-band count differences)")
+    truncated = int(np.sum(fc > FIXED_K))
+    chk.note(f"query_radius_fixed: {truncated} queries hold more than "
+             f"K = {FIXED_K} neighbours (cut, counts exact)")
+    return out
+
+
+def phase_dbscan_host(torch, chk: Checks, snn, dbscan, x, clock):
+    """DBSCAN's host backend ``snn`` against the engine's ``snn-csr`` on a
+    seeded subset: graphs equal up to band pairs, labels equal."""
+    sub = np.sort(np.random.default_rng(SEED + 7).choice(
+        x.shape[0], DBSCAN_ROWS, replace=False))
+    xsub = x[sub]
+    sidx = snn.build_index(xsub, device=DEVICE)
+    eps = calibrate_radius(torch, sidx, xsub[:64], GRAPH_NEIGHBOURS)
+    host = clock(f"neighbor_graph backend='snn' on {DBSCAN_ROWS} rows "
+                 "(host Algorithm 2)",
+                 lambda: dbscan.neighbor_graph(xsub, eps, "snn",
+                                               device=DEVICE))
+    eng = clock(f"neighbor_graph backend='snn-csr' on {DBSCAN_ROWS} rows",
+                lambda: dbscan.neighbor_graph(xsub, eps, "snn-csr",
+                                              device=DEVICE))
+
+    def keys(g):
+        r = np.repeat(np.arange(g.m, dtype=np.int64), np.diff(g.indptr))
+        return r * g.m + g.indices
+
+    diff = np.setxor1d(keys(host), keys(eng))
+    xs64 = sidx.xs.cpu().numpy().astype(np.float64)
+    hn64 = 0.5 * np.einsum("ij,ij->i", xs64, xs64)
+    qi, ids = diff // DBSCAN_ROWS, diff % DBSCAN_ROWS
+    ok = (pair_band(sidx, xs64, hn64, xsub, eps, qi, ids)[0]
+          if diff.size else True)
+    lab_h = dbscan.labels_from_graph(host, MIN_SAMPLES)
+    lab_e = dbscan.labels_from_graph(eng, MIN_SAMPLES)
+    core = (np.diff(host.indptr) >= MIN_SAMPLES) | (
+        np.diff(eng.indptr) >= MIN_SAMPLES)
+    touched = bool(core[qi].any() or core[ids].any()) if diff.size else False
+    chk.ok(ok, f"DBSCAN graphs, backend snn vs snn-csr at eps {eps:.4f}: "
+           f"{host.nnz} pairs, {diff.size} differing, all inside the float32 "
+           "band")
+    chk.ok(touched or np.array_equal(lab_h, lab_e),
+           f"DBSCAN labels of both backends equal ({int(lab_h.max()) + 1} "
+           f"clusters, {int((lab_h < 0).sum())} noise points)"
+           + ("; a band pair touches a core point" if touched else ""))
+
+
+def phase_streaming(torch, chk: Checks, K, ref, ops_mod, engine, snn, knn,
+                    streaming, x, q, radius, clock):
+    """The streaming index over the stand-in: 8 appends of 8,192 rows
+    (bench_streaming's full-size cell at d = 128), exact at every
+    generation against a float64 brute force, through a merge.  At the
+    last generation the stacked kernels are held against their plain
+    versions on the plan's own live stack.  Returns the launches of the
+    streaming index's own queries, {kernel: launches}."""
+    stats = engine.DISPATCH_STATS
+    rows = np.random.default_rng(SEED + 8).choice(N_QUERIES, N_ORACLE,
+                                                  replace=False)
+    K.reset_launch_counts()
+    stream = clock(f"StreamingSNNIndex over {x.shape[0]} rows",
+                   lambda: streaming.StreamingSNNIndex(x, device=DEVICE))
+    stream.set_plan_warming(m_pads=(N_QUERIES,))
+    raw = x
+    append_ms, query_ms, fused, n_band, n_bad = [], [], 0, 0, 0
+    for gen in range(N_APPENDS + 1):
+        if gen:
+            batch = sift_standin(APPEND_ROWS, DIM, SEED + gen)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            stream.append(batch)
+            torch.cuda.synchronize()
+            append_ms.append(1e3 * (time.perf_counter() - t))
+            raw = np.concatenate([raw, batch])
+        stats.reset()
+        t = time.perf_counter()
+        res = stream.query_radius_csr(q, radius)
+        query_ms.append(1e3 * (time.perf_counter() - t))
+        s = stats.snapshot()
+        if gen:
+            fused += int(s["kernel_launches"] == 3
+                         and s["host_transfers"] == 1)
+        keep, band = stream_oracle(torch, stream, raw, q[rows], radius)
+        b_, x_ = sets_vs_oracle(res, rows, keep, band)
+        n_band, n_bad = n_band + b_, n_bad + x_
+        counts = stream.query_counts_device(q, radius)
+        chk.ok(np.array_equal(counts, np.diff(res.indptr))
+               and stream.n == raw.shape[0] and res.indices.max() < raw.shape[0],
+               f"generation {gen}: {len(stream.parts)} parts, {stream.n} rows, "
+               f"query_counts_device == diff(indptr), {res.nnz} pairs")
+    chk.note("append ms per batch: " + ", ".join(f"{t:.1f}" for t in append_ms))
+    chk.note("query ms per generation (host clock, the first batch after "
+             "each publish): " + ", ".join(f"{t:.1f}" for t in query_ms))
+    chk.ok(n_bad == 0, f"every generation vs float64 brute force over all "
+           f"its rows on {N_ORACLE} queries: {n_band} pairs inside the band, "
+           f"{n_bad} outside")
+    chk.ok(fused == N_APPENDS, f"the first batch after each warmed publish "
+           f"took the fused path (3 launches, 1 transfer): {fused} of "
+           f"{N_APPENDS}")
+    chk.ok(stream.warm_runs == N_APPENDS and stream.warm_failures == 0
+           and stream.plan_bytes() > 0,
+           f"plan warming: {stream.warm_runs} warms, {stream.warm_failures} "
+           f"failed; plan_bytes {stream.plan_bytes()}")
+    chk.ok(stream.generation == N_APPENDS and len(stream.parts) == 4,
+           "the fifth append merged the four deltas into the base "
+           f"(parts now {len(stream.parts)})")
+
+    # the last generation: looped, kNN against a fresh index, a restore
+    looped = stream.query_radius_csr(q, radius, packed=False)
+    chk.ok(np.array_equal(looped.indptr, res.indptr)
+           and np.array_equal(looped.indices, res.indices)
+           and np.array_equal(looped.distances.view(np.int64),
+                              res.distances.view(np.int64)),
+           "streaming packed=False bit-identical to packed")
+    si, sd = stream.query_knn(q[rows], KNN_K)
+    # what follows until the next reset is not the streaming path: a fresh
+    # index's kNN, and the kernels against their plain versions
+    launches = launch_counts(K)
+    fresh = snn.build_index(raw, device=DEVICE)
+    fi, fd = knn.query_knn(fresh, q[rows], KNN_K, device=DEVICE)
+    del fresh
+    plan_kernels(torch, chk, K, ref, ops_mod, engine, snn, stream,
+                 q[:STREAM_CHECK_Q], radius)
+    K.reset_launch_counts()
+    xn2 = float(np.max(np.einsum("ij,ij->i", raw, raw)))
+    qn2 = np.einsum("ij,ij->i", q[rows].astype(np.float64), q[rows])[:, None]
+    tol = 4.0 * DIM * EPS32 * (xn2 + qn2 + np.sqrt(xn2 * qn2))
+    gap = np.abs(sd * sd - fd * fd)
+    chk.ok(bool(np.all(gap <= tol)),
+           f"streaming query_knn == query_knn on a fresh build_index of all "
+           f"{raw.shape[0]} rows, {N_ORACLE} queries: {int(np.sum(si != fi))} "
+           "ranks with another id, every rank's distance within the float32 "
+           "band")
+    leaves, extra = stream.state_leaves()
+    back = streaming.StreamingSNNIndex.from_state(leaves, extra,
+                                                  device=DEVICE)
+    del leaves
+    again = back.query_radius_csr(q, radius)
+    chk.ok(np.array_equal(again.indptr, res.indptr)
+           and np.array_equal(again.indices, res.indices)
+           and np.array_equal(again.distances, res.distances),
+           "state_leaves -> from_state answers bit-identically")
+    del back, again
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stream.rebuild()
+    torch.cuda.synchronize()
+    chk.note(f"rebuild() of {stream.n} rows: "
+             f"{1e3 * (time.perf_counter() - t):.1f} ms")
+    res = stream.query_radius_csr(q, radius)
+    keep, band = stream_oracle(torch, stream, raw, q[rows], radius)
+    b_, x_ = sets_vs_oracle(res, rows, keep, band)
+    chk.ok(x_ == 0 and stream.warm_failures == 0,
+           f"after rebuild(): {N_ORACLE} queries vs float64 brute force, "
+           f"{b_} pairs inside the band, {x_} outside")
+    launches = {k: v + launch_counts(K)[k] for k, v in launches.items()}
+    del stream
+    return launches
+
+
+def plan_kernels(torch, chk: Checks, K, ref, ops_mod, engine, snn, stream,
+                 q: np.ndarray, radius) -> None:
+    """`stacked_kernels` on the streaming plan's live stack for ``q``,
+    prepared as the streaming query prepares it: the base and its deltas,
+    each padded to the base's rows, so the stack is mostly padding.  The
+    plain versions hold (m, S * n_pad) products, so ``q`` is a slice of the
+    batch."""
+    pack, base = stream.plan(), stream.parts[0]
+    xq, aq, r32, th, _ = snn.prepare_query_predicates(base, q, radius)
+    qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r32, th, tq=128,
+                                              bucket=True)
+    pqp = ops_mod.pad_components(snn.query_extra_projections(base, xq),
+                                 qp.shape[0])
+    host, kq, pq64, qn64, dev_ops = engine._query_operands(
+        pack, m, qp, aqp, rp, thp, pqp)
+    live = engine._live_idx(pack, host[1], host[2], m, 0, pq64, qn64)
+    chk.ok(live.size == pack.n_segments,
+           f"every one of the plan's {pack.n_segments} segments live for "
+           f"{m} queries")
+    stacked_kernels(torch, chk, K, ref, ops_mod, engine, pack, live, kq,
+                    dev_ops, host, m,
+                    "stacked kernels at the streaming plan's shape")
+
+
+def phase_front_ends(torch, chk: Checks, K, ref, ops_mod, snn, engine, join,
+                     dbscan, index, x, q, radius, eps, degrees, xs64, hn64,
+                     clock):
+    """Phase 2c: the front-ends over the engine on the main path's data.
+    Returns each path's kernel launches, {path: {kernel: launches}}."""
+    print(f"phase 2c: kNN, count-only joins, host Algorithm 2, "
+          f"query_radius_fixed, DBSCAN's host backend and the streaming "
+          f"index, n={index.n} d={DIM} m={N_QUERIES}")
+    knn = importlib.import_module("repro_torch.core.knn")
+    streaming = importlib.import_module("repro_torch.core.streaming")
+    paths = {}
+    csr = snn.query_radius_csr(index, q, radius, device=DEVICE)
+    paths["query_knn"] = phase_knn(torch, chk, K, snn, knn, index, q, xs64,
+                                   hn64, clock)
+    paths.update(phase_counts(torch, chk, K, snn, join, index, x, q, radius,
+                              eps, degrees, csr, clock))
+    paths.update(phase_host(torch, chk, K, snn, index, q, radius, csr, xs64,
+                            hn64, clock))
+    phase_dbscan_host(torch, chk, snn, dbscan, x, clock)
+    paths["streaming"] = phase_streaming(torch, chk, K, ref, ops_mod, engine,
+                                         snn, knn, streaming, x, q, radius,
+                                         clock)
+    torch.cuda.empty_cache()
+    return {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -993,9 +1544,9 @@ def stacked_kernels(torch, chk: Checks, K, ref, ops_mod, engine, pack, live,
     k_compact_ms = timed(torch, lambda: K.snn_compact_stacked(
         *args, k_off, xs, al, hn, pqd, px, nnz=nnz, bn=bn, partials=k_part),
         reps)
-    k_count_dev = device_ms(torch, lambda: K.snn_count_stacked(
+    k_count_dev = device_ms(torch, K, lambda: K.snn_count_stacked(
         *args, xs, al, hn, pqd, px, bn=bn, with_partials=True), reps)
-    k_compact_dev = device_ms(torch, lambda: K.snn_compact_stacked(
+    k_compact_dev = device_ms(torch, K, lambda: K.snn_compact_stacked(
         *args, k_off, xs, al, hn, pqd, px, nnz=nnz, bn=bn, partials=k_part),
         reps)
     p_count_ms = timed(torch, lambda: ref.snn_count_stacked_ref(
@@ -1147,9 +1698,9 @@ def single_shape(torch, chk: Checks, K, ref, ops_mod, snn, engine, index,
                                                   with_partials=True), reps)
     k_compact_ms = timed(torch, lambda: K.snn_compact(
         *ops[:4], k_off, *ops[4:], nnz=nnz, partials=k_part), reps)
-    k_count_dev = device_ms(torch, lambda: K.snn_count(
+    k_count_dev = device_ms(torch, K, lambda: K.snn_count(
         *ops, with_partials=True), reps)
-    k_compact_dev = device_ms(torch, lambda: K.snn_compact(
+    k_compact_dev = device_ms(torch, K, lambda: K.snn_compact(
         *ops[:4], k_off, *ops[4:], nnz=nnz, partials=k_part), reps)
     p_count_ms = timed(torch, lambda: ref.snn_count_ref(
         *ops, with_partials=True), plain_reps)
@@ -1307,7 +1858,7 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
            f"max |diff| {f_err:.3e} within d*2^-23*(hn + sum|q x|)")
     del f, pf, kf, kp, both, err, qi, j, absdot, tol
     k_ms = timed(torch, lambda: K.snn_filter(*ops), 5)
-    k_dev = device_ms(torch, lambda: K.snn_filter(*ops), 5)
+    k_dev = device_ms(torch, K, lambda: K.snn_filter(*ops), 5)
     p_ms = timed(torch, lambda: ref.snn_filter_ref(*ops), 2)
     hn_row = hn1[None, :]
     lib_ms = timed(torch, lambda: torch.addmm(hn_row, qd, xs1.T, beta=1.0,
@@ -1387,6 +1938,9 @@ EARLIER_BAG_MS = {
 # and in a profiler trace
 BAG_KERNELS = ("embedding_bag_kernel", "bag_of_one_kernel",
                "bag_range_histogram_kernel", "bag_range_scatter_kernel",
+               "staged_bag_kernel")
+# the one kernel of those that each embedding_bag call ends with
+BAG_GATHERS = ("embedding_bag_kernel", "bag_of_one_kernel",
                "staged_bag_kernel")
 
 
@@ -1641,39 +2195,17 @@ def serve_path(torch, chk: Checks, K, ref, rs, arch, sd, model, batch,
                       "bags": bags}
 
 
-def device_breakdown(torch, chk: Checks, fn, tag: str) -> dict:
-    """One call of ``fn`` under torch.profiler: wall time, the card's busy
-    time (the sum of its kernels and copies), and that time split into the
-    embedding_bag op's kernels (`BAG_KERNELS`), GEMMs and the rest.
-
-    The profiler can lose the first device activity of a trace: CUPTI asks
-    for its first activity buffer when that activity arrives, and a record
-    made before the buffer is there is dropped (the kernel is missing from
-    the trace while the launch is in it).  MIND's forward starts with its
-    lookup, which is how that kernel went missing from MIND's bulk trace.
-    So a small kernel runs first, outside the measured call, and only the
-    device activity that starts inside ``measured`` counts."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device=DEVICE)                    # the first activity
-        torch.cuda.synchronize()
-        with record_function("measured"):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t)
-    events = prof.events()
-    start = min(e.time_range.start for e in events if e.name == "measured")
+def device_breakdown(torch, chk: Checks, K, fn, tag: str) -> dict:
+    """One call of ``fn`` under torch.profiler (`traced`, after two calls
+    in the same trace, its lookups' gather kernels counted against the
+    wrapper's launches): wall time, the card's busy time (the sum of its
+    kernels and copies), and that time split into the embedding_bag op's
+    kernels (`BAG_KERNELS`), GEMMs and the rest."""
+    calls, wall = traced(torch, fn, 1, kernels=BAG_GATHERS,
+                         launches=lambda: K.embedding_bag.launches)
     by_name: dict[str, float] = {}
-    for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.time_range.start >= start and e.name != "measured"):
-            us = getattr(e, "device_time_total", None)
-            us = e.cuda_time_total if us is None else us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    for name, ms in calls[0]:
+        by_name[name] = by_name.get(name, 0.0) + ms
     busy = sum(by_name.values())
     groups = {"embedding_bag": 0.0, "gemm": 0.0, "other": 0.0}
     for name, v in by_name.items():
@@ -1764,7 +2296,7 @@ def phase_recsys(torch, chk: Checks, K, ref, snn, clock):
                 by_path[path], paths[path] = n, rec
             if shape == "serve_bulk":
                 breakdown[sd.name] = device_breakdown(
-                    torch, chk, lambda: sd.fn(model, b), f"{sd.name} {what}")
+                    torch, chk, K, lambda: sd.fn(model, b), f"{sd.name} {what}")
             del model, batch, runs, b
             torch.cuda.empty_cache()
             chk.note(f"device memory held after {sd.name}: "
@@ -1975,10 +2507,17 @@ def main() -> int:
     if not phase_done("phase 2", t):
         return 1
     t = time.perf_counter()
-    g_launches, looped_graph, eps, g_shape = phase_graph(
+    g_launches, looped_graph, eps, g_shape, degrees = phase_graph(
         torch, chk, K, ref, snn, engine, join, graph, dbscan, ops_mod, index,
         x, xs64, hn64, clock)
     if not phase_done("phase 2b", t):
+        return 1
+    t = time.perf_counter()
+    front = phase_front_ends(torch, chk, K, ref, ops_mod, snn, engine, join,
+                             dbscan, index, x, q, radius, eps, degrees, xs64,
+                             hn64, clock)
+    del degrees
+    if not phase_done("phase 2c", t):
         return 1
     t = time.perf_counter()
     kernels = phase_times(torch, chk, K, ref, ops_mod, snn, engine, index, q,
@@ -1991,6 +2530,11 @@ def main() -> int:
     kernels += phase_times_single(torch, chk, K, ref, ops_mod, snn, engine,
                                   index, x, q, radius, eps, xs64, hn64,
                                   (looped_main, looped_graph), ptxas)
+    for rec in kernels:
+        for path, counts in front.items():
+            if counts.get(rec["name"]):
+                rec["launches_by_path"][path] = counts[rec["name"]]
+                rec["launches"] += counts[rec["name"]]
     if not phase_done("phase 3", t):
         return 1
     del index, x, q, xs64, hn64

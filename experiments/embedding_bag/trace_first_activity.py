@@ -18,8 +18,8 @@ counts the sessions whose trace holds the operation's kernels:
   as ``chip_smoke.py`` profiles it, the first session right after the
   model is made on the card.
 
-``chip_smoke.py::device_breakdown`` runs the small kernel first for this
-reason.  Prints one line an operation (with the sessions, counted from 0,
+``chip_smoke.py::traced`` (behind ``device_ms`` and ``device_breakdown``)
+runs the measured call first in the same trace for this reason.  Prints one line an operation (with the sessions, counted from 0,
 whose trace lacked it) and the card's name and power limit.
 """
 import sys

@@ -6,39 +6,62 @@ DBSCAN: a point is *core* iff its eps-ball holds >= min_samples points
 under eps-adjacency; a non-core point in a core's ball becomes a border
 member of the lowest-id such cluster; everything else is noise (-1).
 
-The region queries are one (n, n) eps-neighbour graph built on the device
-(`core.graph.build_neighbor_graph`), and `labels_from_graph` clusters it on
-the host with vectorized connected components: no Python loop over points.
-Not ported yet: the ``snn`` (host Algorithm 2), ``brute`` and ``kdtree``
-backends, which need the host queries and ``baselines``.
+Every backend gives the region queries as one (n, n) eps-neighbour graph:
+the engine backends build it on the device (`core.graph.
+build_neighbor_graph`), the host ones repack per-point lists as CSR
+(`_lists_to_graph`), and `labels_from_graph` clusters it on the host with
+vectorized connected components: no Python loop over points.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..kernels import registry as _registry
 from . import snn as _snn
+from .baselines import BruteForce2, KDTree
 from .graph import build_neighbor_graph, min_label_components
 
-BACKENDS = ("snn-csr", "snn-graph")
-_NOT_PORTED = ("snn", "brute", "kdtree")
+BACKENDS = ("snn", "snn-csr", "snn-graph", "brute", "kdtree")
 
 
-def neighbor_graph(x: np.ndarray, eps: float, backend: str = "snn-csr",
+def _lists_to_graph(lists) -> _snn.CSRNeighbors:
+    """Repack per-point neighbour lists (host and baseline backends) as CSR."""
+    counts = np.fromiter((len(nb) for nb in lists), np.int64, len(lists))
+    flat = (np.concatenate(lists).astype(np.int64) if len(lists)
+            else np.zeros(0, np.int64))
+    indptr = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return _snn.CSRNeighbors(indptr, flat)
+
+
+def neighbor_graph(x: np.ndarray, eps: float, backend: str = "snn",
                    query_chunk: int = 2048, device=None) -> _snn.CSRNeighbors:
     """The eps-neighbour graph DBSCAN answers its region queries with.
 
-    ``snn-csr`` builds it through the two-pass CSR engine on the graph
-    builder's sorted-chunk schedule; ``snn-graph`` the same with the
-    symmetric self-join.  Both run on ``device`` (default: the card).
+    Backends:
+      * ``snn``: the host Algorithm 2 path (`snn.query_radius_batch`, one
+        GEMM a query group on ``device``) over an index built there;
+      * ``snn-csr``: the two-pass CSR engine on the graph builder's
+        sorted-chunk schedule, on ``device``;
+      * ``snn-graph``: the same with the symmetric self-join;
+      * ``brute`` / ``kdtree``: the baseline exact searches, numpy on the
+        host (``device`` is not used).
+
+    ``device`` defaults to the card and raises without one unless
+    ``"cpu"``.
     """
-    if backend in BACKENDS:
+    if backend == "snn":
+        index = _snn.build_index(x, device=_registry.resolve_device(device))
+        return _lists_to_graph(
+            _snn.query_radius_batch(index, x, eps, return_distance=False))
+    if backend in ("snn-csr", "snn-graph"):
         return build_neighbor_graph(x, eps, query_chunk=query_chunk,
                                     symmetric=(backend == "snn-graph"),
                                     device=device)
-    if backend in _NOT_PORTED:
-        raise ValueError(f"backend {backend!r} needs the host Algorithm 2 "
-                         "queries and baselines, which are not ported; "
-                         f"use one of {BACKENDS}")
+    if backend == "brute":
+        return _lists_to_graph(BruteForce2(x).query_radius(x, eps))
+    if backend == "kdtree":
+        return _lists_to_graph(KDTree(x).query_radius(x, eps))
     raise ValueError(f"unknown backend {backend!r}; valid: {BACKENDS}")
 
 
@@ -75,11 +98,12 @@ def labels_from_graph(graph: _snn.CSRNeighbors, min_samples: int) -> np.ndarray:
 
 
 def dbscan(x: np.ndarray, eps: float, min_samples: int = 5,
-           backend: str = "snn-csr", query_chunk: int = 2048,
+           backend: str = "snn", query_chunk: int = 2048,
            device=None) -> np.ndarray:
     """Cluster ``x``; returns labels (n,), noise = -1.  The region queries
-    run as one neighbour graph on ``device`` (default: the card); the
-    labels are the same for both backends."""
+    run as one neighbour graph from ``backend`` (`neighbor_graph`; the
+    device ones on ``device``, default the card); the labels are the same
+    for every backend."""
     x = np.asarray(x, dtype=np.float32)
     graph = neighbor_graph(x, eps, backend, query_chunk, device=device)
     return labels_from_graph(graph, min_samples)

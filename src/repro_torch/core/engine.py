@@ -35,9 +35,14 @@ pass-1 counted pairs; a final ``>= 0`` check on the flat ids fails loudly if
 they ever disagree.  Segments whose alpha range meets no query window are
 skipped before any launch.
 
+A `SegmentPack` carries an ``epoch``: the streaming index extends it by
+one stacked slab a delta (`SegmentPack.extend`), and `warm_plan` primes a
+new epoch before it is published.
+
 Not ported yet: the host-pruned oracle executors (and with them the
-oracle lane's dense-filter cache and ``memory_budget_mb``), ``warm_plan``
-and ``SegmentPack.concat``/``extend``.
+oracle lane's dense-filter cache and ``memory_budget_mb``),
+``SegmentPack.concat`` and the host staging scratch ``_FlatScratch`` with
+``MemoryPlan.reserve``, which pre-grows it.
 """
 from __future__ import annotations
 
@@ -434,6 +439,7 @@ class SegmentPack:
       alpha_lo / alpha_hi: (S,) float64 real alpha ranges, the inputs of the
         vectorized interval-overlap prune (`live_mask`).
       block: the row-block size every segment was padded to.
+      epoch: the plan's generation (`extend` bumps it).
       ke: extra projection components shared by every segment (0 when any
         segment lacks them).
       proj_lo / proj_hi: (S, ke) float64 per-segment real component ranges;
@@ -444,6 +450,7 @@ class SegmentPack:
     alpha_lo: np.ndarray
     alpha_hi: np.ndarray
     block: int
+    epoch: int = 0
     ke: int = 0
     proj_lo: np.ndarray | None = None
     proj_hi: np.ndarray | None = None
@@ -455,11 +462,13 @@ class SegmentPack:
     _plans: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     # capacity speculation of the fused path: (m_pad, query_tile, live set,
-    # kq) -> {"nnz_cap": ...}; dies with the pack
+    # kq) -> {"nnz_cap": ..., "total": the largest total seen}; dies with
+    # the pack
     _spec: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
-    # capacities adopted from a predecessor plan: (m_pad, query_tile, kq) ->
-    # nnz_cap, consulted when a live-set key has no capacity of its own
+    # totals expected from a predecessor plan's batches: (m_pad,
+    # query_tile, kq) -> pairs (`adopt_spec`), a capacity floor for every
+    # live set of that bucket
     _spec_hint: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
@@ -478,7 +487,8 @@ class SegmentPack:
                 else torch.device("cpu"))
 
     @classmethod
-    def build(cls, segments: list[Segment]) -> "SegmentPack":
+    def build(cls, segments: list[Segment], *,
+              epoch: int = 0) -> "SegmentPack":
         """Plan over ``segments`` (uniform block, lane padding and device)."""
         segments = list(segments)
         if segments:
@@ -502,7 +512,7 @@ class SegmentPack:
             phi = np.stack([np.asarray(s.proj_hi[:ke], np.float64)
                             for s in segments])
             xnm = np.asarray([s.xnorm_max for s in segments], np.float64)
-        return cls(segments, lo, hi, block, ke, plo, phi, xnm)
+        return cls(segments, lo, hi, block, epoch, ke, plo, phi, xnm)
 
     def memory_plan(self, m_pad: int, query_tile: int = 128) -> MemoryPlan:
         """The static `MemoryPlan` for a bucketed batch size (memoized; the
@@ -516,19 +526,35 @@ class SegmentPack:
         DISPATCH_STATS.bytes_planned += plan.total_bytes
         return plan
 
+    def planned_bytes(self) -> int:
+        """Total bytes of every `MemoryPlan` built on this pack so far: the
+        device-memory cost of admitting the plan (its stacked operands plus
+        every bucketed batch shape it has served); zero until the first
+        query or warm builds one."""
+        return sum(p.total_bytes for p in self._plans.values())
+
     def adopt_spec(self, prev: "SegmentPack") -> None:
-        """Inherit ``prev``'s learned fused capacities as hints (the
-        double-buffered epoch handoff: a rebuilt plan serves the same
-        workload, so its predecessor's capacities are the right opening
-        speculation; a real overflow still ratchets)."""
-        for key, cap in prev._spec_hint.items():
-            if cap:
-                self._spec_hint[key] = max(self._spec_hint.get(key, 0), cap)
+        """Inherit ``prev``'s batch totals as capacity hints (the
+        double-buffered epoch handoff: the next plan serves the same
+        workload, so the pairs its predecessor's batches held are the
+        right opening speculation; a real overflow still ratchets).
+
+        A plan over more rows holds more pairs for the same queries, so
+        each total grows with the row count: an append of a few percent
+        must not overflow a capacity learned to within a few percent.
+        """
+        rows = sum(s.n for s in self.segments)
+        grow = max(rows / max(sum(s.n for s in prev.segments), 1), 1.0)
+
+        def take(key, total):
+            if total:
+                total = int(np.ceil(total * grow))
+                self._spec_hint[key] = max(self._spec_hint.get(key, 0), total)
+
+        for key, total in prev._spec_hint.items():
+            take(key, total)
         for (m_pad, tile, _live, kq), rec in prev._spec.items():
-            cap = rec.get("nnz_cap", 0)
-            if cap:
-                key = (m_pad, tile, kq)
-                self._spec_hint[key] = max(self._spec_hint.get(key, 0), cap)
+            take((m_pad, tile, kq), rec.get("total", 0))
 
     def stacked(self):
         """(xs (S, n_pad, d), alphas (S, n_pad), half_norms (S, n_pad),
@@ -541,28 +567,13 @@ class SegmentPack:
                 return (torch.zeros((0, 0, 0), dtype=torch.float32,
                                     device=dev), z2, z2,
                         np.zeros((0, 0), np.int64))
-            n_pad = self.n_pad
             if len(self.segments) == 1:
                 s = self.segments[0]
-                xs, al, hn = s.xs[None], s.alphas[None], s.half_norms[None]
+                self._stacked = (s.xs[None], s.alphas[None],
+                                 s.half_norms[None], _stack_ids(
+                                     self.segments, self.n_pad))
             else:
-                S = self.n_segments
-                d_pad = self.segments[0].xs.shape[1]
-                xs = torch.zeros((S, n_pad, d_pad), dtype=torch.float32,
-                                 device=dev)
-                al = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32,
-                                device=dev)
-                hn = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32,
-                                device=dev)
-                for k, s in enumerate(self.segments):
-                    rows = s.xs.shape[0]
-                    xs[k, :rows] = s.xs
-                    al[k, :rows] = s.alphas
-                    hn[k, :rows] = s.half_norms
-            ids = np.full((self.n_segments, n_pad), -1, np.int64)
-            for k, s in enumerate(self.segments):
-                ids[k, :s.n] = s.ids
-            self._stacked = (xs, al, hn, ids)
+                self._stacked = _stack(self.segments, self.n_pad)
         return self._stacked
 
     def stacked_projs(self) -> torch.Tensor | None:
@@ -574,13 +585,38 @@ class SegmentPack:
             if len(self.segments) == 1:
                 self._stacked_px = self.segments[0].projs[:self.ke][None]
             else:
-                px = torch.full((self.n_segments, self.ke, self.n_pad),
-                                _ops.BIG, dtype=torch.float32,
-                                device=self.device)
-                for k, s in enumerate(self.segments):
-                    px[k, :, :s.projs.shape[1]] = s.projs[:self.ke]
-                self._stacked_px = px
+                self._stacked_px = _stack_projs(self.segments, self.ke,
+                                                self.n_pad)
         return self._stacked_px
+
+    def extend(self, new_segments: list[Segment]) -> "SegmentPack":
+        """A NEW plan with ``new_segments`` appended (the next epoch).
+
+        The streaming index's append path: stacked operands already built
+        on this plan are extended by one concatenation each with the new
+        segments' slabs (the base's stack is reused, not padded again);
+        operands not built yet stay lazy.  The receiver is never mutated:
+        the owner publishes the returned plan in one snapshot swap.
+        """
+        if not new_segments:
+            return self
+        new_segments = list(new_segments)
+        # build() validates block, lane padding and device over the lot
+        out = SegmentPack.build(self.segments + new_segments,
+                                epoch=self.epoch + 1)
+        if out.n_pad != self.n_pad:
+            return out  # a wider slab: every stacked row count changes
+        if self._stacked is not None:
+            xs, al, hn, ids = self._stacked
+            txs, tal, thn, tids = _stack(new_segments, self.n_pad)
+            out._stacked = (torch.cat([xs, txs]), torch.cat([al, tal]),
+                            torch.cat([hn, thn]),
+                            np.concatenate([ids, tids]))
+        if self._stacked_px is not None and out.ke == self.ke:
+            out._stacked_px = torch.cat(
+                [self._stacked_px,
+                 _stack_projs(new_segments, self.ke, self.n_pad)])
+        return out
 
     def live_mask(self, aq: np.ndarray, r: np.ndarray,
                   pq: np.ndarray | None = None,
@@ -608,10 +644,47 @@ class SegmentPack:
         return hit.any(axis=1) & nonempty
 
 
-def pack_from_index(index, *, block: int = 512, device=None) -> SegmentPack:
+def _stack_ids(segments: list[Segment], n_pad: int) -> np.ndarray:
+    """(S, n_pad) host int64 ids of ``segments``, -1 in the padding."""
+    ids = np.full((len(segments), n_pad), -1, np.int64)
+    for k, s in enumerate(segments):
+        ids[k, :s.n] = s.ids
+    return ids
+
+
+def _stack(segments: list[Segment], n_pad: int):
+    """(xs (S, n_pad, d_pad), alphas (S, n_pad), half_norms (S, n_pad),
+    ids (S, n_pad)) of ``segments``, each padded to ``n_pad`` rows (zero
+    features, +BIG alpha and half norm, -1 id)."""
+    dev = segments[0].xs.device
+    S, d_pad = len(segments), segments[0].xs.shape[1]
+    xs = torch.zeros((S, n_pad, d_pad), dtype=torch.float32, device=dev)
+    al = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32, device=dev)
+    hn = torch.full((S, n_pad), _ops.BIG, dtype=torch.float32, device=dev)
+    for k, s in enumerate(segments):
+        rows = s.xs.shape[0]
+        xs[k, :rows] = s.xs
+        al[k, :rows] = s.alphas
+        hn[k, :rows] = s.half_norms
+    return xs, al, hn, _stack_ids(segments, n_pad)
+
+
+def _stack_projs(segments: list[Segment], ke: int, n_pad: int) -> torch.Tensor:
+    """(S, ke, n_pad) first ``ke`` extra projections of ``segments``, +BIG
+    in the padding."""
+    px = torch.full((len(segments), ke, n_pad), _ops.BIG,
+                    dtype=torch.float32, device=segments[0].xs.device)
+    for k, s in enumerate(segments):
+        px[k, :, :s.projs.shape[1]] = s.projs[:ke]
+    return px
+
+
+def pack_from_index(index, *, block: int = 512, device=None,
+                    epoch: int = 0) -> SegmentPack:
     """The whole of one index as a single-segment plan on ``device``."""
     return SegmentPack.build([segment_from_index(index, block=block,
-                                                 device=device)])
+                                                 device=device)],
+                             epoch=epoch)
 
 
 def _live_idx(pack: SegmentPack, aqp, rp, m: int, first_seg: int = 0,
@@ -743,8 +816,11 @@ def _execute_stacked(pack: SegmentPack, m: int, live_idx: np.ndarray,
 
     spec = pack._spec.setdefault(
         (m_pad, int(query_tile), live_idx.tobytes(), kq), {})
-    nnz_spec = spec.get("nnz_cap", 0) or pack._spec_hint.get(
-        (m_pad, int(query_tile), kq), 0)
+    # a total adopted from the previous epoch (an eighth over it) outranks
+    # the few slots a zero-match warming dispatch recorded (`warm_plan`)
+    hint = pack._spec_hint.get((m_pad, int(query_tile), kq), 0)
+    nnz_spec = max(spec.get("nnz_cap", 0),
+                   _ops.csr_capacity(hint + hint // 8) if hint else 0)
 
     # ---- speculative fused path: no host sync between the passes ---------
     if fused and nnz_spec:
@@ -761,6 +837,7 @@ def _execute_stacked(pack: SegmentPack, m: int, live_idx: np.ndarray,
         indptr_pad = flat[:m_pad + 1]
         total = int(indptr_pad[m])
         spec["nnz_cap"] = max(nnz_spec, _ops.csr_capacity(total))
+        spec["total"] = max(spec.get("total", 0), total)
         if total + 1 <= nnz_spec:
             indptr = indptr_pad[:m + 1].astype(np.int64)
             counts = np.diff(indptr)
@@ -785,6 +862,7 @@ def _execute_stacked(pack: SegmentPack, m: int, live_idx: np.ndarray,
     indptr_pad = indptr_dev.cpu().numpy()
     total = int(indptr_pad[m])
     spec["nnz_cap"] = max(spec.get("nnz_cap", 0), _ops.csr_capacity(total))
+    spec["total"] = max(spec.get("total", 0), total)
     indptr = indptr_pad[:m + 1].astype(np.int64)
     counts = np.diff(indptr)
     if total == 0:
@@ -862,3 +940,60 @@ def query_csr(
                                       pq=pqp, mixed=mixed)
     return _snn.csr_finalize(index, indptr, ids, dh, xq, qsq, counts,
                              return_distance, native)
+
+
+# --------------------------------------------------------------------------- #
+# Plan warming (double-buffered epochs)                                        #
+# --------------------------------------------------------------------------- #
+def warm_plan(
+    pack: SegmentPack,
+    *,
+    m_pads=(128,),
+    query_tile: int = 128,
+    mixed: bool = False,
+    fused: bool = True,
+    spec_from: SegmentPack | None = None,
+) -> SegmentPack:
+    """Prime a plan so its first real batch costs steady-state work.
+
+    A mutator (the streaming index's append or rebuild) builds the next
+    epoch's pack and calls this before it publishes it.  For each bucketed
+    batch size in ``m_pads`` one zero-match dispatch runs through
+    `run_csr_packed`: one query row per segment sits at that segment's
+    ``alpha_lo`` (and box corner) with radius 0, so every segment is live
+    and the whole stacked operand set is built on the device and every
+    launch signature is seen, while the threshold ``-BIG`` keeps no row, so
+    the output is empty.  It builds each bucket's `MemoryPlan` and,
+    through ``spec_from`` (`SegmentPack.adopt_spec`), takes the previous
+    epoch's fused capacities, so the first batch of a warmed bucket takes
+    the fused path.
+
+    Warming never changes a result; callers treat a failure as non-fatal
+    (a plan that was not warmed still answers correctly, only colder).
+    """
+    if spec_from is not None:
+        pack.adopt_spec(spec_from)
+    S = pack.n_segments
+    if S == 0 or pack.n_pad == 0:
+        return pack
+    d_pad = int(pack.segments[0].xs.shape[1])
+    nonempty = pack.alpha_lo <= pack.alpha_hi
+    aq_seg = np.where(nonempty, pack.alpha_lo, 0.0).astype(np.float32)
+    pq_seg = None
+    if pack.ke:
+        pq_seg = np.where(nonempty[:, None],
+                          np.asarray(pack.proj_lo, np.float64),
+                          0.0).astype(np.float32)  # (S, ke)
+    for m_pad in sorted({int(b) for b in m_pads if int(b) > 0}):
+        reps = -(-m_pad // S)  # cycle the per-segment rows to fill the bucket
+        aq = np.tile(aq_seg, reps)[:m_pad]
+        qp = np.zeros((m_pad, d_pad), np.float32)
+        rp = np.zeros(m_pad, np.float32)
+        thp = np.full(m_pad, -_ops.BIG, np.float32)
+        pq = None
+        if pq_seg is not None:
+            pq = np.tile(pq_seg, (reps, 1))[:m_pad].T  # (ke, m_pad)
+        pack.memory_plan(m_pad, query_tile)
+        run_csr_packed(pack, qp, aq, rp, thp, m_pad, query_tile=query_tile,
+                       pq=pq, mixed=mixed, fused=fused)
+    return pack

@@ -13,14 +13,20 @@ front-end over the engine:
 * **bichromatic joins** (`join`) cut B into segments once, sort A's queries
   by their alpha score and stream alpha-adjacent chunks through the engine
   (`chunked_join`): a chunk spans a narrow alpha window, so the segment
-  prune discards most of B before any launch.
+  prune discards most of B before any launch;
+* **reverse neighbours** (`reverse_neighbors`) transpose the join CSR: with
+  per-point radii as A's radius vector, row j of the transpose lists the
+  points that hold target j inside their own ball;
+* **count-only analytics** (`query_counts`, `join_counts`,
+  `degree_histogram`, and `count_pass`, the kNN expansion's primitive) stop
+  after pass 1 (`engine.run_counts_packed`): no compact pass, no flat
+  outputs.
 
 Per-row results are bit-identical to evaluating that row alone, whatever
 the chunking, and pass-1 counts always equal pass-2 row lengths.  The CSR
 plumbing (`permute_rows`, `transpose_csr`, `mirror_merge`) and the query
 preparation run on the host in numpy, as in the reference; the passes run
-on the segments' device.  Not ported yet: `join_counts`,
-`degree_histogram` and `reverse_neighbors`.
+on the segments' device.
 """
 from __future__ import annotations
 
@@ -232,9 +238,14 @@ def _as_rows(a: np.ndarray) -> np.ndarray:
 
 
 def _resolve_pack(index, block: int, device=None):
-    """(owner, pack) for an `SNNIndex`: ``owner`` holds the mu/v1/metric/xi
-    every predicate derives from; ``pack`` is its cached plan on the device
-    the call runs on (`resolve_device`: the card unless ``"cpu"``)."""
+    """(owner, pack) for an `SNNIndex` or a `streaming.StreamingSNNIndex`:
+    ``owner`` holds the mu/v1/metric/xi every predicate derives from (the
+    streaming base freezes them); ``pack`` is the streaming snapshot's plan,
+    on the index's own device, or the index's cached plan on the device the
+    call runs on (`resolve_device`: the card unless ``"cpu"``)."""
+    if hasattr(index, "plan") and hasattr(index, "parts"):  # streaming
+        parts, _, pack = index._snapshot()
+        return parts[0], pack
     dev = _registry.resolve_device(device)
     return index, index.pack(block, dev)
 
@@ -279,14 +290,35 @@ def single_query(index, q, radius, return_distance: bool = True, *,
         native=native, mixed=mixed, bucket=bucket, fused=fused)
 
 
+def count_pass(pack, xq, aq, qsq, r, *, query_tile: int = 128, pq=None,
+               mixed: bool = False, bucket: bool = True) -> np.ndarray:
+    """One engine count launch for prepared queries under Euclidean ``r``.
+
+    The pass-1-only join primitive (`engine.run_counts_packed`): no compact
+    pass, no flat outputs.  The kNN expansion loop re-enters it with a
+    shrinking active subset each round; bucketed padding keeps that at
+    O(log m) launch shapes instead of one a round.
+    """
+    thresh = ((r * r - qsq) / 2.0).astype(np.float32)
+    qp, aqp, rp, thp, m = _ops.pad_queries(xq, aq, r.astype(np.float32),
+                                           thresh, tq=query_tile,
+                                           bucket=bucket)
+    pqp = None if pq is None else _ops.pad_components(pq, qp.shape[0])
+    return _engine.run_counts_packed(pack, qp, aqp, rp, thp, m,
+                                     query_tile=query_tile, pq=pqp,
+                                     mixed=mixed)
+
+
 def query_counts(index, q, radius, *, block: int = 512,
                  query_tile: int = 128, mixed: bool = False,
                  bucket: bool = True, device=None) -> np.ndarray:
     """Exact neighbour counts per query: pass 1 only, no CSR.
 
     The same predicate pipeline as `snn.query_radius_csr`, so the counts
-    equal ``np.diff(csr.indptr)`` of the full query exactly.  ``radius`` is
-    a scalar or per-query (m,) vector in the native metric.
+    equal ``np.diff(csr.indptr)`` of the full query exactly.  ``index`` is
+    an `snn.SNNIndex` or a `streaming.StreamingSNNIndex` (base + deltas
+    through its plan); ``radius`` is a scalar or per-query (m,) vector in
+    the native metric.
     """
     owner, pack = _resolve_pack(index, block, device)
     xq, aq, r32, th, qsq = _snn.prepare_query_predicates(owner, q, radius)
@@ -369,3 +401,141 @@ def _metricsafe_scores(index, a: np.ndarray) -> np.ndarray:
     tq = _metrics.transform_query(a, index.metric)
     xq = (tq - index.mu[None, :]).astype(np.float32)
     return (xq @ index.v1).astype(np.float32)
+
+
+def join_counts(
+    a: np.ndarray,
+    b: np.ndarray | None,
+    radius,
+    *,
+    metric: str = "euclidean",
+    b_index: _snn.SNNIndex | None = None,
+    query_chunk: int | None = 2048,
+    segment_rows: int | None = None,
+    block: int = 512,
+    query_tile: int = 128,
+    n_iter: int = 64,
+    mixed: bool = False,
+    device=None,
+) -> np.ndarray:
+    """Count-only bichromatic join: ``|ball(a[i], r_i) ∩ B|`` per A row.
+
+    The pass-1 twin of `join`: the same sorted-chunk schedule over one
+    `engine.SegmentPack` of B's ``segment_rows``-row segments on ``device``
+    (default: the card), but every chunk runs `engine.run_counts_packed`
+    and nothing is compacted.  Counts equal ``np.diff(join(...).indptr)``
+    exactly (identical predicates).
+    """
+    dev = _registry.resolve_device(device)
+    a = _as_rows(a)
+    index = b_index
+    if index is None:
+        if b is None:
+            raise ValueError("join_counts needs b points or a b_index")
+        index = _snn.build_index(np.asarray(b), metric=metric, n_iter=n_iter,
+                                 device=dev)
+    m = a.shape[0]
+    radius, rvec = _checked_radius(radius, m)
+    if index.n == 0 or m == 0:
+        return np.zeros(m, np.int64)
+    qord = np.argsort(_metricsafe_scores(index, a), kind="stable")
+    r_sorted = radius if rvec is None else rvec[qord]
+    sr = max(int(segment_rows), 1) if segment_rows is not None else block
+    cs = resolve_chunk(query_chunk, None)
+    pack = _engine.SegmentPack.build(_engine.segments_from_index(
+        index, rows_per_segment=sr, block=block, device=dev))
+    xq, aq, r32, th, _ = _snn.prepare_query_predicates(index, a[qord],
+                                                       r_sorted)
+    pq_full = _snn.query_extra_projections(index, xq)
+    counts_sorted = np.zeros(m, np.int64)
+    for c0 in range(0, m, cs):
+        c1 = min(c0 + cs, m)
+        qp, aqp, rp, thp, _ = _ops.pad_queries(
+            xq[c0:c1], aq[c0:c1], r32[c0:c1], th[c0:c1], tq=query_tile)
+        pqp = (None if pq_full is None
+               else _ops.pad_components(pq_full[:, c0:c1], qp.shape[0]))
+        counts_sorted[c0:c1] = _engine.run_counts_packed(
+            pack, qp, aqp, rp, thp, c1 - c0, query_tile=query_tile, pq=pqp,
+            mixed=mixed)
+    out = np.empty(m, np.int64)
+    out[qord] = counts_sorted
+    return out
+
+
+def degree_histogram(
+    x: np.ndarray,
+    eps,
+    *,
+    metric: str = "euclidean",
+    index: _snn.SNNIndex | None = None,
+    query_chunk: int | None = 2048,
+    block: int = 512,
+    query_tile: int = 128,
+    n_iter: int = 64,
+    mixed: bool = False,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Degree distribution of the eps-graph WITHOUT building the graph.
+
+    ``degrees[i] = |ball(x[i], eps)|`` (self included, as in the graph) by
+    the count-only self-join (`join_counts`): no CSR, no compact pass, O(n)
+    memory however dense the graph is.  Returns ``(hist, degrees)`` where
+    ``hist[k]`` is the number of points with exactly k neighbours.
+    """
+    x = _as_rows(x)
+    if index is None:
+        index = _snn.build_index(x, metric=metric, n_iter=n_iter,
+                                 device=_registry.resolve_device(device))
+    degrees = join_counts(x, None, eps, b_index=index,
+                          query_chunk=query_chunk, block=block,
+                          query_tile=query_tile, mixed=mixed, device=device)
+    hist = np.bincount(degrees) if degrees.size else np.zeros(0, np.int64)
+    return hist, degrees
+
+
+# --------------------------------------------------------------------------- #
+# Reverse neighbours                                                           #
+# --------------------------------------------------------------------------- #
+def reverse_neighbors(
+    points: np.ndarray,
+    targets: np.ndarray,
+    radii,
+    *,
+    metric: str = "euclidean",
+    target_index: _snn.SNNIndex | None = None,
+    return_distance: bool = False,
+    query_chunk: int | None = 2048,
+    segment_rows: int | None = None,
+    block: int = 512,
+    query_tile: int = 128,
+    native: bool = True,
+    n_iter: int = 64,
+    packed: bool = True,
+    mixed: bool = False,
+    device=None,
+) -> _snn.CSRNeighbors:
+    """Exact reverse eps-neighbours: which points hold each target in range.
+
+    Row j of the result lists every i with ``d(points[i], targets[j]) <=
+    radii[i]``: each point owns its radius, and the question is asked from
+    the target's side.  This is the transposed bichromatic join
+    ``join(points, targets, radii)`` on ``device`` (default: the card),
+    exact because the forward join is exact and the transpose lossless.
+
+    ``points`` are raw metric-space rows (for mips the point is the query
+    side of ``p.q >= S``); ``radii`` is a scalar or per-point
+    (n_points,) vector in the native metric.  Column ids in each row are
+    point row ids, ascending; distances (iff ``return_distance``) are the
+    forward pair's.
+    """
+    points = _as_rows(points)
+    targets = _as_rows(targets)
+    fwd = join(points, targets, radii, metric=metric, b_index=target_index,
+               return_distance=return_distance, query_chunk=query_chunk,
+               segment_rows=segment_rows, block=block, query_tile=query_tile,
+               native=native, n_iter=n_iter, packed=packed, mixed=mixed,
+               device=device)
+    n_targets = targets.shape[0] if target_index is None else target_index.n
+    indptr, rows, dists = transpose_csr(fwd.indptr, fwd.indices,
+                                        fwd.distances, n_targets)
+    return _snn.CSRNeighbors(indptr, rows, dists)

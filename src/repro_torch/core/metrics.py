@@ -140,3 +140,33 @@ def native_distance(sq_eucl: np.ndarray, metric: str, xi: float = 0.0,
         # ||p~-q~||^2 = xi^2 + ||q||^2 - 2 p.q  =>  p.q (larger = nearer)
         return (xi * xi + qsq_raw - sq_eucl) / 2.0
     raise ValueError(f"unknown metric {metric!r}; valid: {VALID_METRICS}")
+
+
+def native_knn_distances(idx: np.ndarray, sq: np.ndarray, metric: str,
+                         xi: float = 0.0,
+                         q_transformed: np.ndarray | None = None) -> np.ndarray:
+    """Finalize (m, K) kNN squared Euclidean distances to the native metric.
+
+    Shared by `core.knn.query_knn` and `baselines.KDTree.query_knn` so the
+    engine and its cross-check baseline cannot drift apart.  Slots with
+    ``idx < 0`` (a query asked for more neighbors than the database holds)
+    stay +inf.  ``q_transformed`` is the (m, d') TRANSFORMED query block —
+    required for mips, whose native value carries ‖q‖² (the lift's extra
+    coordinate is 0, so ‖q~‖² == ‖q‖²).
+    """
+    valid = idx >= 0
+    dist = np.full(idx.shape, np.inf, np.float64)
+    qsq_raw = None
+    if metric == "mips":
+        qt = _as2d(q_transformed)
+        qsq_raw = np.broadcast_to(
+            np.einsum("ij,ij->i", qt, qt)[:, None], valid.shape)[valid]
+    dist[valid] = native_distance(sq[valid], metric, xi, qsq_raw)
+    return dist
+
+
+def pairwise_sq_dists(x: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Reference O(n m d) squared distances, numerically safe (no BLAS trick)."""
+    x, q = _as2d(x), _as2d(q)
+    diff = x[None, :, :] - q[:, None, :]
+    return np.einsum("mnd,mnd->mn", diff, diff)

@@ -11,18 +11,30 @@ Query preparation (`prepare_queries`, `prepare_query_predicates`) and the
 float64 distance finalization (`csr_finalize`) run on the host in numpy, as
 in the reference, so the float32 predicate inputs are the reference's bits.
 
+The paper's Algorithm 2 on the host side (`query_radius`,
+`query_radius_batch`, `query_counts`) windows the sorted alphas in numpy and
+takes each window's product (one GEMM a query group) on the index's device,
+in float32 with TF32 off whatever the caller set (`_full_float32`); the
+per-query selection runs in numpy.  `query_radius_fixed`,
+the K-bounded fixed-shape query, runs the filter kernel
+(`kernels.ops.snn_filter`) and a top-K on the index's device.
+
 Device rule: `build_index`, `index_from_arrays` and `query_radius_csr` take
 ``device=None``, meaning the CUDA device; without a card they raise unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``.  The host queries run on the index's own
+device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from ..kernels import registry as _registry
+from ..kernels.ref import BIG as _BIG
 from . import metrics as _metrics
 
 
@@ -56,6 +68,9 @@ class SNNIndex:
     # across query batches, which is what lets the fused path engage
     _packs: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # a host copy of ``alphas``, made on first use by the host paths
+    _alphas_np: np.ndarray | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def __post_init__(self):
         if self.vs is None:
@@ -84,6 +99,13 @@ class SNNIndex:
         tq = _metrics.transform_query(np.asarray(q), self.metric)
         r = _metrics.euclidean_radius(radius, tq, self.metric, self.xi)
         return (tq - self.mu[None, :]).astype(self.mu.dtype), r.astype(np.float64)
+
+    def host_alphas(self) -> np.ndarray:
+        """``alphas`` as a float32 numpy array, copied from the device once:
+        the windows of the host queries and the kNN seed search it."""
+        if self._alphas_np is None:
+            self._alphas_np = self.alphas.cpu().numpy()
+        return self._alphas_np
 
     def pack(self, block: int = 512, device=None):
         """The single-segment `engine.SegmentPack` of this index on
@@ -193,6 +215,223 @@ def build_index(
     return SNNIndex(mu.cpu().numpy(), v1.cpu().numpy(), xs, alphas,
                     half_norms, order.cpu().numpy().astype(np.int64), metric,
                     xi, vs.cpu().numpy(), projs.contiguous())
+
+
+# --------------------------------------------------------------------------- #
+# Exact host queries (Algorithm 2)                                             #
+# --------------------------------------------------------------------------- #
+_FP32_LOCK = threading.Lock()
+_fp32_users = 0
+_fp32_saved: tuple | None = None
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """Run the enclosed float32 products in full float32 on the card.
+
+    TF32 is process-wide state that a caller may turn on (the
+    ``allow_tf32`` flag, ``torch.set_float32_matmul_precision("high")`` or
+    the newer ``fp32_precision``); its 10-bit mantissa would make the
+    window products inexact.  The first thread in clears it and the last one
+    out puts the caller's setting back, through the same interface it was
+    made with (PyTorch refuses to read one interface's state after the other
+    set it).  When TF32 is already off nothing is touched."""
+    global _fp32_users, _fp32_saved
+    m = torch.backends.cuda.matmul
+    with _FP32_LOCK:
+        if _fp32_users == 0:
+            try:
+                on, name, off = m.allow_tf32, "allow_tf32", False
+            except RuntimeError:   # set through fp32_precision
+                on = m.fp32_precision
+                name, off = "fp32_precision", "ieee"
+                on = on if on == "tf32" else False
+            _fp32_saved = (name, on) if on else None
+            if on:
+                setattr(m, name, off)
+        _fp32_users += 1
+    try:
+        yield
+    finally:
+        with _FP32_LOCK:
+            _fp32_users -= 1
+            if _fp32_users == 0 and _fp32_saved is not None:
+                setattr(m, *_fp32_saved)
+                _fp32_saved = None
+
+
+def _window(index: SNNIndex, aq: np.ndarray, r: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    al = index.host_alphas()
+    lo = np.searchsorted(al, aq - r, side="left")
+    hi = np.searchsorted(al, aq + r, side="right")
+    return lo, hi
+
+
+def query_radius(
+    index: SNNIndex, q: np.ndarray, radius, return_distance: bool = True
+):
+    """Exact radius query for a single query point.
+
+    Returns (indices, distances) into the ORIGINAL data ordering; distances
+    are in the native metric.  The window's GEMV runs on the index's device.
+    """
+    xq, r = index.prepare_queries(q, radius)
+    xq, r = xq[0], float(r[0])
+    aq = float(xq @ index.v1)
+    lo, hi = _window(index, np.asarray([aq]), np.asarray([r]))
+    lo, hi = int(lo[0]), int(hi[0])
+    if hi <= lo:
+        out_i = np.zeros(0, np.int64)
+        return (out_i, np.zeros(0, np.float64)) if return_distance else out_i
+    xqd = torch.from_numpy(np.ascontiguousarray(xq)).to(index.device)
+    # paper eq. (4): half-norm form, one GEMV over the contiguous window
+    with _full_float32():
+        dhalf = (index.half_norms[lo:hi] - index.xs[lo:hi] @ xqd).cpu().numpy()
+    qsq = float(xq @ xq)
+    keep = dhalf <= (r * r - qsq) / 2.0
+    sel = np.nonzero(keep)[0] + lo
+    out_i = index.order[sel]
+    if not return_distance:
+        return out_i
+    sq = np.maximum(2.0 * dhalf[keep] + qsq, 0.0)
+    return out_i, _native_distance(index, sq, xq)
+
+
+def _native_distance(index: SNNIndex, sq_eucl: np.ndarray, xq: np.ndarray) -> np.ndarray:
+    """Convert squared Euclidean distances (in index space) to the native metric."""
+    return _native_distance_csr(index, sq_eucl, xq[None, :],
+                                np.asarray([sq_eucl.shape[0]]))
+
+
+def query_radius_batch(
+    index: SNNIndex,
+    q: np.ndarray,
+    radius,
+    return_distance: bool = True,
+    group_size: int = 64,
+):
+    """Exact batched radius query (paper section 4, level-3 BLAS variant).
+
+    Queries are sorted by their alpha score and processed in groups; each
+    group computes one float32 GEMM over the union of its members' windows
+    on the index's device and brings that block to the host once, where
+    each member selects its own window.  Returns a list of per-query
+    results in the original query order.  ``radius`` is a scalar or a
+    per-query (m,) vector in the native metric.
+    """
+    xq, r = index.prepare_queries(q, radius)
+    m = xq.shape[0]
+    aq = xq @ index.v1
+    lo, hi = _window(index, aq, r)
+    qord = np.argsort(aq, kind="stable")
+    results: list = [None] * m
+    qsq = np.einsum("ij,ij->i", xq, xq)
+    xqd = torch.from_numpy(np.ascontiguousarray(xq)).to(index.device)
+    for g0 in range(0, m, group_size):
+        grp = qord[g0 : g0 + group_size]
+        glo, ghi = int(lo[grp].min()), int(hi[grp].max())
+        if ghi <= glo:
+            for qi in grp:
+                e = np.zeros(0, np.int64)
+                results[qi] = (e, np.zeros(0, np.float64)) if return_distance else e
+            continue
+        # one GEMM for the whole group: (ghi-glo, d) @ (d, |grp|)
+        grp_t = torch.from_numpy(grp).to(index.device)
+        with _full_float32():
+            dhalf = (index.half_norms[glo:ghi, None]
+                     - index.xs[glo:ghi] @ xqd[grp_t].T).cpu().numpy()
+        for k, qi in enumerate(grp):
+            s, e = lo[qi] - glo, hi[qi] - glo
+            dh = dhalf[s:e, k]
+            keep = dh <= (r[qi] * r[qi] - qsq[qi]) / 2.0
+            sel = np.nonzero(keep)[0] + lo[qi]
+            oi = index.order[sel]
+            if return_distance:
+                sqd = np.maximum(2.0 * dh[keep] + qsq[qi], 0.0)
+                results[qi] = (oi, _native_distance(index, sqd, xq[qi]))
+            else:
+                results[qi] = oi
+    return results
+
+
+def query_counts(index: SNNIndex, q: np.ndarray, radius, group_size: int = 64) -> np.ndarray:
+    """Number of neighbours within radius for each query (exact, batched)."""
+    res = query_radius_batch(index, q, radius, return_distance=False, group_size=group_size)
+    return np.asarray([len(r) for r in res], dtype=np.int64)
+
+
+# --------------------------------------------------------------------------- #
+# Fixed-shape path                                                             #
+# --------------------------------------------------------------------------- #
+def _smallest_k(dhalf: torch.Tensor, k: int):
+    """(values, columns) of the ``k`` smallest entries of each row, ascending,
+    equal values in ascending column order: ``jax.lax.top_k`` of the
+    negated rows.  `torch.topk` promises no order among equal values, nor
+    which of them it keeps at the k-th value, so both are fixed here."""
+    vals, idx = torch.topk(dhalf, k, dim=1, largest=False, sorted=True)
+    if k == 0:
+        return vals, idx
+    idx, p = torch.sort(idx, dim=1)
+    vals, p2 = torch.sort(vals.gather(1, p), dim=1, stable=True)
+    idx = idx.gather(1, p2)
+    # rows with more entries at or below their k-th value than k: a tie at
+    # the k-th value, where the lowest columns must be the ones kept.  Tied
+    # +BIG entries are pruned pairs, masked by the caller, so they do not
+    # count
+    kth = vals[:, -1]
+    tied = (kth < _BIG) & ((dhalf <= kth[:, None]).sum(dim=1) > k)
+    for i in torch.nonzero(tied).flatten().tolist():
+        cols = torch.nonzero(dhalf[i] <= kth[i]).flatten()  # ascending
+        v, p = torch.sort(dhalf[i, cols], stable=True)
+        vals[i], idx[i] = v[:k], cols[p[:k]]
+    return vals, idx
+
+
+def query_radius_fixed(index: SNNIndex, q: np.ndarray, radius, max_neighbors: int,
+                       block: int = 512):
+    """Fixed-shape query: (indices (m,K), sq_dists (m,K), valid (m,K),
+    counts (m,)).
+
+    K = max_neighbors, clamped to the padded row count; results are the K
+    nearest within the radius (exact as long as the true neighbour count
+    <= K; ``counts`` lets callers detect truncation), nearest first, equal
+    distances by sorted row.  ``radius`` is a scalar or per-query (m,)
+    vector in the native metric.  The masked half distances come from the
+    filter kernel (`kernels.ops.snn_filter`) over the index's cached padded
+    rows, and the top-K and the id map run on the index's device.
+    """
+    from ..kernels import ops as _ops
+
+    if index.n == 0:
+        # ``order[idx % n]`` below would divide by zero; an empty database
+        # has well-defined results: K = min(max_neighbors, 0) = 0 columns
+        m = _metrics.transform_query(np.asarray(q), index.metric).shape[0]
+        return (np.zeros((m, 0), np.int64), np.zeros((m, 0), np.float64),
+                np.zeros((m, 0), bool), np.zeros(m, np.int64))
+    # the padding contract of every path (`ops.pad_database`): the index's
+    # own one-segment plan holds these rows already
+    seg = index.pack(block).segments[0]
+    xq, r = index.prepare_queries(q, radius)
+    m = xq.shape[0]
+    aq = (xq @ index.v1).astype(np.float32)
+    r32 = r.astype(np.float32)
+    qsq = np.einsum("ij,ij->i", xq, xq).astype(np.float32)
+    thresh = ((r32 * r32 - qsq) / np.float32(2.0)).astype(np.float32)
+    ops = [torch.from_numpy(a).to(index.device)
+           for a in _ops.pad_queries(xq, aq, r32, thresh)[:4]]
+    dhalf = _ops.snn_filter(*ops, seg.xs, seg.alphas, seg.half_norms,
+                            bn=seg.block)[:m]
+    counts = (dhalf < _BIG).sum(dim=1)
+    k = min(int(max_neighbors), int(dhalf.shape[1]))
+    vals, idx = _smallest_k(dhalf, k)
+    valid = vals < _BIG
+    qsq_t = torch.from_numpy(qsq).to(index.device)
+    sq = torch.clamp_min(2.0 * vals + qsq_t[:, None], 0.0)
+    order = torch.from_numpy(index.order).to(index.device)
+    out_idx = torch.where(valid, order[idx % index.n], -1)
+    return (out_idx.cpu().numpy(),
+            torch.where(valid, sq, torch.inf).cpu().numpy(),
+            valid.cpu().numpy(), counts.cpu().numpy().astype(np.int64))
 
 
 # --------------------------------------------------------------------------- #

@@ -428,6 +428,164 @@ def test_looped_and_packed_graph_on_the_card_equal_the_cpu(card):
 
 
 
+def _symmetric_lattice(seed, n=1500, d=6):
+    """Integer points and their negatives (mean 0 exactly, so the centred
+    rows stay integer) and an index over them on the CPU and on the card:
+    every predicate is exact on both devices."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    x = np.concatenate([pts, -pts])
+    cpu_idx = tsnn.build_index(x, device="cpu")
+    idx = tsnn.index_from_arrays(cpu_idx.mu, cpu_idx.v1, cpu_idx.xs.numpy(),
+                                 cpu_idx.alphas.numpy(),
+                                 cpu_idx.half_norms.numpy(), cpu_idx.order,
+                                 vs=cpu_idx.vs, projs=cpu_idx.projs.numpy())
+    q = rng.integers(-4, 5, size=(90, d)).astype(np.float32)
+    return x, q, cpu_idx, idx, rng
+
+
+def test_cuda_query_knn_equals_the_cpu(card):
+    from repro_torch.core import knn as tknn
+
+    _, q, cpu_idx, idx, rng = _symmetric_lattice(5)
+    k = rng.integers(1, 60, size=q.shape[0])
+    want = tknn.query_knn(cpu_idx, q, k, device="cpu")
+    tsq.reset_launch_counts()
+    got = tknn.query_knn(idx, q, k)
+    assert tsq.snn_count_stacked.launches >= 2   # a round and the final pass
+    assert tsq.snn_compact_stacked.launches >= 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_cuda_join_counts_and_reverse_neighbors_equal_the_cpu(card):
+    x, q, cpu_idx, idx, rng = _symmetric_lattice(6)
+    radii = rng.choice([1.5, 2.5, 3.5], size=q.shape[0])
+    kw = dict(query_chunk=32, segment_rows=256, block=256)
+    want = tjoin.join_counts(q, None, radii, b_index=cpu_idx, device="cpu",
+                             **kw)
+    tsq.reset_launch_counts()
+    got = tjoin.join_counts(q, None, radii, b_index=idx, **kw)
+    assert tsq.snn_count_stacked.launches > 0
+    assert tsq.snn_compact_stacked.launches == 0
+    np.testing.assert_array_equal(got, want)
+    hkw = dict(query_chunk=256, block=256)
+    hist, deg = tjoin.degree_histogram(x, 2.5, index=idx, **hkw)
+    whist, wdeg = tjoin.degree_histogram(x, 2.5, index=cpu_idx,
+                                         device="cpu", **hkw)
+    np.testing.assert_array_equal(deg, wdeg)
+    np.testing.assert_array_equal(hist, whist)
+    rev = tjoin.reverse_neighbors(q, x, radii, target_index=idx, **kw)
+    wrev = tjoin.reverse_neighbors(q, x, radii, target_index=cpu_idx,
+                                   device="cpu", **kw)
+    np.testing.assert_array_equal(rev.indptr, wrev.indptr)
+    np.testing.assert_array_equal(rev.indices, wrev.indices)
+
+
+def test_cuda_query_radius_fixed_equals_the_cpu(card):
+    _, q, cpu_idx, idx, rng = _symmetric_lattice(7)
+    radii = rng.choice([1.5, 2.5, 3.5], size=q.shape[0])
+    for k in (1, 16, 300):
+        want = tsnn.query_radius_fixed(cpu_idx, q, radii, k, block=256)
+        tsq.reset_launch_counts()
+        got = tsnn.query_radius_fixed(idx, q, radii, k, block=256)
+        assert tsq.snn_filter.launches == 1
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert (want[3] > 16).any()   # cuts inside ties of equal distance
+
+
+def test_cuda_streaming_sequence_equals_the_cpu(card):
+    from repro_torch.core import streaming as tst
+
+    x, q, _, _, rng = _symmetric_lattice(8)
+    host = tst.StreamingSNNIndex(x, block=256, max_deltas=2,
+                                 delta_ratio=10.0, device="cpu")
+    leaves, extra = host.state_leaves()
+    cpu = tst.StreamingSNNIndex.from_state(leaves, extra, device="cpu")
+    dev = tst.StreamingSNNIndex.from_state(leaves, extra)
+    dev.set_plan_warming(m_pads=(128,))
+    assert dev.base.xs.is_cuda
+    for gen in range(4):   # two deltas, a merge, a delta
+        b = rng.integers(-4, 5, size=(200, x.shape[1])).astype(np.float32)
+        cpu.append(b)
+        dev.append(b)
+        for a, w in zip(dev.state_leaves()[0], cpu.state_leaves()[0]):
+            np.testing.assert_array_equal(a, w)
+        want = cpu.query_radius_csr(q, 2.5)
+        for got in (dev.query_radius_csr(q, 2.5),
+                    dev.query_radius_csr(q, 2.5, packed=False)):
+            np.testing.assert_array_equal(got.indptr, want.indptr)
+            np.testing.assert_array_equal(got.indices, want.indices)
+            np.testing.assert_array_equal(got.distances, want.distances)
+        np.testing.assert_array_equal(dev.query_counts_device(q, 2.5),
+                                      np.diff(want.indptr))
+        np.testing.assert_array_equal(dev.query_knn(q, 9)[0],
+                                      cpu.query_knn(q, 9)[0])
+        for a, w in zip(dev.query_radius_fixed(q, 2.5, 20),
+                        cpu.query_radius_fixed(q, 2.5, 20)):
+            np.testing.assert_array_equal(a, w)
+    assert dev.warm_runs == 4 and dev.warm_failures == 0
+
+
+@pytest.fixture
+def tf32_on():
+    """TF32 turned on process-wide, as an application may set it, and
+    turned back afterwards."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_tf32
+    m.allow_tf32 = True
+    yield
+    m.allow_tf32 = before
+
+
+def test_cuda_host_batch_query_is_exact_with_tf32_on(card, tf32_on):
+    """`query_radius_batch` takes its window products with TF32 off, so a
+    caller's TF32 setting does not change its answer: every pair outside
+    the float32 band of the threshold agrees with a float64 brute force, as
+    on the CPU.  Random rows at d = 16, not a lattice: TF32 is exact on
+    small integers, and at this width its error is several times the band.
+    The same product taken with TF32 on does flip pairs outside the band,
+    so the check can see the fault it guards against."""
+    rng = np.random.default_rng(9)
+    n, d, m = 4000, 16, 256
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = (x[rng.choice(n, m, replace=False)]
+         + 0.5 * rng.normal(size=(m, d))).astype(np.float32)
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    d2 = (np.sum(x64 * x64, 1)[None, :] + np.sum(q64 * q64, 1)[:, None]
+          - 2.0 * q64 @ x64.T)
+    r2 = np.sort(d2, axis=1)[:, 200]      # a boundary inside the data
+    xn2 = np.sum(x64 * x64, 1)[None, :]
+    qn2 = np.sum(q64 * q64, 1)[:, None]
+    tol = 4.0 * d * 2.0 ** -23 * (xn2 + qn2 + np.sqrt(xn2 * qn2))
+    out = np.abs(d2 - r2[:, None]) > tol
+    cpu_idx = tsnn.build_index(x, device="cpu")
+    idx = tsnn.index_from_arrays(cpu_idx.mu, cpu_idx.v1, cpu_idx.xs.numpy(),
+                                 cpu_idx.alphas.numpy(),
+                                 cpu_idx.half_norms.numpy(), cpu_idx.order,
+                                 vs=cpu_idx.vs, projs=cpu_idx.projs.numpy())
+
+    def wrong(lists):
+        got = np.zeros((m, n), bool)
+        for i, ids in enumerate(lists):
+            got[i, ids] = True
+        return int(np.sum((got != (d2 <= r2[:, None])) & out))
+
+    radius = np.sqrt(r2)
+    for dev_idx in (idx, cpu_idx):
+        res = tsnn.query_radius_batch(dev_idx, q, radius, group_size=16)
+        assert wrong([ids for ids, _ in res]) == 0
+    assert torch.backends.cuda.matmul.allow_tf32
+    # the same product with TF32 on, in the index's sorted order
+    xq = torch.from_numpy(q - cpu_idx.mu).to(card)
+    hn = idx.half_norms[:, None]
+    dh = (hn - idx.xs @ xq.T).cpu().numpy().T
+    th = (r2 - np.sum((q - cpu_idx.mu) ** 2, 1)) / 2.0
+    raw = [idx.order[np.nonzero(dh[i] <= th[i])[0]] for i in range(m)]
+    assert wrong(raw) > 0
+
+
 # --------------------------------------------------------------------------- #
 # embedding_bag and the recsys serving path                                    #
 # --------------------------------------------------------------------------- #

@@ -9,17 +9,24 @@
 """
 import ast
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import repro.core as jcore
+import repro_torch.core as tcore
+from repro_torch.core import knn as tknn
 from repro_torch.core import snn as tsnn
+from repro_torch.core import streaming as tst
 from repro_torch.launch import steps as tsteps
 
-# the package exports the function `join`, which shadows the module name
+# the package exports functions named `join` and `dbscan`, which shadow the
+# module names
 tjoin = importlib.import_module("repro_torch.core.join")
+tdb = importlib.import_module("repro_torch.core.dbscan")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -92,6 +99,22 @@ def test_entry_points_raise_without_a_card(no_card):
         tsnn.index_from_arrays(idx.mu, idx.v1, idx.xs.numpy(),
                                idx.alphas.numpy(), idx.half_norms.numpy(),
                                idx.order)
+    calls = [
+        lambda: tknn.query_knn(idx, q, 3),
+        lambda: tjoin.join_counts(q, None, 1.0, b_index=idx),
+        lambda: tjoin.join_counts(q, x, 1.0),
+        lambda: tjoin.degree_histogram(x, 1.0, index=idx),
+        lambda: tjoin.degree_histogram(x, 1.0),
+        lambda: tjoin.reverse_neighbors(q, x, 1.0, target_index=idx),
+        lambda: tst.StreamingSNNIndex(x),
+        lambda: tst.StreamingSNNIndex.from_state(
+            *tst.StreamingSNNIndex(x, device="cpu").state_leaves()),
+        lambda: tdb.dbscan(x, 1.0, backend="snn"),
+        lambda: tdb.neighbor_graph(x, 1.0),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert not idx._packs        # nothing ran on the CPU along the way
 
 
@@ -102,6 +125,45 @@ def test_entry_points_run_on_the_cpu_when_asked(no_card):
     res = tsnn.query_radius_csr(idx, q, 1.5, device="cpu")
     counts = tjoin.query_counts(idx, q, 1.5, device="cpu")
     np.testing.assert_array_equal(counts, np.diff(res.indptr))
+    np.testing.assert_array_equal(
+        tjoin.join_counts(q, None, 1.5, b_index=idx, device="cpu"), counts)
+    hist, deg = tjoin.degree_histogram(x, 1.5, index=idx, device="cpu")
+    assert deg.shape == (60,) and hist.sum() == 60
+    rev = tjoin.reverse_neighbors(q, x, 1.5, target_index=idx, device="cpu")
+    assert rev.nnz == res.nnz
+    ids = tknn.query_knn(idx, q, 4, return_distance=False, device="cpu")
+    assert ids.shape == (5, 4) and ids.min() >= 0
+    # the host queries and the fixed-shape query run on the index's device
+    batch = tsnn.query_radius_batch(idx, q, 1.5, return_distance=False)
+    assert [b.size for b in batch] == counts.tolist()
+    fixed = tsnn.query_radius_fixed(idx, q, 1.5, 8)
+    np.testing.assert_array_equal(fixed[3], counts)
+    st = tst.StreamingSNNIndex(x, device="cpu")
+    st.append(q)
+    assert st.base.xs.device.type == st.parts[1].xs.device.type == "cpu"
+    np.testing.assert_array_equal(
+        st.query_counts_device(q, 1.5),
+        np.diff(st.query_radius_csr(q, 1.5).indptr))
+    back = tst.StreamingSNNIndex.from_state(*st.state_leaves(), device="cpu")
+    assert back.device.type == "cpu"
+    for backend in ("snn", "brute", "kdtree"):
+        labels = tdb.dbscan(x, 1.5, 3, backend=backend, device="cpu")
+        assert labels.shape == (60,)
+
+
+def test_package_names_have_the_reference_meanings():
+    # `query_counts` is the host Algorithm 2 count (with its group size),
+    # `query_counts_device` the engine's; every other name as in repro.core
+    assert tcore.query_counts is tsnn.query_counts
+    assert tcore.query_counts_device is tjoin.query_counts
+    assert "group_size" in inspect.signature(tcore.query_counts).parameters
+
+    def public(mod):   # functions and classes; submodules vary with imports
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))}
+
+    # the sharded graph builder waits for the torch.distributed port
+    assert public(jcore) - public(tcore) == {"build_neighbor_graph_sharded"}
 
 
 @pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
