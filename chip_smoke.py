@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs six phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs seven phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -56,6 +56,24 @@ or note, and each phase's time:
    compact's survivors there bit for bit, and the pairs its 128 x 128
    tiles compute with the queries in alpha order, in the given order and
    in the alpha windows;
+3b. the SNN server (``repro_torch.serving``) on phase 2's rows, queries and
+   radius: one mixed batch (64 radius requests, a 64-row join of per-row
+   radii, 32 counts, 16 reverse targets, 8 kNN at k = 100) as one fused
+   CSR execution plus kNN's passes (`DISPATCH_STATS` across threads),
+   every answer against the float64 brute force and bit for bit against
+   the same request served alone; 2,048 requests at t = 0 under the
+   deadline and the window policy, then Poisson arrivals at half the
+   deadline policy's saturation rate (latency and queue delay p50/p99,
+   qps, mean batch); a steady stream while a mutator thread appends 8 x
+   8,192 rows and rebuilds (no warm failure, generations non-decreasing,
+   no warm launch on the dispatcher, the first batch of each generation
+   fused, then a batch equal to a ``from_state`` copy); a second tenant of
+   1,000,000 rows under a budget just above one plan (evictions,
+   bit-identical re-admission); a checkpoint drill (``ReplicaDrill``
+   killing the replica twice, restores through ``IndexRegistry.restore``,
+   a corrupt newest checkpoint skipped); the fixed path through the filter
+   and the looped executor.  It fails on any error response, any batch
+   that left the exact path and any failed warm;
 4. the recsys serving path through ``launch.steps.build_step`` at full
    width: DLRM (the MLPerf stacked table, 187,767,424 x 128 bfloat16,
    48.07 GB), Wide & Deep and MIND, each at ``serve_p99`` (512) and
@@ -80,6 +98,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import importlib
 import json
 import re
@@ -1896,6 +1915,857 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
 
 
 # --------------------------------------------------------------------------- #
+# phase 3b                                                                     #
+# --------------------------------------------------------------------------- #
+# the serving phase on the point-query cell's rows, queries and radius: the
+# mixed batch (radius requests, one join block of per-row radii, counts,
+# reverse targets, kNN queries at KNN_K), the open loop's requests, the
+# live stream's appends (phase 2c's: APPEND_ROWS rows, N_APPENDS of them,
+# seeds 1-8), the second tenant's seed, the drill's probe steps and kills,
+# and the fixed path's requests
+MIX_RADIUS, MIX_JOIN, MIX_COUNT, MIX_REVERSE, MIX_KNN = 64, 64, 32, 16, 8
+OPEN_LOOP_REQUESTS = 2048
+SECOND_TENANT_SEED = 20
+DRILL_STEPS, DRILL_KILLS = 12, (3, 8)
+FIXED_REQUESTS = 256
+# the live stream's rate: a share of the deadline policy's saturation rate,
+# capped so that a stall of the dispatcher during a rebuild stays inside the
+# server's backlog of 4 x 1,024 requests
+LIVE_SHARE, LIVE_QPS = 0.25, 2000.0
+# a request's SLO budget where the test needs one batch of all it submitted,
+# and how long `result` waits: a slow request is a latency, not an error
+ONE_BATCH_SLO_MS = 600_000.0
+RESULT_S = 300.0
+# a dispatcher batch's (kernel launches, host copies) on the exact path:
+# fused (count, prefix and compact, one copy); a speculation overflow (the
+# fused passes, then the exact-sized ones); and the exact-sized passes of a
+# batch shape the plan has not run yet, with rows or with none
+FUSED, OVERFLOW = (3, 1), (6, 4)
+EXACT_PATH = (FUSED, OVERFLOW, (3, 3), (2, 1))
+
+
+def pctl(values, p) -> float:
+    """The p-th percentile, nan for no values."""
+    if not len(values):
+        return float("nan")
+    return float(np.percentile(np.asarray(values, np.float64), p))
+
+
+def same_answer(a, b) -> bool:
+    """Bit for bit: ids, float64 squared distances (as bits), CSR offsets,
+    counts and the truncation flag."""
+    def eq(u, v):
+        if u is None or v is None:
+            return u is None and v is None
+        u, v = np.asarray(u), np.asarray(v)
+        if u.dtype.kind == "f":
+            u, v = u.view(np.int64), v.view(np.int64)
+        return u.shape == v.shape and bool(np.array_equal(u, v))
+    return (eq(a.indices, b.indices) and eq(a.sq_dists, b.sq_dists)
+            and eq(a.indptr, b.indptr) and eq(a.counts, b.counts)
+            and a.truncated == b.truncated and a.error is None
+            and b.error is None)
+
+
+class BatchLog:
+    """Wraps a server's `_run_batch` (the dispatcher thread's batch body):
+    each batch's request ids and the dispatcher's own `DISPATCH_STATS`
+    (kernel launches, host transfers) across it, read before and after, so
+    the counters of other threads are untouched."""
+
+    def __init__(self, server, engine):
+        self.batches: list[tuple[list[int], int, int]] = []
+        inner, stats = server._run_batch, engine.DISPATCH_STATS
+
+        def run(batch):
+            s0 = stats.snapshot()
+            inner(batch)
+            s1 = stats.snapshot()
+            self.batches.append(
+                ([r.id for r in batch],
+                 s1["kernel_launches"] - s0["kernel_launches"],
+                 s1["host_transfers"] - s0["host_transfers"]))
+
+        server._run_batch = run
+        self._server = server
+
+    def shapes(self, start: int = 0, stop: int | None = None) -> dict:
+        """{(launches, copies): batches} of batches ``start:stop``."""
+        out: dict = {}
+        for _, nl, nc in self.batches[start:stop]:
+            out[nl, nc] = out.get((nl, nc), 0) + 1
+        return out
+
+    def close(self) -> None:
+        """Give the server back its own `_run_batch`."""
+        del self._server._run_batch
+
+
+class Tally:
+    """The serving path's kernel launches, summed over the stretches the
+    phase counts: `take` adds the counts since the last reset and resets;
+    `aside` runs a comparison outside them, its launches kept apart in
+    ``aside_counts``."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(SNN_KERNELS, 0)
+        self.aside_counts = dict.fromkeys(SNN_KERNELS, 0)
+
+    def take(self, K) -> dict:
+        now = launch_counts(K)
+        for k, v in now.items():
+            self.counts[k] += v
+        K.reset_launch_counts()
+        return now
+
+    def aside(self, K, fn):
+        """``fn()``, its launches not counted as the path's."""
+        self.take(K)
+        try:
+            return fn()
+        finally:
+            for k, v in launch_counts(K).items():
+                self.aside_counts[k] += v
+            K.reset_launch_counts()
+
+
+class FixedPathCalls:
+    """Counts the calls of `TenantRuntime._respond_fixed`, the fixed-shape
+    path that a batch takes with ``serve_exact`` off or after the exact
+    path raised, from every runtime while it is installed."""
+
+    def __init__(self, TenantRuntime):
+        self.calls = 0
+        self._cls, self._inner = TenantRuntime, TenantRuntime._respond_fixed
+        inner = self._inner
+
+        def respond_fixed(rt, batch, sel):
+            self.calls += 1
+            return inner(rt, batch, sel)
+
+        TenantRuntime._respond_fixed = respond_fixed
+
+    def close(self) -> None:
+        self._cls._respond_fixed = self._inner
+
+
+def submit_all(server, reqs) -> dict:
+    """Submit ``reqs`` to a started server, then wait for every answer."""
+    for r in reqs:
+        server.submit(r)
+    return {r.id: server.result(r.id, RESULT_S) for r in reqs}
+
+
+def one_batch(server, reqs) -> dict:
+    """Queue ``reqs`` before the dispatcher starts, so they are admitted as
+    one batch (their SLO budget covers the submission), and serve them."""
+    for r in reqs:
+        server.submit(r)
+    server.start()
+    try:
+        return {r.id: server.result(r.id, RESULT_S) for r in reqs}
+    finally:
+        server.stop()
+
+
+def mixed_requests(Request, q, radius, join_radii, ids):
+    """The mixed batch: radius, a join block of per-row radii, counts,
+    reverse targets and kNN queries, on distinct query rows."""
+    a, b = MIX_RADIUS, MIX_RADIUS + MIX_JOIN
+    c, d = b + MIX_COUNT, b + MIX_COUNT + MIX_REVERSE
+    slo = ONE_BATCH_SLO_MS
+    reqs = [Request(query=q[i], radius=radius, id=next(ids), slo_ms=slo)
+            for i in range(a)]
+    reqs.append(Request(query=q[a:b], radius=join_radii, id=next(ids),
+                        slo_ms=slo))
+    reqs += [Request(query=q[i], radius=radius, count_only=True,
+                     id=next(ids), slo_ms=slo) for i in range(b, c)]
+    reqs += [Request(query=q[i], reverse=True, id=next(ids), slo_ms=slo)
+             for i in range(c, d)]
+    reqs += [Request(query=q[i], k=KNN_K, id=next(ids), slo_ms=slo)
+             for i in range(d, d + MIX_KNN)]
+    return reqs
+
+
+def reverse_oracle(torch, stream, raw: np.ndarray, targets: np.ndarray,
+                   rr: np.ndarray):
+    """Float64 brute force of reverse neighbours over every row a streaming
+    index holds, in its index space, on the card: per target the original
+    ids i with ||x_i - t||^2 <= rr_i^2, and those inside the float32 band
+    of that threshold, 2*d*2^-23*(hn + sum|t x|) + 2^-23*(|t|^2 + rr_i^2)
+    (the server decides from a float32 half distance)."""
+    base = stream.base
+    mu = torch.from_numpy(base.mu).to(DEVICE)
+    xc = (torch.from_numpy(raw).to(DEVICE) - mu[None, :]).double()
+    xt, _ = base.prepare_queries(targets, 1.0)
+    t64 = torch.from_numpy(xt.astype(np.float64)).to(DEVICE)
+    hn = 0.5 * (xc * xc).sum(1)
+    tsq = (t64 * t64).sum(1)
+    sq = 2.0 * hn[:, None] - 2.0 * (xc @ t64.T) + tsq[None, :]
+    r2 = torch.from_numpy(np.asarray(rr, np.float64) ** 2).to(DEVICE)[:, None]
+    tol = (2.0 * DIM * EPS32 * (hn[:, None] + xc.abs() @ t64.abs().T)
+           + EPS32 * (tsq[None, :] + r2))
+    keep = (sq <= r2).T.cpu().numpy()
+    band = ((sq - r2).abs() <= tol).T.cpu().numpy()
+    del xc, sq, tol
+    return keep, band
+
+
+def ids_vs_masks(rows: list, keep, band):
+    """(band pairs, pairs outside the band that differ) of answers given as
+    original-id arrays, one a row, against oracle masks."""
+    n_band = n_bad = 0
+    for k, got in enumerate(rows):
+        diff = np.setxor1d(got, np.nonzero(keep[k])[0])
+        n_band += int(band[k, diff].sum())
+        n_bad += int((~band[k, diff]).sum())
+    return n_band, n_bad
+
+
+def serving_mixed(torch, chk: Checks, K, engine, tally, server, Request,
+                  index, q, radius, xs64, hn64, ids):
+    """Step 1: the mixed batch on the card, fused, against the float64
+    brute force and against each request served alone."""
+    rng = np.random.default_rng(SEED + 10)
+    join_radii = radius * rng.uniform(0.9, 1.1, MIX_JOIN)
+    first_reqs = mixed_requests(Request, q, radius, join_radii, ids)
+    first = one_batch(server, first_reqs)
+    chk.ok(all(r.error is None for r in first.values()),
+           f"first mixed batch (the plan built by it): {len(first)} "
+           f"answers, no error; service "
+           f"{max(r.service_ms for r in first.values()):.1f} ms")
+    tally.take(K)
+    agg0 = engine.DispatchStats.aggregate()
+    reqs = mixed_requests(Request, q, radius, join_radii, ids)
+    got = one_batch(server, reqs)
+    agg1 = engine.DispatchStats.aggregate()
+    launches = launch_counts(K)
+    d_launch = agg1["kernel_launches"] - agg0["kernel_launches"]
+    d_copy = agg1["host_transfers"] - agg0["host_transfers"]
+    rounds = launches["snn_count_stacked"] - 2
+    csr_ms = max(got[r.id].service_ms for r in reqs if r.kind != "snn-knn")
+    all_ms = max(r.service_ms for r in got.values())
+    chk.note(f"mixed batch ({len(reqs)} requests, "
+             f"{MIX_RADIUS + MIX_JOIN + MIX_COUNT + MIX_REVERSE} CSR rows + "
+             f"{MIX_KNN} kNN at k={KNN_K}): service {all_ms:.1f} ms, the "
+             f"CSR family's last answer at {csr_ms:.1f} ms; latency p50 "
+             f"{pctl([r.latency_ms for r in got.values()], 50):.1f} ms; "
+             f"dispatch {d_launch} launches, {d_copy} copies; kernels "
+             f"{launches}")
+    chk.ok(launches["snn_compact_stacked"] == 2 and rounds >= 1
+           and launches["snn_filter"] == 0 and launches["snn_count"] == 0
+           and d_launch == 3 + rounds + 3 and d_copy == 1 + rounds + 1,
+           f"one batch: one fused CSR execution for every CSR-family row "
+           f"(3 launches, 1 copy) plus kNN's {rounds} expansion count(s) "
+           f"and its fused final pass (3 launches, 1 copy)")
+    chk.ok(all(same_answer(got[r.id], first[f.id])
+               for r, f in zip(reqs, first_reqs)),
+           "second mixed batch == the first, bit for bit")
+
+    # each request alone, through the same runtime (a comparison: its
+    # launches are not the path's)
+    rt = server.runtime()
+
+    def alone() -> int:
+        n = 0
+        for r in reqs:
+            out = {}
+            solo = Request(query=r.query, radius=r.radius, k=r.k,
+                           count_only=r.count_only, reverse=r.reverse,
+                           id=r.id)
+            rt.run_batch([solo], lambda resp: out.__setitem__(resp.id, resp))
+            n += same_answer(out[r.id], got[r.id])
+        return n
+
+    alone_ok = tally.aside(K, alone)
+    chk.ok(alone_ok == len(reqs), f"each of the {len(reqs)} answers == the "
+           f"same request served alone, bit for bit ({alone_ok})")
+
+    # the float64 brute force
+    a, b = MIX_RADIUS, MIX_RADIUS + MIX_JOIN
+    c, d = b + MIX_COUNT, b + MIX_COUNT + MIX_REVERSE
+    by_id = [got[r.id] for r in reqs]
+    radius_rows = [resp.indices for resp in by_id[:a]]
+    join = by_id[a]
+    join_rows = [join.indices[join.indptr[t]:join.indptr[t + 1]]
+                 for t in range(MIX_JOIN)]
+    radii = np.concatenate([np.full(a, radius), join_radii])
+    keep, band = stream_oracle(torch, server.index, server.data, q[:b], radii)
+    nb, nx = ids_vs_masks(radius_rows + join_rows, keep, band)
+    ckeep, cband = stream_oracle(torch, server.index, server.data, q[b:c],
+                                 radius)
+    counts = np.concatenate([by_id[a + 1 + i].counts for i in range(MIX_COUNT)])
+    c_ok = np.abs(counts - ckeep.sum(1)) <= cband.sum(1)
+    rr = server.runtime().reverse_radii
+    rkeep, rband = reverse_oracle(torch, server.index, server.data, q[c:d], rr)
+    rb, rx = ids_vs_masks([resp.indices for resp in
+                           by_id[a + 1 + MIX_COUNT:a + 1 + MIX_COUNT
+                                 + MIX_REVERSE]], rkeep, rband)
+    knn_ids = np.stack([resp.indices for resp in by_id[-MIX_KNN:]])
+    want, sq, tol = knn_oracle(index, xs64, hn64, q[d:d + MIX_KNN], KNN_K)
+    ties, kbad = knn_agreement(index, knn_ids, want, sq, tol)
+    del keep, band, ckeep, cband, rkeep, rband, sq, tol, rt
+    chk.ok(nx == 0 and rx == 0 and kbad == 0 and bool(c_ok.all()),
+           f"float64 brute force: radius and join rows {nb} band pairs, "
+           f"{nx} outside; counts within their rows' band on "
+           f"{int(c_ok.sum())} of {MIX_COUNT}; reverse {rb} band pairs, "
+           f"{rx} outside; kNN {ties} ranks with another id, {kbad} past "
+           f"the band")
+
+
+def open_loop(server, Request, q, radius, arrivals, ids, log) -> dict:
+    """Requests at ``arrivals`` (seconds from the start, honoured by the
+    clock whatever the completions); the answers' latency split."""
+    reqs = [Request(query=q[i % N_QUERIES], radius=radius, id=next(ids))
+            for i in range(arrivals.size)]
+    n_before = len(log.batches)
+    t0 = time.perf_counter()
+    for r, t_arr in zip(reqs, arrivals):
+        lag = t0 + float(t_arr) - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)
+        server.submit(r)
+    resps = [server.result(r.id, RESULT_S) for r in reqs]
+    wall = time.perf_counter() - t0
+    sizes = [len(b[0]) for b in log.batches[n_before:]]
+    return {"errors": sum(r.error is not None for r in resps),
+            "qps": arrivals.size / wall,
+            "latency_ms": [r.latency_ms for r in resps],
+            "queue_delay_ms": [r.queue_delay_ms for r in resps],
+            "mean_batch": float(np.mean(sizes)) if sizes else 0.0}
+
+
+def serving_open_loop(chk: Checks, engine, SNNServer, IndexRegistry, Request,
+                      server, cfg, q, radius, ids):
+    """Step 2: 2,048 requests at t = 0 under both admission policies, then
+    Poisson arrivals at half the deadline policy's saturation rate."""
+    reg_w = IndexRegistry(cfg, device=DEVICE)
+    reg_w.add("default", server.runtime())
+    cfg_w = dataclasses.replace(cfg, serve_policy="window")
+    servers = {"deadline": server,
+               "window": SNNServer(registry=reg_w, cfg=cfg_w, device=DEVICE)}
+    logs = {p: BatchLog(s, engine) for p, s in servers.items()}
+    runs, errors = {}, 0
+    rng = np.random.default_rng(SEED + 11)
+    for p, s in servers.items():
+        s.start()
+    try:
+        for p, s in servers.items():   # warm both buckets through each
+            submit_all(s, [Request(query=q[i % N_QUERIES], radius=radius,
+                                   id=next(ids))
+                           for i in range(2 * cfg.serve_batch)])
+        warm_end = {p: len(logs[p].batches) for p in servers}
+        for p, s in servers.items():
+            runs["saturation", p] = open_loop(
+                s, Request, q, radius, np.zeros(OPEN_LOOP_REQUESTS), ids,
+                logs[p])
+        rate = 0.5 * runs["saturation", "deadline"]["qps"]
+        arrivals = np.cumsum(rng.exponential(1.0 / rate, OPEN_LOOP_REQUESTS))
+        for p, s in servers.items():
+            runs["poisson", p] = open_loop(s, Request, q, radius, arrivals,
+                                           ids, logs[p])
+    finally:
+        for p, s in servers.items():
+            s.stop()
+            logs[p].close()
+    for (load, p), m in runs.items():
+        errors += m["errors"]
+        chk.note(f"{load} {p}: {m['qps']:.0f} qps completed, latency p50 "
+                 f"{pctl(m['latency_ms'], 50):.2f} p99 "
+                 f"{pctl(m['latency_ms'], 99):.2f} ms, queue delay p50 "
+                 f"{pctl(m['queue_delay_ms'], 50):.2f} p99 "
+                 f"{pctl(m['queue_delay_ms'], 99):.2f} ms, mean batch "
+                 f"{m['mean_batch']:.1f}")
+    chk.ok(errors == 0, f"open loop: {4 * OPEN_LOOP_REQUESTS} requests at "
+           f"saturation and at {rate:.0f} qps (half the deadline policy's "
+           f"saturation), no error response")
+    shapes = {p: (logs[p].shapes(0, warm_end[p]), logs[p].shapes(warm_end[p]))
+              for p in servers}
+    chk.ok(all(set(w) <= set(EXACT_PATH) and set(m) <= {FUSED, OVERFLOW}
+               for w, m in shapes.values()),
+           "open loop: every dispatcher batch on the exact path, fused or a "
+           "speculation overflow once both buckets ran; {(launches, "
+           "copies): batches} " + "; ".join(
+               f"{p} warm-up {w}, measured {m}"
+               for p, (w, m) in shapes.items()))
+    return runs
+
+
+def serving_live(torch, chk: Checks, K, engine, streaming, tally,
+                 TenantRuntime, Request, server, cfg, q, radius, rate, ids):
+    """Step 3: a steady stream while a mutator thread appends 8 batches of
+    8,192 rows and rebuilds; the latency of the requests submitted before,
+    during the appends, during the rebuild and after.  Returns each
+    window's p99."""
+    import threading
+
+    log = BatchLog(server, engine)
+    stop_stream, sent_all = threading.Event(), threading.Event()
+    mut_done = threading.Event()
+    sent: list = []          # (id, submit time)
+    answers: dict = {}
+    mutator: dict = {}
+    rng = np.random.default_rng(SEED + 12)
+    gaps = rng.exponential(1.0 / rate, 1 << 20)
+    index = server.index
+    warm0 = (index.warm_runs, index.warm_failures)
+    # each warm: (its thread, its buckets, its launches and copies)
+    warms: list = []
+    warm_plan = engine.warm_plan
+
+    def warm(pack, *, m_pads=(128,), **kw):
+        s0 = engine.DISPATCH_STATS.snapshot()
+        try:
+            return warm_plan(pack, m_pads=m_pads, **kw)
+        finally:
+            s1 = engine.DISPATCH_STATS.snapshot()
+            warms.append((threading.get_ident(),
+                          len({int(b) for b in m_pads if int(b) > 0}),
+                          s1["kernel_launches"] - s0["kernel_launches"],
+                          s1["host_transfers"] - s0["host_transfers"]))
+
+    def client():
+        t0, i = time.perf_counter(), 0
+        t_next = t0
+        while not stop_stream.is_set():
+            t_next += gaps[i % gaps.size]
+            lag = t_next - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            r = Request(query=q[i % N_QUERIES], radius=radius, id=next(ids))
+            sent.append((r.id, time.perf_counter()))
+            server.submit(r)
+            i += 1
+
+    def consumer():
+        k = 0
+        while not (sent_all.is_set() and k >= len(sent)):
+            if k >= len(sent):
+                time.sleep(1e-4)
+                continue
+            rid, _ = sent[k]
+            resp = server.result(rid, RESULT_S)
+            answers[rid] = (resp.generation, resp.latency_ms, resp.error)
+            k += 1
+
+    def mutate():
+        mutator["thread"] = threading.get_ident()
+        s0 = engine.DISPATCH_STATS.snapshot()
+        mutator["appends"] = (time.perf_counter(),)
+        for gen in range(1, N_APPENDS + 1):
+            server.append(sift_standin(APPEND_ROWS, DIM, SEED + gen))
+        mutator["appends"] += (time.perf_counter(),)
+        server.rebuild()
+        mutator["rebuild"] = (mutator["appends"][1], time.perf_counter())
+        s1 = engine.DISPATCH_STATS.snapshot()
+        mutator.update({k: s1[k] - s0[k] for k in ("kernel_launches",
+                                                    "host_transfers")})
+        mut_done.set()
+
+    agg0 = engine.DispatchStats.aggregate()
+    engine.warm_plan = warm
+    server.start()
+    threads = [threading.Thread(target=client),
+               threading.Thread(target=consumer)]
+    try:
+        for th in threads:
+            th.start()
+        time.sleep(1.0)                      # the steady window
+        t_mut0 = time.perf_counter()
+        mt = threading.Thread(target=mutate)
+        mt.start()
+        mt.join(RESULT_S)
+        t_mut1 = time.perf_counter()
+        time.sleep(0.3)                      # the stream after the last publish
+    finally:
+        stop_stream.set()
+        threads[0].join(RESULT_S)        # the client's last submission
+        sent_all.set()
+        threads[1].join(RESULT_S)
+        server.stop()
+        engine.warm_plan = warm_plan
+    agg1 = engine.DispatchStats.aggregate()
+    log.close()
+    chk.ok(mut_done.is_set() and not any(th.is_alive() for th in threads)
+           and len(answers) == len(sent),
+           f"live stream: {len(sent)} requests answered while the mutator "
+           f"appended {N_APPENDS} x {APPEND_ROWS} rows in "
+           f"{np.diff(mutator.get('appends', (0, 0)))[0]:.2f} s and "
+           f"rebuilt {index.n} rows in "
+           f"{np.diff(mutator.get('rebuild', (0, 0)))[0]:.2f} s")
+    errs = sum(a[2] is not None for a in answers.values())
+    gens = [answers[rid][0] for rid, _ in sent if rid in answers]
+    chk.ok(errs == 0 and all(g1 >= g0 for g0, g1 in zip(gens, gens[1:])),
+           f"no error response; generations non-decreasing in submission "
+           f"order ({gens[0]} to {gens[-1]})")
+    windows = {"steady": (0.0, t_mut0),
+               "appends": mutator.get("appends", (0.0, 0.0)),
+               "rebuild": mutator.get("rebuild", (0.0, 0.0)),
+               "during": (t_mut0, t_mut1),
+               "after": (t_mut1, float("inf"))}
+    lat = {w: [answers[rid][1] for rid, t in sent
+               if lo <= t < hi and rid in answers]
+           for w, (lo, hi) in windows.items()}
+    chk.note(f"live stream at {rate:.0f} qps, latency by submission "
+             "window: " + "; ".join(
+                 f"{w} p50 {pctl(v, 50):.2f} p99 {pctl(v, 99):.2f} max "
+                 f"{max(v):.2f} ms ({len(v)} requests)"
+                 for w, v in lat.items() if v))
+    warm = (index.warm_runs - warm0[0], index.warm_failures - warm0[1])
+    serving_l = sum(b[1] for b in log.batches)
+    serving_c = sum(b[2] for b in log.batches)
+    chk.ok(warm[1] == 0 and warm[0] == N_APPENDS + 1,
+           f"plan warming: {warm[0]} warms on the mutator, {warm[1]} failed")
+    # a warm runs one zero-match dispatch a bucket: fused (3 launches) or
+    # exact-sized with no rows (2 launches), one copy either way
+    chk.ok(len(warms) == warm[0]
+           and all(w[0] == mutator.get("thread") and w[3] == w[1]
+                   and 2 * w[1] <= w[2] <= 3 * w[1] for w in warms)
+           and sum(w[2] for w in warms) == mutator.get("kernel_launches")
+           and sum(w[3] for w in warms) == mutator.get("host_transfers"),
+           f"every warm on the mutator's thread, one dispatch a bucket "
+           f"({sum(w[1] for w in warms)} buckets over {len(warms)} warms); "
+           f"they are all the mutator's launches "
+           f"({sum(w[2] for w in warms)} of "
+           f"{mutator.get('kernel_launches')}) and copies "
+           f"({sum(w[3] for w in warms)} of "
+           f"{mutator.get('host_transfers')})")
+    chk.ok(set(log.shapes()) <= {FUSED, OVERFLOW}
+           and agg1["kernel_launches"] - agg0["kernel_launches"]
+           == serving_l + mutator.get("kernel_launches", -1)
+           and agg1["host_transfers"] - agg0["host_transfers"]
+           == serving_c + mutator.get("host_transfers", -1),
+           f"the dispatcher's own counters: {len(log.batches)} batches, "
+           f"each fused or a speculation overflow, {{(launches, copies): "
+           f"batches}} {log.shapes()}, no warm launch; "
+           f"DispatchStats.aggregate() holds them and the mutator's "
+           f"{mutator.get('kernel_launches')} launches")
+    gen_of = {rid: answers[rid][0] for rid, _ in sent if rid in answers}
+    first_of: dict = {}
+    for bids, nl, nc in log.batches:
+        g = gen_of.get(bids[0])
+        if g is not None and g not in first_of:
+            first_of[g] = (nl, nc)
+    later = {g: v for g, v in first_of.items() if g > min(first_of)}
+    chk.ok(len(later) >= 1 and all(v == (3, 1) for v in later.values()),
+           f"the first batch of each new generation fused (3 launches, 1 "
+           f"copy): {sum(v == (3, 1) for v in later.values())} of "
+           f"{len(later)} generations served")
+
+    # the mutated tenant against a copy of its state
+    leaves, extra = index.state_leaves()
+    copy = streaming.StreamingSNNIndex.from_state(leaves, extra,
+                                                  device=DEVICE)
+    del leaves
+    twin = TenantRuntime(copy, dataclasses.replace(cfg,
+                                                   serve_warm_plans=False))
+    batch = [Request(query=q[i], radius=radius, id=next(ids))
+             for i in range(MIX_RADIUS)]
+    server.start()
+    try:
+        got = submit_all(server, batch)
+    finally:
+        server.stop()
+    want: dict = {}
+    tally.aside(K, lambda: twin.run_batch(
+        [Request(query=r.query, radius=r.radius, id=r.id) for r in batch],
+        lambda resp: want.__setitem__(resp.id, resp)))
+    chk.ok(all(same_answer(got[r.id], want[r.id]) for r in batch)
+           and got[batch[0].id].generation == index.generation,
+           f"after the mutations (generation {index.generation}, "
+           f"{len(index.parts)} part): a batch == a from_state copy of "
+           f"state_leaves(), bit for bit")
+    del twin, copy
+    torch.cuda.empty_cache()
+    return {w: pctl(v, 99) for w, v in lat.items()}
+
+
+def serving_tenants(torch, chk: Checks, engine, SNNServer, IndexRegistry,
+                    TenantRuntime, Request, server, cfg, q, radius, ids):
+    """Step 4: a second tenant of as many rows; a budget just above one
+    tenant's plan makes serving the two in turn evict the other's plan."""
+    rt_a = server.runtime()
+    x2 = sift_standin(N_ROWS, DIM, SEED + SECOND_TENANT_SEED)
+    t = time.perf_counter()
+    rt_b = TenantRuntime(x2, cfg, name="second", device=DEVICE)
+    torch.cuda.synchronize()
+    chk.note(f"second tenant: {N_ROWS} rows indexed in "
+             f"{time.perf_counter() - t:.2f} s")
+    del x2
+    rt_a.index.drop_plan()        # both tenants' plans hold one batch shape
+    for rt in (rt_a, rt_b):
+        rt.run_batch([Request(query=q[i], radius=radius, id=next(ids))
+                      for i in range(MIX_RADIUS)], lambda resp: None)
+    one = max(rt_a.index.plan_bytes(), rt_b.index.plan_bytes())
+    cfg_t = dataclasses.replace(cfg, registry_memory_mb=(one + 2**20) / 2**20)
+    reg = IndexRegistry(cfg_t, device=DEVICE)
+    reg.add("default", rt_a)
+    reg.add("second", rt_b)
+    del rt_a, rt_b
+    srv = SNNServer(registry=reg, cfg=cfg_t, device=DEVICE)
+    chk.note(f"plan_bytes a tenant {one} ({one / 2**30:.2f} GiB, the "
+             f"MemoryPlan ledger's worst case); budget "
+             f"{reg.budget_bytes} bytes")
+    answers, kept = {}, True
+    log = BatchLog(srv, engine)
+    srv.start()
+    try:
+        for rnd, name in enumerate(("default", "second") * 2):
+            reqs = [Request(query=q[i], radius=radius, id=next(ids),
+                            tenant=name) for i in range(MIX_RADIUS)]
+            got = submit_all(srv, reqs)
+            other = "second" if name == "default" else "default"
+            kept &= reg.plan_bytes(name) > 0 and reg.plan_bytes(other) == 0
+            answers.setdefault(name, []).append([got[r.id] for r in reqs])
+    finally:
+        srv.stop()
+        log.close()
+    same = all(same_answer(a, b) for name in answers
+               for a, b in zip(*answers[name]))
+    chk.ok(kept and reg._evictions == 4 and same
+           and set(log.shapes()) <= set(EXACT_PATH),
+           f"two tenants served in turn: {reg._evictions} evictions, the "
+           f"tenant being served never dropped, the other's plan dropped; "
+           f"answers after re-admission == before eviction, bit for bit; "
+           f"every batch on the exact path, {{(launches, copies): "
+           f"batches}} {log.shapes()}")
+    reg.drop("second")
+    del srv, reg, answers
+    torch.cuda.empty_cache()
+
+
+def serving_drill(torch, chk: Checks, K, tally, FailureInjector,
+                  ReplicaDrill, Request, server, q, radius, ids):
+    """Step 5: checkpoint the mutated tenant, kill and restore the replica
+    mid-probe, then fall back past a corrupt newest checkpoint."""
+    import shutil
+    import tempfile
+
+    reg = server.registry
+    ckpt = tempfile.mkdtemp(prefix=".serving_ckpt_", dir=ROOT)
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = reg.save("default", ckpt)
+        save_s = time.perf_counter() - t
+        nbytes = sum(p.stat().st_size for p in Path(ckpt).rglob("*")
+                     if p.is_file())
+        chk.note(f"checkpoint of {server.index.n} rows at generation "
+                 f"{step}: {nbytes} bytes in {save_s:.2f} s")
+        probes = [[Request(query=q[s * 8 + i], radius=radius, id=0)
+                   for i in range(8)] for s in range(DRILL_STEPS)]
+        restore_s = []
+
+        def serve(s):
+            out = []
+            reg.get("default").run_batch(
+                [Request(query=r.query, radius=r.radius, id=next(ids))
+                 for r in probes[s]], out.append)
+            return out
+
+        def restore():
+            t = time.perf_counter()
+            reg.restore("default", ckpt, device=DEVICE)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t)
+
+        # the uninterrupted run, to compare with (not the path's count)
+        want = tally.aside(K, lambda: [serve(s) for s in range(DRILL_STEPS)])
+        drill = ReplicaDrill(serve_fn=serve, restore_fn=restore,
+                             total_steps=DRILL_STEPS)
+        got, killed = drill.run(FailureInjector(
+            {s: "replica killed" for s in DRILL_KILLS}))
+        same = all(same_answer(a, b) for ws, gs in zip(want, got)
+                   for a, b in zip(ws, gs))
+        chk.ok(killed == list(DRILL_KILLS) and same
+               and reg.get("default").index.generation == step,
+               f"ReplicaDrill: killed at steps {killed}, restored in "
+               + ", ".join(f"{s:.2f}" for s in restore_s)
+               + f" s; {DRILL_STEPS} probe answers == the uninterrupted "
+               "run's, bit for bit")
+        # a newer checkpoint, corrupted: restore falls back to the previous
+        idx = reg.get("default").index
+        n_before = idx.n
+        idx.append(sift_standin(APPEND_ROWS, DIM, SEED + N_APPENDS + 1))
+        newer = reg.save("default", ckpt)
+        shard = Path(ckpt) / f"step_{newer:09d}" / "shard_00000.npz"
+        with open(shard, "r+b") as f:
+            f.seek(4096)
+            f.write(b"\x00" * 64)
+        del idx
+        reg.restore("default", ckpt, device=DEVICE)
+        back = reg.get("default").index
+        again = serve(0)
+        chk.ok(newer > step and back.generation == step
+               and back.n == n_before
+               and all(same_answer(a, b) for a, b in zip(again, want[0])),
+               f"the newest checkpoint (step {newer}) corrupted: restore "
+               f"fell back to step {step}, {back.n} rows, answers as before")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def serving_other_paths(torch, chk: Checks, K, tally, fixed_path, SNNServer,
+                        IndexRegistry, TenantRuntime, Request, server, cfg,
+                        q, radius, ids):
+    """Step 6: the fixed-shape path (the filter) and the looped executor
+    on the default tenant's index."""
+    index = server.index
+    out = {}
+    for name, over in (("fixed", dict(serve_exact=False)),
+                       ("looped", dict(serve_packed=False))):
+        c = dataclasses.replace(cfg, serve_warm_plans=False, **over)
+        reg = IndexRegistry(c, device=DEVICE)
+        reg.add("default", TenantRuntime(index, c))
+        out[name] = SNNServer(registry=reg, cfg=c, device=DEVICE)
+    fixed = [Request(query=q[i % N_QUERIES], radius=radius, id=next(ids))
+             for i in range(FIXED_REQUESTS)]
+    tally.take(K)
+    calls0 = fixed_path.calls
+    out["fixed"].start()
+    try:
+        got = submit_all(out["fixed"], fixed)
+    finally:
+        out["fixed"].stop()
+    fl = tally.take(K)
+    fixed_calls = fixed_path.calls - calls0
+    # the exact rows and the float64 band, to hold the answers against
+    qf = np.stack([r.query for r in fixed])
+    csr = tally.aside(K, lambda: index.query_radius_csr(qf, radius,
+                                                        native=False))
+    _, band = stream_oracle(torch, index, index.raw, qf, radius)
+    inv = np.empty_like(index.base.order)
+    inv[index.base.order] = np.arange(index.base.order.size)
+    counts = np.diff(csr.indptr)
+    near = explained = 0
+    for j, r in enumerate(fixed):
+        s, e = csr.indptr[j], csr.indptr[j + 1]
+        cid = csr.indices[s:e]
+        want = cid[np.lexsort((inv[cid], csr.distances[s:e]))][:FIXED_K]
+        resp = got[r.id]
+        if (np.array_equal(resp.indices, want)
+                and resp.truncated == (counts[j] > FIXED_K)):
+            near += 1
+        else:
+            # the fixed path rounds its threshold in float32, the exact path
+            # from float64: a row may differ by pairs inside the band
+            diff = np.setxor1d(resp.indices, want)
+            explained += int(bool(band[j, diff].all())
+                             and abs(int(counts[j]) - FIXED_K)
+                             <= int(band[j].sum()))
+    del band
+    chk.ok(len(index.parts) == 1 and fl["snn_filter"] >= 1
+           and fl["snn_count_stacked"] == 0 and fl["snn_count"] == 0
+           and fixed_calls >= 1
+           and all(got[r.id].error is None for r in fixed)
+           and near + explained == FIXED_REQUESTS,
+           f"serve_exact=False: {FIXED_REQUESTS} requests through the filter "
+           f"({fixed_calls} fixed-path batches, {fl['snn_filter']} "
+           f"launches, no count launch); {near} answers "
+           f"== the {FIXED_K} nearest of the exact row with truncated == "
+           f"count > {FIXED_K} ({int(np.sum(counts > FIXED_K))} cut), "
+           f"{explained} off by pairs inside the float32 band")
+    rng = np.random.default_rng(SEED + 13)
+    family = [r for r in mixed_requests(
+        Request, q, radius, radius * rng.uniform(0.9, 1.1, MIX_JOIN), ids)
+        if r.kind in ("snn-radius", "snn-join", "snn-count")]
+    def batch():
+        return [Request(query=r.query, radius=r.radius,
+                        count_only=r.count_only, id=r.id,
+                        slo_ms=ONE_BATCH_SLO_MS) for r in family]
+
+    calls0 = fixed_path.calls
+    results = {"looped": one_batch(out["looped"], batch())}
+    ll = tally.take(K)
+    # the packed executor's answers, to compare with
+    results["packed"] = tally.aside(K, lambda: one_batch(server, batch()))
+    chk.ok(ll["snn_count"] > 0 and ll["snn_compact"] > 0
+           and ll["snn_count_stacked"] == ll["snn_compact_stacked"] == 0
+           and fixed_path.calls == calls0
+           and all(same_answer(results["looped"][r.id],
+                               results["packed"][r.id]) for r in family),
+           f"serve_packed=False: {len(family)} radius, join and count "
+           f"requests through the looped executor ({ll['snn_count']} "
+           f"single-segment counts, {ll['snn_compact']} compacts, no "
+           f"fixed-path batch) == the packed executor's, bit for bit")
+    del out, results
+
+
+def phase_serving(torch, chk: Checks, K, engine, index, x, q, radius, xs64,
+                  hn64, clock):
+    """Phase 3b: the SNN server on the point-query cell.  Returns the
+    kernels' launches on the serving path, {kernel: launches}."""
+    import itertools
+
+    from repro_torch.configs.snn_default import SNNConfig
+    from repro_torch.ft.elastic import FailureInjector, ReplicaDrill
+    from repro_torch.serving import (IndexRegistry, Request, SNNServer,
+                                     TenantRuntime)
+
+    streaming = importlib.import_module("repro_torch.core.streaming")
+    print(f"phase 3b: the SNN server, n={N_ROWS} d={DIM}, radius {radius!r}")
+    ids = itertools.count()
+    cfg = SNNConfig()
+    tally = Tally()
+    fixed_path = FixedPathCalls(TenantRuntime)
+    K.reset_launch_counts()
+    try:
+        server = clock(f"SNNServer over {N_ROWS} rows",
+                       lambda: SNNServer(x, cfg, device=DEVICE))
+        chk.ok(server.index.base.xs.device.type == torch.device(DEVICE).type,
+               f"server index on {server.device}")
+        server.set_reverse_radii(radius * np.random.default_rng(
+            SEED + 9).uniform(0.9, 1.1, N_ROWS))
+        t = time.perf_counter()
+        serving_mixed(torch, chk, K, engine, tally, server, Request, index,
+                      q, radius, xs64, hn64, ids)
+        chk.note(f"step 1 (mixed batch) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        runs = serving_open_loop(chk, engine, SNNServer, IndexRegistry,
+                                 Request, server, cfg, q, radius, ids)
+        chk.note(f"step 2 (open loop) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rate = min(LIVE_SHARE * runs["saturation", "deadline"]["qps"],
+                   LIVE_QPS)
+        live = serving_live(torch, chk, K, engine, streaming, tally,
+                            TenantRuntime, Request, server, cfg, q, radius,
+                            rate, ids)
+        chk.note(f"step 3 (live mutation) took "
+                 f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        serving_tenants(torch, chk, engine, SNNServer, IndexRegistry,
+                        TenantRuntime, Request, server, cfg, q, radius, ids)
+        chk.note(f"step 4 (two tenants) took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        serving_drill(torch, chk, K, tally, FailureInjector, ReplicaDrill,
+                      Request, server, q, radius, ids)
+        chk.note(f"step 5 (checkpoint drill) took "
+                 f"{time.perf_counter() - t:.1f} s")
+        tally.take(K)
+        off = {k: tally.counts[k] + tally.aside_counts[k]
+               for k in ("snn_filter", "snn_count", "snn_compact")}
+        chk.ok(fixed_path.calls == 0 and not any(off.values()),
+               f"steps 1-5 on the exact path only: {fixed_path.calls} "
+               f"batches on the fixed path, launches {off}")
+        t = time.perf_counter()
+        serving_other_paths(torch, chk, K, tally, fixed_path, SNNServer,
+                            IndexRegistry, TenantRuntime, Request, server,
+                            cfg, q, radius, ids)
+        chk.note(f"step 6 (fixed and looped) took "
+                 f"{time.perf_counter() - t:.1f} s")
+    finally:
+        fixed_path.close()
+    chk.note("live stream p99: " + ", ".join(f"{w} {v:.2f} ms"
+                                             for w, v in live.items())
+             + f"; launches on the path "
+             f"{ {k: v for k, v in tally.counts.items() if v} }")
+    del server
+    torch.cuda.empty_cache()
+    return {k: v for k, v in tally.counts.items() if v}
+
+
+# --------------------------------------------------------------------------- #
 # phase 4                                                                      #
 # --------------------------------------------------------------------------- #
 # embedding_bag launches per forward of each model's serve step
@@ -2536,6 +3406,15 @@ def main() -> int:
                 rec["launches_by_path"][path] = counts[rec["name"]]
                 rec["launches"] += counts[rec["name"]]
     if not phase_done("phase 3", t):
+        return 1
+    t = time.perf_counter()
+    serving = phase_serving(torch, chk, K, engine, index, x, q, radius, xs64,
+                            hn64, clock)
+    for rec in kernels:
+        if serving.get(rec["name"]):
+            rec["launches_by_path"]["serving"] = serving[rec["name"]]
+            rec["launches"] += serving[rec["name"]]
+    if not phase_done("phase 3b", t):
         return 1
     del index, x, q, xs64, hn64
     torch.cuda.empty_cache()

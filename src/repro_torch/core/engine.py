@@ -68,6 +68,20 @@ _STAT_FIELDS = ("kernel_launches", "host_transfers", "jit_compiles",
                 "bytes_planned")
 
 
+class _StatCounters:
+    """One thread's raw counters (only its owner thread mutates them)."""
+
+    __slots__ = _STAT_FIELDS
+
+    def __init__(self) -> None:
+        for f in _STAT_FIELDS:
+            setattr(self, f, 0)
+
+
+_AGG_LOCK = threading.Lock()
+_ALL_COUNTERS: list[_StatCounters] = []
+
+
 class DispatchStats(threading.local):
     """Per-thread counters of the engine's dispatch overhead.
 
@@ -77,17 +91,47 @@ class DispatchStats(threading.local):
     signatures never seen before in this process
     (`kernels.registry.note_launch_signature`); ``bytes_planned`` counts the
     bytes of newly built `MemoryPlan`s.
+
+    Each thread gets its own `_StatCounters` holder on first touch
+    (``threading.local``), registered in a lock-guarded list, so a server's
+    dispatcher and a mutator warming the next plan never race on an
+    increment and each sees only its own work; `aggregate()` sums every
+    holder ever registered, the cross-thread view.
     """
 
     def __init__(self) -> None:
-        self.reset()
+        self._c = _StatCounters()
+        with _AGG_LOCK:
+            _ALL_COUNTERS.append(self._c)
 
     def reset(self) -> None:
         for f in _STAT_FIELDS:
-            setattr(self, f, 0)
+            setattr(self._c, f, 0)
 
     def snapshot(self) -> dict:
-        return {f: getattr(self, f) for f in _STAT_FIELDS}
+        return {f: getattr(self._c, f) for f in _STAT_FIELDS}
+
+    @staticmethod
+    def aggregate() -> dict:
+        """Sum of every thread's counters (exited threads included), since
+        each thread's last `reset`."""
+        with _AGG_LOCK:
+            holders = list(_ALL_COUNTERS)
+        out = dict.fromkeys(_STAT_FIELDS, 0)
+        for c in holders:
+            for f in _STAT_FIELDS:
+                out[f] += getattr(c, f)
+        return out
+
+
+def _stat_property(field: str) -> property:
+    return property(lambda self: getattr(self._c, field),
+                    lambda self, value: setattr(self._c, field, value))
+
+
+for _f in _STAT_FIELDS:
+    setattr(DispatchStats, _f, _stat_property(_f))
+del _f
 
 
 DISPATCH_STATS = DispatchStats()

@@ -26,7 +26,8 @@ re-index.
 
 Writers (append/rebuild) serialize on a mutation lock and do their heavy
 work outside the short state lock, publishing an immutable ``(parts,
-segments, plan)`` snapshot in one locked swap; queries read one snapshot.
+segments, plan)`` snapshot in one locked swap, after their device work has
+finished; queries read one snapshot.
 The ``plan`` is the engine's `SegmentPack`: built lazily on first query,
 extended by one stacked slab an append (`SegmentPack.extend`, the next
 epoch), and replaced by merges and rebuilds.  With `set_plan_warming` the
@@ -230,6 +231,13 @@ class StreamingSNNIndex:
             self.warm_failures += 1
             traceback.print_exc()
 
+    def _settle(self) -> None:
+        """Wait for this thread's device work before a publish: a query on
+        another thread (or stream) must never read a plan or part whose
+        tensors are still being written."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
     def _segment(self, part: _snn.SNNIndex) -> _engine.Segment:
         return _engine.segment_from_index(part, block=self.block)
 
@@ -389,6 +397,7 @@ class StreamingSNNIndex:
                 for p in parts[1:]:
                     merged = merge_sorted_indexes(merged, p)
                 segs, plan = self._next_plan((merged,))
+                self._settle()
                 with self._lock:
                     self._generation += 1
                     self._state = ((merged,), segs, plan)
@@ -414,6 +423,7 @@ class StreamingSNNIndex:
                     new_plan = None
                 if self._warm and new_plan is not None:
                     self._prime(new_plan, spec_from=prev_plan)
+                self._settle()
                 with self._lock:
                     # a query may have filled segments meanwhile: keep them
                     self._generation += 1
@@ -425,6 +435,7 @@ class StreamingSNNIndex:
         base = _snn.build_index(self.raw, metric=self.metric,
                                 n_iter=self.n_iter, device=self.device)
         segs, plan = self._next_plan((base,))
+        self._settle()
         with self._lock:
             self._n_at_build = base.n
             self._generation += 1

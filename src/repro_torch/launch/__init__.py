@@ -1,1 +1,2 @@
-"""Launchers of the port: the step builders (`steps`)."""
+"""Launchers of the port: the step builders (`steps`) and the SNN serving
+launcher (`serve`)."""

@@ -528,6 +528,65 @@ def test_cuda_streaming_sequence_equals_the_cpu(card):
     assert dev.warm_runs == 4 and dev.warm_failures == 0
 
 
+def test_cuda_server_mixed_batch_equals_the_cpu(card):
+    """A server on the card answers a mixed batch (radius, join with
+    per-row radii, count, reverse, kNN with mixed k) as the CPU port does
+    on the same `from_state` leaves, bit for bit, on a lattice, in two
+    rounds (the second fused), and on the fixed path (the filter) too."""
+    from repro_torch.configs.snn_default import SNNConfig
+    from repro_torch.core import streaming as tst
+    from repro_torch.serving import IndexRegistry, Request, SNNServer
+
+    x, q, _, _, rng = _symmetric_lattice(9)
+    host = tst.StreamingSNNIndex(x, block=256, device="cpu")
+    host.append(rng.integers(-4, 5, size=(150, x.shape[1]))
+                .astype(np.float32))
+    leaves, extra = host.state_leaves()
+    rr = rng.choice([1.5, 2.0, 2.5], size=host.n)
+    jr = rng.choice([2.0, 3.0], 8)
+
+    def batch():
+        return [Request(query=q[0], radius=2.5, id=0),
+                Request(query=q[1:9], radius=jr, id=1),
+                Request(query=q[9], radius=2.5, count_only=True, id=2),
+                Request(query=q[10:13], reverse=True, id=3),
+                Request(query=q[13], k=5, id=4),
+                Request(query=q[14], k=11, id=5)]
+
+    answers = {}
+    for dev in ("cpu", "cuda"):
+        for cfg in (SNNConfig(), SNNConfig(serve_exact=False)):
+            reg = IndexRegistry(cfg, device=dev)
+            reg.add("default", tst.StreamingSNNIndex.from_state(
+                leaves, extra, device=dev))
+            server = SNNServer(registry=reg, cfg=cfg, device=dev)
+            server.set_reverse_radii(rr)
+            tsq.reset_launch_counts()
+            for rnd in range(2):
+                server._run_batch(batch())
+                answers[dev, cfg.serve_exact, rnd] = dict(server._results)
+                server._results.clear()
+            if dev == "cuda":
+                # the exact path never reaches the filter, the fixed one does
+                assert (tsq.snn_filter.launches == 0) == cfg.serve_exact
+                assert tsq.snn_count_stacked.launches > 0
+    for exact in (True, False):
+        for rnd in range(2):
+            want, got = answers["cpu", exact, rnd], answers["cuda", exact, rnd]
+            assert sorted(got) == sorted(want) == list(range(6))
+            for rid in range(6):
+                w, g = want[rid], got[rid]
+                assert (g.error is None) == (w.error is None), rid
+                assert (g.error is None) == (exact or rid in (0, 4, 5)), rid
+                np.testing.assert_array_equal(g.indices, w.indices)
+                np.testing.assert_array_equal(g.sq_dists, w.sq_dists)
+                for f in ("indptr", "counts"):
+                    a, b = getattr(w, f), getattr(g, f)
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        np.testing.assert_array_equal(b, a)
+
+
 @pytest.fixture
 def tf32_on():
     """TF32 turned on process-wide, as an application may set it, and

@@ -21,7 +21,9 @@ import repro_torch.core as tcore
 from repro_torch.core import knn as tknn
 from repro_torch.core import snn as tsnn
 from repro_torch.core import streaming as tst
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
+from repro_torch.serving import IndexRegistry, SNNServer, TenantRuntime
 
 # the package exports functions named `join` and `dbscan`, which shadow the
 # module names
@@ -48,9 +50,16 @@ def _imported_modules(path: Path):
             yield str(node.args[0].value)
 
 
+SERVING_MODULES = ("configs/snn_default", "ft/checkpoint", "ft/elastic",
+                   "ft/watchdog", "serving/runtime", "serving/registry",
+                   "serving/server", "data/pipeline", "launch/serve")
+
+
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
+    # the serving slice's modules are among the files scanned
+    assert {PORT / f"{m}.py" for m in SERVING_MODULES} <= set(files)
     return files
 
 
@@ -174,3 +183,35 @@ def test_recsys_steps_build_on_the_card_by_default(no_card, shape):
     model, batch = sd.init_args(device="cpu")
     assert model.items.device.type == "cpu"
     assert all(v.device.type == "cpu" for v in batch.values())
+
+
+def test_serving_entry_points_need_a_card_or_cpu(no_card, tmp_path, capsys):
+    x, q = _data()
+    calls = [
+        lambda: SNNServer(x),
+        lambda: IndexRegistry(),
+        lambda: TenantRuntime(x),
+        lambda: tserve.main(["--n", "300", "--d", "4", "--requests", "4"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    reg = IndexRegistry(device="cpu", checkpoint_root=str(tmp_path))
+    rt = reg.create("t", x)
+    assert rt.index.device.type == "cpu"
+    reg.save("t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reg.restore("t", device="cuda")
+    # a registry's restore and server default to the registry's device
+    assert reg.restore("t").index.device.type == "cpu"
+    back = reg.restore("t", device="cpu")
+    assert back.index.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SNNServer(registry=reg, device="cuda")
+    assert SNNServer(registry=reg).device.type == "cpu"
+    server = SNNServer(registry=reg, device="cpu")
+    assert server.runtime("t") is back
+    assert TenantRuntime(x, device="cpu").index.device.type == "cpu"
+    tserve.main(["--n", "300", "--d", "4", "--requests", "4",
+                 "--radius", "0.5"], device="cpu")
+    assert "4 requests in" in capsys.readouterr().out
