@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs seven phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs eight phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -36,6 +36,24 @@ or note, and each phase's time:
    stacked kernels against their plain versions (and timed) on one graph
    chunk's live stack, and the looped executor over 8 sampled query chunks
    bit-identical to the packed one;
+2d. (run after 2b) the sharded SNN on the same index, queries, radius and
+   eps: ``query_radius_csr_sharded`` over 8 shards, packed twice (classic,
+   then fused) and looped, bit-identical to phase 2's rows;
+   ``build_neighbor_graph_sharded`` over the 8 shards bit-identical to
+   phase 2b's plain graph, timed beside it with its live shards a chunk,
+   and sampled chunks' dhalf bit-identical to the 512-row segments'; NCCL
+   at world size 1 (a file store in a temporary directory) with
+   ``launch.mesh.make_host_mesh``: the count, percount and top-k functions
+   (the filter kernel) against phase 2's CSR counts and rows;
+   ``launch.snn_cell``'s service step, both ``prune`` variants, on the
+   point-query cell against phase 2's counts (and its stacked count
+   against the plain version at that stack) and at ``svc_10m``
+   (10,485,760 x 128, seeded on the card) against a float64 brute force
+   on 16 published queries and 64 perturbed data rows spread over the
+   sorted order (pairs past byte 2^32 of the stack and in its last slab
+   required), timed by CUDA events on the published traffic, its
+   brute-force-equivalent FLOP rate, the window's work against the FP32
+   peak, and its window fraction beside ``measured_window_fraction``;
 2c. the front-ends over the engine on the same index and queries:
    ``query_knn`` at k = 100 (its expansion rounds and launches) against a
    float64 brute force top-100 on 64 queries, a per-query k and k > n;
@@ -765,7 +783,8 @@ def phase_main_path(torch, chk: Checks, K, snn, engine, join, clock):
                               classic.distances.view(np.int64)),
            "looped (packed=False) bit-identical to packed: indptr, indices, "
            "distances")
-    return index, x, q, radius, launches, looped_launches, xs64, hn64
+    return (index, x, q, radius, launches, looped_launches, xs64, hn64,
+            classic)
 
 
 # --------------------------------------------------------------------------- #
@@ -796,8 +815,10 @@ def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
     K.reset_launch_counts()
     stats = engine.DISPATCH_STATS
     stats.reset()
+    t_plain = time.perf_counter()
     plain = clock("build_neighbor_graph symmetric=False",
                   lambda: graph.build_neighbor_graph(x, eps, **kw))
+    t_plain = time.perf_counter() - t_plain
     s_plain = stats.snapshot()
     stats.reset()
     sym = clock("build_neighbor_graph symmetric=True",
@@ -936,8 +957,7 @@ def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
            and np.array_equal(looped[1], g_idx),
            "looped rows bit-identical to the packed graph's rows")
     del segments
-    return (launches, looped_launches, eps, graph_shape,
-            np.diff(plain.indptr))
+    return launches, looped_launches, eps, graph_shape, plain, t_plain
 
 
 
@@ -951,6 +971,410 @@ SNN_KERNELS = ("snn_count_stacked", "snn_compact_stacked", "snn_count",
 def launch_counts(K) -> dict:
     """The launches of each query kernel since the last reset."""
     return {k: getattr(K, k).launches for k in SNN_KERNELS}
+
+
+# --------------------------------------------------------------------------- #
+# phase 2d                                                                     #
+# --------------------------------------------------------------------------- #
+# the decomposition's shard count, the top-k function's k a shard, and the
+# service cell: its shape, its queries held against the float64 brute force,
+# its timed calls and its data's seed
+N_SHARDS = 8
+SHARD_TOPK = 1024
+SVC_SHAPE = "svc_10m"
+N_SVC_ORACLE = 16
+N_SVC_ROWS = 64
+SVC_REPS = 5
+SVC_SEED = SEED + 7
+
+
+def oracle_counts(torch, xs, q64: np.ndarray, thr64: np.ndarray,
+                  rows: int = 1 << 20):
+    """Float64 brute force on the card over the float32 rows ``xs`` (real
+    rows only), a million rows at a time: per query the rows with
+    dhalf64 <= thr64, and the pairs inside the float32 rounding band
+    d*2^-23*(hn + sum|q x|) + 2^-23*|thresh|."""
+    qd = torch.from_numpy(q64).to(xs.device)
+    th = torch.from_numpy(thr64).to(xs.device)
+    keep = torch.zeros(q64.shape[0], dtype=torch.int64, device=xs.device)
+    band = torch.zeros_like(keep)
+    for c0 in range(0, xs.shape[0], rows):
+        x = xs[c0:c0 + rows].double()
+        hn = 0.5 * (x * x).sum(1)
+        dh = hn[:, None] - x @ qd.T
+        tol = (xs.shape[1] * EPS32 * (hn[:, None] + x.abs() @ qd.abs().T)
+               + EPS32 * th.abs()[None, :])
+        keep += (dh <= th[None, :]).sum(0)
+        band += ((dh - th[None, :]).abs() <= tol).sum(0)
+        del x, dh, tol
+    return keep.cpu().numpy(), band.cpu().numpy()
+
+
+def query64(index, q: np.ndarray, radius):
+    """(q64, thr64): the queries' centred rows and thresholds in float64."""
+    xq, r = index.prepare_queries(q, radius)
+    q64 = xq.astype(np.float64)
+    return q64, (r * r - np.einsum("ij,ij->i", q64, q64)) / 2.0
+
+
+def counts_in_band(torch, index, q, radius, got, want) -> tuple[bool, int]:
+    """Do two count vectors differ only by pairs inside the float32 band?
+    (holds, the band pairs of the queries where they differ)"""
+    off = np.nonzero(np.asarray(got) != np.asarray(want))[0]
+    if off.size == 0:
+        return True, 0
+    q64, thr64 = query64(index, q[off], radius)
+    _, band = oracle_counts(torch, index.xs, q64, thr64)
+    diff = np.abs(np.asarray(got)[off].astype(np.int64) - want[off])
+    return bool(np.all(diff <= band)), int(band.sum())
+
+
+def same_csr(a, b) -> bool:
+    return (np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and (a.distances is None) == (b.distances is None)
+            and (a.distances is None
+                 or np.array_equal(a.distances.view(np.int64),
+                                   b.distances.view(np.int64))))
+
+
+def sharded_csr(torch, chk: Checks, K, engine, sharded, index, q, radius,
+                csr, card, clock) -> dict:
+    """(a) the 8-shard decomposition of the point-query cell, packed twice
+    (classic, then fused) and looped, against phase 2's rows."""
+    stats = engine.DISPATCH_STATS
+    pack = clock(f"mesh_pack, {N_SHARDS} shards",
+                 lambda: sharded.mesh_pack(index, N_SHARDS))
+    K.reset_launch_counts()
+    runs = []
+    for i, tag in enumerate(("classic", "fused")):
+        stats.reset()
+        runs.append(clock(f"query_radius_csr_sharded #{i + 1} ({tag})",
+                          lambda: sharded.query_radius_csr_sharded(
+                              index, N_SHARDS, q, radius, pack=pack)))
+        runs.append(stats.snapshot())
+    packed = launch_counts(K)
+    K.reset_launch_counts()
+    looped = clock("query_radius_csr_sharded packed=False",
+                   lambda: sharded.query_radius_csr_sharded(
+                       index, N_SHARDS, q, radius, packed=False))
+    loop_launches = launch_counts(K)
+    (c1, s1, c2, s2) = runs
+    chk.note(f"sharded CSR launches: packed {packed}, looped "
+             f"{loop_launches}; dispatch {s1} then {s2}")
+    chk.ok(s1["host_transfers"] == 3 and s2["kernel_launches"] == 3
+           and s2["host_transfers"] == 1,
+           "sharded packed: first batch classic (3 transfers), second fused "
+           "(3 launches, 1 transfer)")
+    chk.ok(packed["snn_count_stacked"] == 2
+           and packed["snn_compact_stacked"] == 2
+           and loop_launches["snn_count"] > 0
+           and loop_launches["snn_compact"] > 0
+           and loop_launches["snn_count_stacked"] == 0,
+           "the packed runs launched the stacked kernels, the looped one "
+           "the single-segment kernels")
+    chk.ok(same_csr(c1, csr) and same_csr(c2, csr) and same_csr(looped, csr),
+           f"{N_SHARDS}-shard query_radius_csr_sharded (classic, fused, "
+           "looped) bit-identical to phase 2's query_radius_csr: indptr, "
+           "indices, distances")
+    del pack
+    out = dict(packed)
+    for k, v in loop_launches.items():
+        out[k] += v
+    return out
+
+
+def sharded_graph(torch, chk: Checks, K, snn, engine, join, graph, sharded,
+                  index, x, eps, plain, t_plain, card) -> dict:
+    """(b) build_neighbor_graph_sharded over the 8 shards against phase 2b's
+    plain graph; the live segments of each chunk; the distances (dhalf) of
+    sampled chunks against the 512-row segments' bit for bit."""
+    live = []
+    live_idx = engine._live_idx
+
+    def tap(*a, **k):
+        out = live_idx(*a, **k)
+        live.append(out.size)
+        return out
+
+    K.reset_launch_counts()
+    engine._live_idx = tap
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g = graph.build_neighbor_graph_sharded(x, N_SHARDS, eps, index=index,
+                                               query_chunk=QUERY_CHUNK,
+                                               device=DEVICE)
+        torch.cuda.synchronize()
+        t_sh = time.perf_counter() - t
+    finally:
+        engine._live_idx = live_idx
+    launches = launch_counts(K)
+    live = np.asarray(live)
+    chk.note(f"build_neighbor_graph_sharded, {N_SHARDS} shards: "
+             f"{1e3 * t_sh:.3f} ms against phase 2b's plain build "
+             f"{1e3 * t_plain:.3f} ms (host clock, synchronized) [{card}]; "
+             f"live segments a chunk: min {live.min()}, mean "
+             f"{live.mean():.3f}, max {live.max()} over {live.size} chunks "
+             f"(phase 2b: of {-(-index.n // SEGMENT_ROWS)}); launches "
+             f"{launches}")
+    chk.ok(np.array_equal(g.indptr, plain.indptr)
+           and np.array_equal(g.indices, plain.indices)
+           and g.nnz == GRAPH_RECORD[0],
+           f"sharded graph bit-identical to phase 2b's plain graph "
+           f"({g.nnz} pairs recorded, {GRAPH_RECORD[0]} expected)")
+    del g
+    # the distances: the sharded schedule's chunks against the 512-row
+    # segments', the same sampled chunks as phase 2b's looped check
+    n = index.n
+    n_chunks = -(-n // QUERY_CHUNK)
+    picks = np.unique(np.linspace(0, n_chunks - 1, N_LOOPED_CHUNKS)
+                      .round().astype(np.int64))
+    srows = np.concatenate([np.arange(c * QUERY_CHUNK,
+                                      min((c + 1) * QUERY_CHUNK, n))
+                            for c in picks])
+    xq, aq, r, th, _ = snn.prepare_query_predicates(
+        index, x[index.order[srows]], eps)
+    jkw = dict(query_chunk=QUERY_CHUNK, segs_per_chunk=0)
+    got = join.chunked_join(index, sharded.mesh_segments(index, N_SHARDS),
+                            xq, aq, r, th, **jkw)
+    want = join.chunked_join(
+        index, engine.segments_from_index(index,
+                                          rows_per_segment=SEGMENT_ROWS,
+                                          device=DEVICE), xq, aq, r, th,
+        **jkw)
+    chk.ok(all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+           and np.array_equal(got[2].view(np.int32), want[2].view(np.int32)),
+           f"{picks.size} sampled chunks ({srows.size} rows): the shards' "
+           "counts, ids and dhalf bit-identical to the 512-row segments'")
+    return launches
+
+
+def sharded_collectives(torch, chk: Checks, K, snn, sharded, mesh, index, q,
+                        radius, csr, xs64, hn64, card, clock) -> dict:
+    """(c) the count, percount and top-k functions over NCCL at world size
+    1 on the point-query cell, against phase 2's CSR rows."""
+    shard = sharded.shard_index(index, mesh)
+    qa = sharded.prepare_query_arrays(index, q, radius)
+    K.reset_launch_counts()
+    count = clock("sharded count (filter + all_reduce)",
+                  lambda: sharded.make_sharded_count_fn(mesh)(*shard[:3],
+                                                              *qa))
+    per = clock("sharded percount (filter + all_gather)",
+                lambda: sharded.make_sharded_percount_fn(mesh)(*shard[:3],
+                                                               *qa))
+    ids, dh = clock(f"sharded top-k, k={SHARD_TOPK} a shard (filter + "
+                    "top-k + all_gather)",
+                    lambda: sharded.make_sharded_topk_fn(mesh, SHARD_TOPK)(
+                        *shard, *qa))
+    launches = launch_counts(K)
+    del shard
+    counts = np.diff(csr.indptr)
+    got = count.cpu().numpy()
+    ok, band = counts_in_band(torch, index, q, radius, got, counts)
+    chk.ok(launches["snn_filter"] == 3 and sum(launches.values()) == 3,
+           f"the three functions launched the filter kernel once each "
+           f"({launches})")
+    chk.ok(count.dtype == torch.int32 and ok,
+           f"sharded count == phase 2's CSR counts on "
+           f"{int(np.sum(got == counts))} of {counts.size} queries; the rest "
+           f"differ by {band} pairs inside the float32 band at most")
+    chk.ok(tuple(per.shape) == (1, counts.size)
+           and np.array_equal(per.cpu().numpy()[0], got),
+           "sharded percount (1, m) == the count at world size 1")
+    ids, dh = ids.cpu().numpy(), dh.cpu().numpy()
+    qi, diff_ids = [], []
+    rows = np.nonzero(counts <= SHARD_TOPK)[0]
+    for i in rows:
+        d = np.setxor1d(ids[i][ids[i] >= 0],
+                        csr.indices[csr.indptr[i]:csr.indptr[i + 1]])
+        qi += [i] * d.size
+        diff_ids += d.tolist()
+    in_band = (pair_band(index, xs64, hn64, q, radius,
+                         np.asarray(qi, np.int64),
+                         np.asarray(diff_ids, np.int64))[0]
+               if diff_ids else True)
+    chk.ok(in_band and bool(np.all(np.diff(dh, axis=1) >= 0)),
+           f"sharded top-k == the CSR row as a set on the {rows.size} rows "
+           f"with count <= {SHARD_TOPK}: {len(diff_ids)} pairs differ, all "
+           "inside the float32 band; each row ascending")
+    return launches
+
+
+def svc_counts_vs(torch, chk, index, q, radius, got, want, tag) -> None:
+    ok, band = counts_in_band(torch, index, q, radius, got, want)
+    chk.ok(ok, f"{tag}: equal on {int(np.sum(got == want))} of {want.size} "
+           f"queries, the rest within {band} pairs inside the float32 band")
+
+
+def service_cell(torch, chk: Checks, K, ref, snn, sharded, snn_cell, mesh,
+                 index, q, radius, csr, card) -> dict:
+    """(c) snn_cell's service step, both variants, on the 1M cell (rows
+    padded to a multiple of n_chunk) and at svc_10m on seeded data."""
+    launches = {"snn_count_stacked": 0}
+    n_chunk = 65536
+    qa = sharded.prepare_query_arrays(index, q, radius)
+    xs, al, hn, _, _, _ = sharded._pad_for_shards(index, 1, block=n_chunk)
+    counts = np.diff(csr.indptr)
+    for prune in (True, False):
+        fn = snn_cell.make_service_count_step(mesh, "data", prune=prune)
+        K.reset_launch_counts()
+        got = fn(xs, al, hn, *qa).cpu().numpy()
+        launches["snn_count_stacked"] += K.snn_count_stacked.launches
+        svc_counts_vs(torch, chk, index, q, radius, got, counts,
+                      f"service step prune={prune} on the 1M cell "
+                      f"({xs.shape[0] // n_chunk} slabs of {n_chunk}) vs "
+                      "phase 2's CSR counts")
+    # the step's launch against its plain version at this stack shape
+    perm = torch.argsort(qa[1], stable=True)
+    ops = [t[perm].contiguous() for t in qa]
+    stack = (xs.reshape(-1, n_chunk, DIM), al.reshape(-1, n_chunk),
+             hn.reshape(-1, n_chunk))
+    k_per = K.snn_count_stacked(*ops, *stack, bn=512)
+    p_per = ref.snn_count_stacked_ref(*ops, *stack, bn=512)
+    k_q = k_per.sum(0).cpu().numpy()
+    p_q = p_per.sum(0).cpu().numpy()
+    svc_counts_vs(torch, chk, index, q[perm.cpu().numpy()], radius, k_q, p_q,
+                  f"snn_count_stacked vs its plain version at the step's "
+                  f"({stack[0].shape[0]}, {n_chunk}, {DIM}) stack")
+    del xs, al, hn, stack, k_per, p_per
+    torch.cuda.empty_cache()
+
+    sh = snn_cell.SNN_SHAPES[SVC_SHAPE]
+    n, d, m, r0, s = sh["n"], sh["d"], sh["m"], sh["radius"], sh["aniso_s"]
+    t = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SVC_SEED)
+    scale = torch.full((d,), s, device=DEVICE)
+    scale[0] = 1.0
+    xd = torch.randn((n, d), generator=gen, device=DEVICE) * scale
+    qd = torch.randn((m, d), generator=gen, device=DEVICE) * scale
+    xh, qh = xd.cpu().numpy(), qd.cpu().numpy()
+    del xd, qd
+    chk.note(f"{SVC_SHAPE}: n={n} d={d} m={m} radius {r0}, std [1, {s}, "
+             f"...] (torch.Generator on the card, seed {SVC_SEED}) in "
+             f"{time.perf_counter() - t:.2f} s (set-up) [{card}]")
+    t = time.perf_counter()
+    big = snn.build_index(xh, n_components=1, device=DEVICE)
+    torch.cuda.synchronize()
+    chk.note(f"{SVC_SHAPE} build_index in {time.perf_counter() - t:.2f} s "
+             f"[{card}]")
+    # at this radius the published traffic has next to no neighbours, so the
+    # correctness call also asks data rows at even steps through the sorted
+    # order, slightly perturbed: each has its own row inside the radius, in
+    # every part of the stack up to the last slab
+    rng = np.random.default_rng(SVC_SEED)
+    slots = rng.permutation(m)
+    rows, hit = slots[:N_SVC_ORACLE], slots[N_SVC_ORACLE:][:N_SVC_ROWS]
+    pos = np.linspace(0, n - 1, N_SVC_ROWS).round().astype(np.int64)
+    noise = rng.standard_normal((N_SVC_ROWS, d)).astype(np.float32)
+    qc = qh.copy()
+    qc[hit] = xh[big.order[pos]] + 0.01 * noise * scale.cpu().numpy()
+    del xh
+    shard = sharded.shard_index(big, mesh, block=n_chunk)
+    sq = sharded.prepare_query_arrays(big, qh, r0)
+    sc = sharded.prepare_query_arrays(big, qc, r0)
+    sel = np.concatenate([rows, hit])
+    q64, thr64 = query64(big, qc[sel], r0)
+    want, band = oracle_counts(torch, big.xs, q64, thr64)
+    # the pairs in the rows past byte 2^32 of the stack, and in its last slab
+    far_row = (1 << 32) // (4 * shard[0].shape[1])
+    last_row = (n // n_chunk - 1) * n_chunk
+    far = int(oracle_counts(torch, big.xs[far_row:], q64, thr64)[0].sum())
+    last = int(oracle_counts(torch, big.xs[last_row:], q64, thr64)[0].sum())
+    chk.ok(int(want[N_SVC_ORACLE:].min()) >= 1 and far > 0 and last > 0,
+           f"{SVC_SHAPE} oracle: {int(want.sum())} pairs on {sel.size} "
+           f"queries ({N_SVC_ORACLE} of the published traffic, "
+           f"{N_SVC_ROWS} perturbed data rows), {far} of them in rows past "
+           f"{far_row} (byte 2^32 of the stack), {last} in the last slab "
+           f"(rows from {last_row}); every data-row query has a neighbour")
+    aq64 = sq[1].double().cpu().numpy()
+    r64 = sq[2].double().cpu().numpy()
+    frac = window_pairs(big.host_alphas(), aq64, r64) / (m * n)
+    for prune in (True, False):
+        fn, specs, flops, _ = snn_cell.build_service_step(
+            SVC_SHAPE, prune=prune, mesh=mesh)
+        chk.ok([tuple(t.shape) for t in shard[:3]]
+               == [sp[0] for sp in specs[:3]],
+               f"the shard's shapes are build_service_step's specs "
+               f"{[sp[0] for sp in specs[:3]]}")
+        K.reset_launch_counts()
+        got = fn(*shard[:3], *sc).cpu().numpy()[sel]
+        pub = fn(*shard[:3], *sq).cpu().numpy()
+        ms = timed(torch, lambda: fn(*shard[:3], *sq), SVC_REPS)
+        launches["snn_count_stacked"] += K.snn_count_stacked.launches
+        diff = np.abs(got.astype(np.int64) - want)
+        chk.ok(int(want.sum()) > 0 and bool(np.all(diff <= band)),
+               f"{SVC_SHAPE} step prune={prune}: {sel.size} queries vs the "
+               f"float64 brute force, {int(want.sum())} pairs checked, "
+               f"{int(np.sum(diff))} counted differently, all within the "
+               f"{int(band.sum())} pairs inside the float32 band")
+        # the model FLOPs are the brute force's; the window skips most of
+        # them, so the card's share counts the window's pairs alone
+        work = flops * (frac if prune else 1.0)
+        chk.note(f"{SVC_SHAPE} step prune={prune}: {ms:.3f} ms a call "
+                 f"(CUDA events, {SVC_REPS} calls, published traffic) "
+                 f"[{card}]; brute-force equivalent {flops:.4e} model FLOPs "
+                 f"at {flops / ms / 1e9:.2f} TFLOP/s (not a share of the "
+                 f"card); work in the window {work:.4e} FLOPs (window "
+                 f"fraction {frac if prune else 1.0:.6f}) at "
+                 f"{work / ms / 1e9:.2f} TFLOP/s = "
+                 f"{work / (ms / 1e3) / FP32_PEAK:.4f} of the FP32 peak; "
+                 f"mean {pub.mean():.4f} neighbours a query")
+    want_frac = snn_cell.measured_window_fraction(d, r0, aniso_s=s,
+                                                  device=DEVICE)
+    chk.note(f"{SVC_SHAPE} window fraction: {frac:.6f} of the (query, row) "
+             f"pairs on this data; measured_window_fraction "
+             f"{want_frac:.6f} (n_sample 200,000, 256 queries)")
+    del shard, big
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sharded(torch, chk: Checks, K, ref, snn, engine, join, graph, index,
+                  x, q, radius, eps, csr, plain, t_plain, xs64, hn64, clock):
+    """Phase 2d: the sharded SNN.  Returns {path: {kernel: launches}}."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import sharded
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import snn_cell
+
+    card = card_line()
+    print(f"phase 2d: the sharded SNN, n={index.n} d={DIM} m={N_QUERIES} at "
+          f"{N_SHARDS} shards, NCCL at world size 1, and {SVC_SHAPE}")
+    paths = {"sharded_csr": sharded_csr(torch, chk, K, engine, sharded,
+                                        index, q, radius, csr, card, clock)}
+    paths["sharded_graph"] = sharded_graph(torch, chk, K, snn, engine, join,
+                                           graph, sharded, index, x, eps,
+                                           plain, t_plain, card)
+    # one rank, its store in a temporary directory and its bootstrap on the
+    # loopback interface: nothing leaves the machine
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = mesh_mod.make_host_mesh()
+            chk.ok(dist.get_backend() == "nccl"
+                   and tuple(mesh.shape) == (1, 1)
+                   and mesh.mesh_dim_names == ("data", "model"),
+                   f"NCCL process group, world size {dist.get_world_size()}, "
+                   f"make_host_mesh {tuple(mesh.shape)} "
+                   f"{mesh.mesh_dim_names} on {mesh.device_type}")
+            paths["sharded_collectives"] = sharded_collectives(
+                torch, chk, K, snn, sharded, mesh, index, q, radius, csr,
+                xs64, hn64, card, clock)
+            torch.cuda.empty_cache()
+            paths["snn_cell"] = service_cell(torch, chk, K, ref, snn,
+                                             sharded, snn_cell, mesh, index,
+                                             q, radius, csr, card)
+        finally:
+            dist.destroy_process_group()
+    return {p: {k: v for k, v in c.items() if v} for p, c in paths.items()}
 
 
 def knn_oracle(index, xs64, hn64, q: np.ndarray, k: int):
@@ -1172,16 +1596,7 @@ def phase_host(torch, chk: Checks, K, snn, index, q, radius, csr, xs64,
     # a query whose count differs: every pair between the two thresholds
     # (the fixed path rounds its threshold in float32 as the reference's
     # does, the CSR path from float64) must lie inside the band
-    in_band = True
-    for i in off:
-        xq, r = index.prepare_queries(q[i:i + 1], radius)
-        q64 = xq.astype(np.float64)
-        thr = (r * r - np.einsum("ij,ij->i", q64, q64)) / 2.0
-        dh = hn64 - xs64 @ q64[0]
-        tol = DIM * EPS32 * (hn64 + np.abs(xs64) @ np.abs(q64[0])) \
-            + EPS32 * abs(thr[0])
-        n_band = int(np.sum(np.abs(dh - thr[0]) <= tol))
-        in_band &= abs(int(fc[i]) - int(counts[i])) <= n_band
+    in_band, _ = counts_in_band(torch, index, q, radius, fc, counts)
     chk.ok(in_band, f"query_radius_fixed counts == CSR counts on "
            f"{N_QUERIES - off.size} of {N_QUERIES} queries; the other "
            f"{off.size} differ by pairs inside the float32 band")
@@ -3338,17 +3753,20 @@ def main() -> int:
     join = importlib.import_module("repro_torch.core.join")
     dbscan = importlib.import_module("repro_torch.core.dbscan")
 
+    card = card_line()
+
     def clock(label, fn):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         Checks.note(f"{label}: {1e3 * (time.perf_counter() - t):.3f} ms "
-                    "(host clock, synchronized)")
+                    f"(host clock, synchronized) [{card}]")
         return out
 
     def phase_done(name, t0):
-        print(f"{name} took {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"{name} took {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
         if chk.failed:
             print(f"FAILED: {chk.failed}", file=sys.stderr)
         return not chk.failed
@@ -3372,20 +3790,29 @@ def main() -> int:
     if not phase_done("phase 1", t):
         return 1
     t = time.perf_counter()
-    index, x, q, radius, launches, looped_main, xs64, hn64 = phase_main_path(
-        torch, chk, K, snn, engine, join, clock)
+    (index, x, q, radius, launches, looped_main, xs64, hn64,
+     csr) = phase_main_path(torch, chk, K, snn, engine, join, clock)
     if not phase_done("phase 2", t):
         return 1
     t = time.perf_counter()
-    g_launches, looped_graph, eps, g_shape, degrees = phase_graph(
+    g_launches, looped_graph, eps, g_shape, plain, t_plain = phase_graph(
         torch, chk, K, ref, snn, engine, join, graph, dbscan, ops_mod, index,
         x, xs64, hn64, clock)
     if not phase_done("phase 2b", t):
         return 1
     t = time.perf_counter()
-    front = phase_front_ends(torch, chk, K, ref, ops_mod, snn, engine, join,
-                             dbscan, index, x, q, radius, eps, degrees, xs64,
-                             hn64, clock)
+    front = phase_sharded(torch, chk, K, ref, snn, engine, join, graph,
+                          index, x, q, radius, eps, csr, plain, t_plain,
+                          xs64, hn64, clock)
+    degrees = np.diff(plain.indptr)
+    del plain, csr
+    torch.cuda.empty_cache()
+    if not phase_done("phase 2d", t):
+        return 1
+    t = time.perf_counter()
+    front.update(phase_front_ends(torch, chk, K, ref, ops_mod, snn, engine,
+                                  join, dbscan, index, x, q, radius, eps,
+                                  degrees, xs64, hn64, clock))
     del degrees
     if not phase_done("phase 2c", t):
         return 1
@@ -3445,9 +3872,9 @@ def main() -> int:
                     else (f"{base}_kernel",))
         rec["ptxas"] = {k: v for k, v in ptxas.items()
                         if k.startswith(prefixes)}
-    print(f"run: {time.perf_counter() - t_start:.1f} s")
+    print(f"run: {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

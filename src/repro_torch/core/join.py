@@ -188,14 +188,31 @@ def chunked_join(index, segments, xq, aq, r, th, *, query_chunk: int,
     return counts, flat_ids, flat_dh
 
 
-def resolve_chunk(query_chunk: int | None, align: int | None) -> int:
-    """The query chunk size: ``query_chunk``, or 2048 when it is not given.
+def resolve_chunk(n: int, query_chunk: int | None, memory_budget_mb,
+                  align: int | None, block: int) -> int:
+    """Pick the query chunk size: explicit, or sized to a memory budget.
+
+    With ``memory_budget_mb`` the chunk is the number of float32 rows of
+    ``n_pad`` (``n`` rounded up to ``block``) the budget holds, the
+    reference's bound on one dense (chunk, n_pad) filter, which the flat
+    CSR outputs of a chunk scale with too.  The port's executors hold no
+    such filter (the reference's CPU oracle executors do), so here the
+    budget sizes the chunks and nothing else.  A budget is a CEILING: it
+    floors the derived chunk, never inflates it.  Without one the chunk is
+    ``query_chunk``, or 2048 when that is not given.
 
     ``align`` is the segment size the symmetric triangular schedule needs
-    chunks to tile in whole multiples of (None when any chunk size works);
+    chunks to tile in whole multiples of (None when any chunk size works:
+    the plain, sharded and bichromatic schedules).  Alignment floors to
+    whole segments, again never inflating a budgeted chunk, except that
     one segment is the smallest chunk.
     """
-    cs = max(int(query_chunk) if query_chunk else 2048, 1)
+    if memory_budget_mb is not None:
+        n_pad = _ops.round_up(n, block)
+        cs = int(memory_budget_mb * 2**20) // (4 * n_pad)
+    else:
+        cs = int(query_chunk) if query_chunk else 2048
+    cs = max(cs, 1)
     if align:
         cs = max(cs // align, 1) * align
     return cs
@@ -343,6 +360,7 @@ def join(
     b_index: _snn.SNNIndex | None = None,
     return_distance: bool = True,
     query_chunk: int | None = 2048,
+    memory_budget_mb: float | None = None,
     segment_rows: int | None = None,
     block: int = 512,
     query_tile: int = 128,
@@ -363,8 +381,10 @@ def join(
 
     ``radius`` is a scalar or a per-A-row (ma,) vector in the native metric
     (the inner-product threshold for mips, where a is the query side);
-    ``b_index`` is a prebuilt `snn.SNNIndex` over exactly ``b``; the other
-    knobs are `build_neighbor_graph`'s.  Column ids are original B row ids,
+    ``b_index`` is a prebuilt `snn.SNNIndex` over exactly ``b``;
+    ``memory_budget_mb``, when given, sizes the query chunks in place of
+    ``query_chunk`` (`resolve_chunk`); the other knobs are
+    `build_neighbor_graph`'s.  Column ids are original B row ids,
     ascending in B's sorted order within each row.
     """
     dev = _registry.resolve_device(device)
@@ -384,7 +404,7 @@ def join(
     qord = np.argsort(_metricsafe_scores(index, a), kind="stable")
     r_sorted = radius if rvec is None else rvec[qord]
     sr = max(int(segment_rows), 1) if segment_rows is not None else block
-    cs = resolve_chunk(query_chunk, None)
+    cs = resolve_chunk(index.n, query_chunk, memory_budget_mb, None, block)
     segments = _engine.segments_from_index(index, rows_per_segment=sr,
                                            block=block, device=dev)
     return sorted_join_csr(
@@ -411,6 +431,7 @@ def join_counts(
     metric: str = "euclidean",
     b_index: _snn.SNNIndex | None = None,
     query_chunk: int | None = 2048,
+    memory_budget_mb: float | None = None,
     segment_rows: int | None = None,
     block: int = 512,
     query_tile: int = 128,
@@ -424,7 +445,8 @@ def join_counts(
     `engine.SegmentPack` of B's ``segment_rows``-row segments on ``device``
     (default: the card), but every chunk runs `engine.run_counts_packed`
     and nothing is compacted.  Counts equal ``np.diff(join(...).indptr)``
-    exactly (identical predicates).
+    exactly (identical predicates).  ``memory_budget_mb`` sizes the chunks
+    as in `join`.
     """
     dev = _registry.resolve_device(device)
     a = _as_rows(a)
@@ -441,7 +463,7 @@ def join_counts(
     qord = np.argsort(_metricsafe_scores(index, a), kind="stable")
     r_sorted = radius if rvec is None else rvec[qord]
     sr = max(int(segment_rows), 1) if segment_rows is not None else block
-    cs = resolve_chunk(query_chunk, None)
+    cs = resolve_chunk(index.n, query_chunk, memory_budget_mb, None, block)
     pack = _engine.SegmentPack.build(_engine.segments_from_index(
         index, rows_per_segment=sr, block=block, device=dev))
     xq, aq, r32, th, _ = _snn.prepare_query_predicates(index, a[qord],
@@ -469,6 +491,7 @@ def degree_histogram(
     metric: str = "euclidean",
     index: _snn.SNNIndex | None = None,
     query_chunk: int | None = 2048,
+    memory_budget_mb: float | None = None,
     block: int = 512,
     query_tile: int = 128,
     n_iter: int = 64,
@@ -479,7 +502,8 @@ def degree_histogram(
 
     ``degrees[i] = |ball(x[i], eps)|`` (self included, as in the graph) by
     the count-only self-join (`join_counts`): no CSR, no compact pass, O(n)
-    memory however dense the graph is.  Returns ``(hist, degrees)`` where
+    memory however dense the graph is (``memory_budget_mb`` sizes its
+    chunks).  Returns ``(hist, degrees)`` where
     ``hist[k]`` is the number of points with exactly k neighbours.
     """
     x = _as_rows(x)
@@ -487,7 +511,8 @@ def degree_histogram(
         index = _snn.build_index(x, metric=metric, n_iter=n_iter,
                                  device=_registry.resolve_device(device))
     degrees = join_counts(x, None, eps, b_index=index,
-                          query_chunk=query_chunk, block=block,
+                          query_chunk=query_chunk,
+                          memory_budget_mb=memory_budget_mb, block=block,
                           query_tile=query_tile, mixed=mixed, device=device)
     hist = np.bincount(degrees) if degrees.size else np.zeros(0, np.int64)
     return hist, degrees
@@ -505,6 +530,7 @@ def reverse_neighbors(
     target_index: _snn.SNNIndex | None = None,
     return_distance: bool = False,
     query_chunk: int | None = 2048,
+    memory_budget_mb: float | None = None,
     segment_rows: int | None = None,
     block: int = 512,
     query_tile: int = 128,
@@ -532,8 +558,8 @@ def reverse_neighbors(
     targets = _as_rows(targets)
     fwd = join(points, targets, radii, metric=metric, b_index=target_index,
                return_distance=return_distance, query_chunk=query_chunk,
-               segment_rows=segment_rows, block=block, query_tile=query_tile,
-               native=native, n_iter=n_iter, packed=packed, mixed=mixed,
+               memory_budget_mb=memory_budget_mb, segment_rows=segment_rows,
+               block=block, query_tile=query_tile, native=native, n_iter=n_iter, packed=packed, mixed=mixed,
                device=device)
     n_targets = targets.shape[0] if target_index is None else target_index.n
     indptr, rows, dists = transpose_csr(fwd.indptr, fwd.indices,

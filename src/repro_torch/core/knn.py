@@ -48,6 +48,7 @@ from . import engine as _engine
 from . import metrics as _metrics
 from . import snn as _snn
 from .join import count_pass as _count_pass
+from .join import resolve_chunk as _resolve_chunk
 
 # final-pass radius inflation: absorbs float32 predicate rounding at the
 # ball boundary (counts are monotone in r, so the margin only ever adds
@@ -189,6 +190,7 @@ def query_knn(
     native: bool = True,
     block: int = 512,
     query_tile: int = 128,
+    memory_budget_mb: float | None = None,
     max_rounds: int = 100,
     mixed: bool = False,
     bucket: bool = True,
@@ -206,6 +208,11 @@ def query_knn(
       block / query_tile / mixed / bucket: engine knobs, as in
         `snn.query_radius_csr` (``bucket`` pads the shrinking expansion
         batches onto the geometric ladder).
+      memory_budget_mb: caps the queries one search holds at
+        `join.resolve_chunk`'s ``budget // (4 * n_pad)`` rows; more queries
+        run as consecutive searches of that many, with the same rows.  (The
+        reference spends it in its CPU oracle executors, which the port
+        does not have.)
       device: where an `SNNIndex`'s plan runs (default: the card; raises
         without one unless ``"cpu"``); a streaming index runs on its own.
 
@@ -233,7 +240,19 @@ def query_knn(
     out_sq = np.full((m, K_out), np.inf, np.float64)
     k_eff = np.minimum(k_arr, n_total)
 
-    if m and n_total and k_eff.max() > 0:
+    chunk = (m if memory_budget_mb is None else
+             _resolve_chunk(n_total, None, memory_budget_mb, None, block))
+    if m > chunk:
+        # a query's row does not depend on the other queries of its search
+        qs = np.asarray(q)
+        for s in range(0, m, chunk):
+            idx, sq = query_knn(index, qs[s:s + chunk], k_arr[s:s + chunk],
+                                native=False, block=block,
+                                query_tile=query_tile, max_rounds=max_rounds,
+                                mixed=mixed, bucket=bucket, device=device)
+            out_idx[s:s + chunk, :idx.shape[1]] = idx
+            out_sq[s:s + chunk, :idx.shape[1]] = sq
+    elif m and n_total and k_eff.max() > 0:
         KNN_STATS.searches += 1
         t0 = time.perf_counter()
         # the predicate inputs the engine sees (float32, computed once) and

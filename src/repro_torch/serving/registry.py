@@ -35,12 +35,20 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 from ..configs.snn_default import SNNConfig
 from ..core.streaming import StreamingSNNIndex
 from ..ft.checkpoint import CheckpointManager
 from ..kernels import registry as _kregistry
 from .runtime import TenantRuntime
+
+
+def _concrete(device: torch.device) -> torch.device:
+    """``device`` with a CUDA device's missing index made the current one."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 class IndexRegistry:
@@ -152,14 +160,16 @@ class IndexRegistry:
         return evicted
 
     def _own_device(self, device):
-        """The registry's device; an explicit ``device`` must name it."""
+        """The registry's device; an explicit ``device`` must name it
+        (``"cuda"``, ``"cuda:0"`` and ``torch.device("cuda", 0)`` all name
+        the current card)."""
         if device is None:
             return self.device
         device = _kregistry.resolve_device(device)
-        if device != self.device:
+        if _concrete(device) != _concrete(self.device):
             raise ValueError(f"the registry's tenants live on "
                              f"{self.device}, not {device}")
-        return device
+        return self.device
 
     # ----------------------------------------------------------- snapshots
     def _ckpt_dir(self, name: str, directory: str | None) -> str:

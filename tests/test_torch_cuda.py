@@ -495,6 +495,99 @@ def test_cuda_query_radius_fixed_equals_the_cpu(card):
     assert (want[3] > 16).any()   # cuts inside ties of equal distance
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_cuda_sharded_csr_equals_the_single_device_csr(card, packed):
+    from repro_torch.core import sharded as tsh
+
+    _, q, cpu_idx, idx, rng = _symmetric_lattice(10)
+    radii = rng.choice([1.5, 2.5, 3.5], size=q.shape[0])
+    kw = dict(block=128, query_tile=128, packed=packed)
+    want = tsnn.query_radius_csr(cpu_idx, q, radii, device="cpu",
+                                 block=128)
+    tsq.reset_launch_counts()
+    pack = tsh.mesh_pack(idx, 8, block=128) if packed else None
+    runs = [tsh.query_radius_csr_sharded(idx, 8, q, radii, pack=pack, **kw)
+            for _ in range(2)]
+    if packed:
+        assert tsq.snn_count_stacked.launches > 0
+        assert tsq.snn_count.launches == 0
+    else:
+        assert tsq.snn_count.launches > 0 and tsq.snn_compact.launches > 0
+    single = tsnn.query_radius_csr(idx, q, radii, block=128)
+    for got in runs + [single]:
+        np.testing.assert_array_equal(got.indptr, want.indptr)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.distances, want.distances)
+
+
+@pytest.mark.parametrize("nshards", [3, 8])
+def test_cuda_graph_sharded_equals_the_plain_graph(card, nshards):
+    from repro_torch.core import graph as tgraph
+
+    x, _, cpu_idx, idx, rng = _symmetric_lattice(11)
+    eps = rng.choice([2.0, 2.5, 3.0], size=x.shape[0])
+    kw = dict(return_distance=True, query_chunk=256, block=128)
+    want = tgraph.build_neighbor_graph(x, eps, index=cpu_idx, device="cpu",
+                                       **kw)
+    tsq.reset_launch_counts()
+    got = tgraph.build_neighbor_graph_sharded(x, nshards, eps, index=idx,
+                                              **kw)
+    assert tsq.snn_count_stacked.launches > 0
+    plain = tgraph.build_neighbor_graph(x, eps, index=idx, **kw)
+    for g in (got, plain):
+        np.testing.assert_array_equal(g.indptr, want.indptr)
+        np.testing.assert_array_equal(g.indices, want.indices)
+        np.testing.assert_array_equal(g.distances, want.distances)
+
+
+def test_cuda_collectives_and_service_step_on_nccl(card, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.core import sharded as tsh
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import snn_cell
+
+    _, q, cpu_idx, idx, rng = _symmetric_lattice(12)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_host_mesh()
+        shard = tsh.shard_index(idx, mesh, block=128)
+        assert shard[0].is_cuda
+        qa = tsh.prepare_query_arrays(idx, q, 2.5)
+        tsq.reset_launch_counts()
+        count = tsh.make_sharded_count_fn(mesh)(*shard[:3], *qa)
+        per = tsh.make_sharded_percount_fn(mesh)(*shard[:3], *qa)
+        exact = tsnn.query_counts(cpu_idx, q, 2.5)
+        ids, _ = tsh.make_sharded_topk_fn(mesh, int(exact.max()) + 1)(
+            *shard, *qa)
+        assert tsq.snn_filter.launches == 3
+        np.testing.assert_array_equal(count.cpu().numpy(), exact)
+        np.testing.assert_array_equal(per.cpu().numpy(), exact[None, :])
+        want = tsnn.query_radius_batch(cpu_idx, q, 2.5,
+                                       return_distance=False)
+        ids = ids.cpu().numpy()
+        for i in range(q.shape[0]):
+            assert set(ids[i][ids[i] >= 0].tolist()) == set(want[i].tolist())
+        # the service step: one stacked count launch over 128-row slabs
+        xs, al, hn, _, _, _ = tsh._pad_for_shards(idx, 1, block=1024)
+        cxs, cal, chn, _, _, _ = tsh._pad_for_shards(cpu_idx, 1, block=1024)
+        qp = [t[:64] for t in qa]
+        cq = [t.cpu() for t in qp]
+        for prune in (True, False):
+            kw = dict(q_chunk=64, n_chunk=1024, prune=prune)
+            tsq.reset_launch_counts()
+            got = snn_cell.make_service_count_step(mesh, "data", **kw)(
+                xs, al, hn, *qp)
+            assert tsq.snn_count_stacked.launches == 1
+            plain = snn_cell.make_service_count_step(None, "data", **kw)(
+                cxs, cal, chn, *cq)
+            np.testing.assert_array_equal(got.cpu().numpy(), plain.numpy())
+            np.testing.assert_array_equal(plain.numpy(), exact[:64])
+    finally:
+        dist.destroy_process_group()
+
+
 def test_cuda_streaming_sequence_equals_the_cpu(card):
     from repro_torch.core import streaming as tst
 

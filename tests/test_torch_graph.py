@@ -191,9 +191,9 @@ def test_min_label_components_hand_graphs(name):
     (0, 512), (1, None), (1000, 512),
 ])
 def test_resolve_chunk_matches_reference(query_chunk, align):
-    # the port has no memory budget: the reference is asked without one
+    # without a memory budget (tests/test_torch_budget.py covers budgets)
     want = jjoin.resolve_chunk(10_000, query_chunk, None, align, 512)
-    assert tjoin.resolve_chunk(query_chunk, align) == want
+    assert tjoin.resolve_chunk(10_000, query_chunk, None, align, 512) == want
 
 
 def test_csr_plumbing_matches_reference():

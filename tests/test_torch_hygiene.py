@@ -53,13 +53,15 @@ def _imported_modules(path: Path):
 SERVING_MODULES = ("configs/snn_default", "ft/checkpoint", "ft/elastic",
                    "ft/watchdog", "serving/runtime", "serving/registry",
                    "serving/server", "data/pipeline", "launch/serve")
+SHARDED_MODULES = ("core/sharded", "launch/mesh", "launch/snn_cell")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    # the serving slice's modules are among the files scanned
-    assert {PORT / f"{m}.py" for m in SERVING_MODULES} <= set(files)
+    # the serving and sharded slices' modules are among the files scanned
+    assert {PORT / f"{m}.py"
+            for m in SERVING_MODULES + SHARDED_MODULES} <= set(files)
     return files
 
 
@@ -171,8 +173,7 @@ def test_package_names_have_the_reference_meanings():
         return {n for n in dir(mod) if not n.startswith("_")
                 and not inspect.ismodule(getattr(mod, n))}
 
-    # the sharded graph builder waits for the torch.distributed port
-    assert public(jcore) - public(tcore) == {"build_neighbor_graph_sharded"}
+    assert public(jcore) - public(tcore) == set()
 
 
 @pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
@@ -215,3 +216,35 @@ def test_serving_entry_points_need_a_card_or_cpu(no_card, tmp_path, capsys):
     tserve.main(["--n", "300", "--d", "4", "--requests", "4",
                  "--radius", "0.5"], device="cpu")
     assert "4 requests in" in capsys.readouterr().out
+
+
+def test_registry_takes_its_own_card_under_every_name(monkeypatch, tmp_path):
+    # a registry made with device=None holds torch.device("cuda"); "cuda:0"
+    # and torch.device("cuda", 0) name the same (current) card
+    x, _ = _data()
+    cpu_reg = IndexRegistry(device="cpu", checkpoint_root=str(tmp_path))
+    cpu_reg.create("t", x)
+    cpu_reg.save("t")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    reg = IndexRegistry(checkpoint_root=str(tmp_path))
+    assert reg.device == torch.device("cuda")
+    restored_on = []
+    real_from_state = tst.StreamingSNNIndex.from_state
+
+    def from_state(leaves, extra, device=None):
+        restored_on.append(device)   # the tenant itself is built on the CPU
+        return real_from_state(leaves, extra, device="cpu")
+
+    registry_mod = importlib.import_module("repro_torch.serving.registry")
+    monkeypatch.setattr(registry_mod.StreamingSNNIndex, "from_state",
+                        staticmethod(from_state))
+    for name in ("cuda", "cuda:0", torch.device("cuda", 0)):
+        assert SNNServer(registry=reg, device=name).device.type == "cuda"
+        reg.restore("t", device=name)
+    assert restored_on == [torch.device("cuda")] * 3
+    for other in ("cpu", "cuda:1"):
+        with pytest.raises(ValueError, match="tenants live on"):
+            SNNServer(registry=reg, device=other)
+        with pytest.raises(ValueError, match="tenants live on"):
+            reg.restore("t", device=other)
