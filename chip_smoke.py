@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs eight phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs nine phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -106,7 +106,20 @@ or note, and each phase's time:
    bound;
    the last rows of the 48 GB table; MIND's ``retrieval_cand`` (GEMM +
    top-100 over 1,000,000 items) and ``retrieve_above`` of its 4 capsules
-   against a float64 brute force.
+   against a float64 brute force;
+4b. recsys training and the ranking models' candidate scoring at full
+   width: ``train_batch`` (65,536) of DLRM, Wide & Deep and MIND through
+   `launch.train`'s step, one step held against the same step through the
+   plain versions (bit for bit) and, for Wide & Deep and MIND, through a
+   dense scatter-add gradient, DLRM's row gradient (78 rows) against a
+   float64 sum of its 1.7M occurrences' gradients; then 5 steps, each
+   timed by CUDA events, their losses finite, the launches, the peak
+   memory (DLRM: less than a second table above the first, so no (V, D)
+   gradient), a torch.profiler breakdown of a DLRM step and the row
+   gradient's time; DLRM's and Wide & Deep's ``retrieval_cand`` over
+   1,000,000 candidates, timed, its top-100 against a host stable sort of
+   the whole score vector and sampled scores against a float64 forward of
+   the bfloat16-rounded parameters.
 
 Before phase 1 it prints each kernel's registers, static shared memory
 and spills from the build.  Exits non-zero on any failed check, and
@@ -124,6 +137,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -3224,6 +3238,9 @@ EARLIER_BAG_MS = {
 BAG_KERNELS = ("embedding_bag_kernel", "bag_of_one_kernel",
                "bag_range_histogram_kernel", "bag_range_scatter_kernel",
                "staged_bag_kernel")
+# record_function ranges of the package (`models.recsys.row_grad`), which
+# the profiler also puts on the card's timeline
+RANGES = ("row_grad",)
 # the one kernel of those that each embedding_bag call ends with
 BAG_GATHERS = ("embedding_bag_kernel", "bag_of_one_kernel",
                "staged_bag_kernel")
@@ -3336,35 +3353,42 @@ def bag_stats(torch, chk: Checks, K, ref, ids, table, tag: str,
             "library_max_abs_diff": lib_diff}
 
 
-def mlp64(torch, mlp, x):
+def as64(torch, t, bf16: bool = False):
+    """``t`` in float64 on the host; with ``bf16``, rounded to bfloat16
+    first (the ranking retrieval's cast of every float32 parameter)."""
+    t = t.detach()
+    return (t.to(torch.bfloat16) if bf16 else t).double().cpu()
+
+
+def mlp64(torch, mlp, x, bf16: bool = False):
     """An `models.layers.MLP` in float64 on the host."""
     last = len(mlp.layers) - 1
     for i, lin in enumerate(mlp.layers):
-        x = (x @ lin.weight.detach().double().cpu().T
-             + lin.bias.detach().double().cpu())
+        x = x @ as64(torch, lin.weight, bf16).T + as64(torch, lin.bias, bf16)
         if i < last or mlp.final_relu:
             x = x.clamp_min(0.0)
     return x
 
 
-def dlrm64(torch, model, dense, sparse):
+def dlrm64(torch, model, dense, sparse, bf16: bool = False):
     gid = (sparse + model.offsets[None, :]).long()
-    emb = model.table[gid].double().cpu()
-    bot = mlp64(torch, model.bot, dense.double().cpu())
+    emb = as64(torch, model.table[gid])
+    bot = mlp64(torch, model.bot, as64(torch, dense, bf16), bf16)
     z = torch.cat([bot[:, None, :], emb], dim=1)
     zz = z @ z.transpose(1, 2)
     x = torch.cat([bot, zz[:, model.iu.cpu(), model.ju.cpu()]], dim=1)
-    return mlp64(torch, model.top, x)[:, 0]
+    return mlp64(torch, model.top, x, bf16)[:, 0]
 
 
-def widedeep64(torch, model, dense, sparse):
+def widedeep64(torch, model, dense, sparse, bf16: bool = False):
     """(deep, wide, sum of |terms| of the wide term) in float64."""
     gid = (sparse + model.offsets[None, :]).long()
-    d64 = dense.double().cpu()
-    emb = model.emb[gid].double().cpu().reshape(gid.shape[0], -1)
-    deep = mlp64(torch, model.deep, torch.cat([d64, emb], dim=1))[:, 0]
-    terms = torch.cat([model.wide[gid][..., 0].double().cpu(),
-                       d64 * model.wide_dense[:, 0].double().cpu()[None]], 1)
+    d64 = as64(torch, dense, bf16)
+    emb = as64(torch, model.emb[gid], bf16).reshape(gid.shape[0], -1)
+    deep = mlp64(torch, model.deep, torch.cat([d64, emb], dim=1), bf16)[:, 0]
+    terms = torch.cat([as64(torch, model.wide[gid][..., 0], bf16),
+                       d64 * as64(torch, model.wide_dense[:, 0], bf16)[None]],
+                      1)
     return deep, terms.sum(1), terms.abs().sum(1)
 
 
@@ -3485,12 +3509,17 @@ def device_breakdown(torch, chk: Checks, K, fn, tag: str) -> dict:
     in the same trace, its lookups' gather kernels counted against the
     wrapper's launches): wall time, the card's busy time (the sum of its
     kernels and copies), and that time split into the embedding_bag op's
-    kernels (`BAG_KERNELS`), GEMMs and the rest."""
+    kernels (`BAG_KERNELS`), GEMMs and the rest; and the span of each
+    `RANGES` range the call ran, from its first kernel to its last."""
     calls, wall = traced(torch, fn, 1, kernels=BAG_GATHERS,
                          launches=lambda: K.embedding_bag.launches)
     by_name: dict[str, float] = {}
+    spans: dict[str, float] = {}
     for name, ms in calls[0]:
-        by_name[name] = by_name.get(name, 0.0) + ms
+        # a record_function range inside the call (the row gradient's)
+        # is on the card's timeline too, over its kernels: not one of them
+        into = spans if name in RANGES else by_name
+        into[name] = into.get(name, 0.0) + ms
     busy = sum(by_name.values())
     groups = {"embedding_bag": 0.0, "gemm": 0.0, "other": 0.0}
     for name, v in by_name.items():
@@ -3501,6 +3530,9 @@ def device_breakdown(torch, chk: Checks, K, fn, tag: str) -> dict:
                else "other")
         groups[key] += v
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    within = "".join(f"; the {k} range spans {v:.3f} ms of the card's "
+                     f"timeline ({100 * v / busy:.1f}% of its busy time)"
+                     for k, v in spans.items())
     bag = {re.search(r"\w+_kernel(<[^>]*>)?", k).group(0): v
            for k, v in by_name.items() if any(b in k for b in BAG_KERNELS)}
     chk.note(f"{tag} (torch.profiler, one call): wall {wall:.3f} ms, card "
@@ -3509,9 +3541,10 @@ def device_breakdown(torch, chk: Checks, K, fn, tag: str) -> dict:
              + ", ".join(f"{k} {v:.3f}" for k, v in bag.items())
              + f"), GEMMs {groups['gemm']:.3f} ms, other "
              f"{groups['other']:.3f} ms; most time: "
-             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+             + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top) + within)
     return {"wall_ms": wall, "busy_ms": busy,
             **{f"{k}_ms": v for k, v in groups.items()},
+            **{f"{k}_range_ms": v for k, v in spans.items()},
             "embedding_bag_kernels_ms": bag}
 
 
@@ -3626,7 +3659,7 @@ def mind_retrieval(torch, chk: Checks, K, ref, snn, steps, rs, clock,
            "scores")
     chk.note(f"threshold {thr!r} halfway between the 100th and 101st "
              f"max-over-capsules scores (gap {s[99] - s[100]:.3e})")
-    cand_np = cand.cpu().numpy()
+    cand_np = cand.detach().cpu().numpy()
     index = clock("build_index(items, metric='mips') on the card",
                   lambda: snn.build_index(cand_np, metric="mips",
                                           device=DEVICE))
@@ -3684,6 +3717,445 @@ def mind_retrieval(torch, chk: Checks, K, ref, snn, steps, rs, clock,
            f"{ip_err.max():.3e}, each within its float32 dhalf bound "
            f"(largest {tol_pairs.max():.3e})")
     return ra
+
+
+# --------------------------------------------------------------------------- #
+# phase 4b                                                                     #
+# --------------------------------------------------------------------------- #
+# training steps of the measured run (the first one untimed) and the
+# candidates of the ranking retrieval's float64 sample
+TRAIN_STEPS = 5
+N_RANK_SAMPLE = 256
+# bfloat16's unit roundoff (8 bits of precision) and float32's
+U16, U32 = 2.0 ** -8, 2.0 ** -24
+# a ranking score against the float64 forward of the same bfloat16-rounded
+# parameters: each bfloat16 layer rounds its product and its bias sum (half
+# an ulp, at most u16 of the value, each: Wide & Deep's four deep layers,
+# DLRM's bottom three before its float32 interaction and top), about 2^-6
+# of the score's scale when the errors add up; twice that here
+# (`ranking_sample` adds the wide term's roundings)
+RANK_REL_TOL = 2.0 ** -5
+
+
+def touched_rows(torch, arch: str, model, batch) -> dict:
+    """{table parameter: the unique rows a training batch reads}, the only
+    rows of a table that its step's row update can change."""
+    def uniq(ids, n_rows):
+        ids = ids.reshape(-1)
+        return torch.unique(ids[ids >= 0].long().clamp_max(n_rows - 1))
+
+    if arch == "mind":
+        ids = torch.cat([batch["hist"].reshape(-1), batch["target"],
+                         batch["negatives"]])
+        return {"items": uniq(ids, model.items.shape[0])}
+    gid = batch["sparse"] + model.offsets[None, :]
+    if arch == "dlrm-mlperf":
+        return {"table": uniq(gid, model.table.shape[0])}
+    return {"emb": uniq(gid, model.emb.shape[0]),
+            "wide": uniq(gid, model.wide.shape[0])}
+
+
+def train_state(torch, model, opt_state, rows: dict) -> dict:
+    """Copies of what a training step can change: every parameter (a
+    table's ``rows`` alone) and every leaf of the optimizer's state."""
+    from repro_torch.utils import tree_leaves
+
+    out = {name: (p.detach()[rows[name]] if name in rows
+                  else p.detach()).clone()
+           for name, p in model.named_parameters()}
+    out["optimizer"] = [t.clone() for t in tree_leaves(opt_state)]
+    return out
+
+
+def restore_state(torch, model, opt_state, rows: dict, snap: dict) -> None:
+    from repro_torch.utils import tree_leaves
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in rows:
+                p.index_put_((rows[name],), snap[name])
+            else:
+                p.copy_(snap[name])
+        for t, v in zip(tree_leaves(opt_state), snap["optimizer"]):
+            t.copy_(v)
+
+
+def state_gap(torch, a: dict, b: dict) -> tuple[bool, float]:
+    """(bit-identical, the largest difference of a leaf relative to that
+    leaf's largest magnitude) between two `train_state` copies."""
+    same, rel = True, 0.0
+    for k in a:
+        for x, y in zip(*((a[k], b[k]) if k == "optimizer"
+                          else ([a[k]], [b[k]]))):
+            same &= bool(torch.equal(x, y))
+            if x.is_floating_point() and x.numel():
+                scale = float(x.float().abs().max()) or 1.0
+                rel = max(rel, float((x.float() - y.float()).abs().max())
+                          / scale)
+    return same, rel
+
+
+def dlrm_rows_vs_float64(torch, chk: Checks, rs, model, batch, tag: str):
+    """DLRM's row gradient of one batch against a float64 sum of its
+    occurrences' gradients (the cotangents the lookup receives, bfloat16 as
+    in JAX): the same rows, each within the final rounding to bfloat16
+    (u16 of the sum) plus the float32 summation bound (k u32 sum|g| for a
+    row of k occurrences).  Returns the lookup's ids and cotangents."""
+    seen = {}
+    real = rs.bag_lookup
+
+    def hooked(ids, table):
+        out = real(ids, table)
+        out.register_hook(lambda g: seen.__setitem__("cot", g.detach()))
+        seen["ids"] = ids
+        return out
+
+    with mock.patch.object(rs, "bag_lookup", hooked):
+        _, grads = rs.value_and_grad(rs.dlrm_loss, model, batch)
+    g = grads["emb"]["table"]
+    ids, cot = seen["ids"], seen["cot"]
+    uniq, inv = torch.unique(ids[:, 0].long(), return_inverse=True)
+    d = cot.shape[1]
+    exact = torch.zeros((uniq.numel(), d), dtype=torch.float64,
+                        device=cot.device).index_add_(0, inv, cot.double())
+    mag = torch.zeros_like(exact).index_add_(0, inv, cot.double().abs())
+    k = torch.bincount(inv).double()[:, None]
+    err = (g.values().double() - exact).abs()
+    bound = U16 * exact.abs() + k * U32 * mag
+    same_rows = bool(torch.equal(g.indices()[0], uniq))
+    chk.ok(same_rows and bool((err <= bound).all()),
+           f"{tag}: the row gradient has the {uniq.numel()} rows the batch "
+           f"touched ({same_rows}; {ids.shape[0]} occurrences, up to "
+           f"{int(k.max())} a row), each within u16 |sum| + k u32 sum|g| of "
+           f"the float64 sum of its occurrences' gradients (max |diff| "
+           f"{float(err.max()):.3e}, {float((err / bound).max()):.3f} of its "
+           f"bound)")
+    return ids, cot
+
+
+def timed_steps(torch, sd, model, opt_state, batches) -> tuple:
+    """(losses, ms) of one training step a batch, each timed by CUDA
+    events."""
+    losses, ms = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sd.fn(model, opt_state, b)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(out["loss"]))
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def dlrm_full_vocab(torch, chk: Checks, K, rs, sd, model, opt_state, batch,
+                    tag: str) -> tuple:
+    """DLRM's training step on full-vocabulary batches (the reference
+    batch's dense features and labels, each field's ids drawn from its own
+    vocabulary: lookups spread over the whole table, as Criteo's are,
+    where the trainer's synthetic ids put them on 78 rows).  The row
+    gradient of one batch against float64 sums of its rows, then
+    ``TRAIN_STEPS`` steps timed by CUDA events with their peak memory, one
+    profiled step and the row gradient alone.  Returns (launches,
+    record)."""
+    tag = f"{tag}, full vocabulary"
+    batches = [{**batch, **full_vocab_batch(torch, model.cfg, batch,
+                                            SEED + 50 + i)}
+               for i in range(TRAIN_STEPS)]
+    ids, cot = dlrm_rows_vs_float64(torch, chk, rs, model, batches[0], tag)
+    rows = int(torch.unique(ids).numel())
+    table_bytes = model.table.numel() * model.table.element_size()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, ms = timed_steps(torch, sd, model, opt_state, batches)
+    launches = K.embedding_bag.launches
+    peak = torch.cuda.max_memory_allocated()
+    n = batch["dense"].shape[0]
+    warm = float(np.mean(ms[1:]))
+    chk.ok(all(np.isfinite(losses)) and launches == TRAIN_STEPS,
+           f"{tag}: losses of {TRAIN_STEPS} steps "
+           f"{[round(x, 6) for x in losses]}, all finite; embedding_bag "
+           f"launched {launches} times, expected {TRAIN_STEPS}")
+    chk.ok(peak - base < table_bytes,
+           f"{tag}: peak device memory {peak / 2**30:.3f} GiB, "
+           f"{(peak - base) / 2**30:.3f} GiB above the model and optimizer "
+           f"state: less than the {table_bytes / 2**30:.3f} GiB table, so "
+           "no (V, D) gradient was ever allocated")
+    breakdown = device_breakdown(
+        torch, chk, K, lambda: sd.fn(model, opt_state, batches[-1]),
+        f"{tag} step")
+    row_ms = timed(torch, lambda: rs.row_grad(ids, cot, model.table.shape[0]),
+                   5)
+    chk.note(f"{tag}: steps {[round(x, 3) for x in ms]} ms (CUDA events; "
+             f"the first one cold), warm mean {warm:.3f} ms, "
+             f"{n / warm * 1e3:.4e} samples/s, model FLOPs "
+             f"{sd.model_flops / warm / 1e9:.3f} TFLOP/s; the row gradient "
+             f"alone ({ids.shape[0]} occurrences on {rows} rows) "
+             f"{row_ms:.3f} ms (CUDA events), {100 * row_ms / warm:.1f}% of "
+             "a warm step")
+    return launches, {"step_ms": ms, "warm_step_ms": warm,
+                      "samples_per_s": n / warm * 1e3,
+                      "model_tflops": sd.model_flops / warm / 1e9,
+                      "losses": losses, "peak_gib": peak / 2**30,
+                      "peak_above_state_gib": (peak - base) / 2**30,
+                      "rows": rows, "row_grad_ms": row_ms,
+                      "row_grad_share": row_ms / warm,
+                      "device_breakdown": breakdown}
+
+
+def train_arch(torch, chk: Checks, K, ref, rs, train, arch: str, clock):
+    """One arch's ``train_batch`` at full width through `launch.train`'s
+    step: the step held against the same step through the plain versions
+    (and, for Wide & Deep and MIND, through a dense scatter-add gradient;
+    for DLRM, its row gradient against float64), then ``TRAIN_STEPS`` steps
+    from the initial state, each timed by CUDA events, with their losses,
+    the launches and the peak memory; DLRM then on full-vocabulary batches
+    (`dlrm_full_vocab`).  Returns ({run: launches}, record)."""
+    sd, model, opt_state, batch_at = clock(
+        f"{arch}:train_batch: train.setup (parameters from a seeded "
+        "torch.Generator on the card)",
+        lambda: train.setup(arch, device=DEVICE))
+    batches = [batch_at(i) for i in range(TRAIN_STEPS)]
+    batch = batches[0]
+    n = next(iter(batch.values())).shape[0]
+    rows = touched_rows(torch, arch, model, batch)
+    tables = {name: p for name, p in model.named_parameters()
+              if name in rows}
+    whole = ({} if arch == "dlrm-mlperf" else
+             {name: p.detach().clone() for name, p in tables.items()})
+    snap = train_state(torch, model, opt_state, rows)
+    tag = f"{sd.name} (batch {n})"
+
+    loss_k = float(sd.fn(model, opt_state, batch)["loss"])
+    after_k = train_state(torch, model, opt_state, rows)
+    restore_state(torch, model, opt_state, rows, snap)
+    with mock.patch.object(K, "embedding_bag", ref.embedding_bag_ref):
+        loss_p = float(sd.fn(model, opt_state, batch)["loss"])
+    after_p = train_state(torch, model, opt_state, rows)
+    same, rel = state_gap(torch, after_k, after_p)
+    chk.ok(loss_k == loss_p and rel <= 2.0 ** -20,
+           f"{tag}: one step through the kernel == through the plain "
+           f"versions: loss {loss_k!r} == {loss_p!r}, every parameter and "
+           f"optimizer leaf within 2^-20 of its scale (largest {rel:.3e}; "
+           f"bit-identical: {same})")
+    restore_state(torch, model, opt_state, rows, snap)
+    if arch == "dlrm-mlperf":
+        ids, cot = dlrm_rows_vs_float64(torch, chk, rs, model, batch, tag)
+    else:
+        # a differentiable plain gather: autograd's dense scatter-add
+        with mock.patch.object(rs, "bag_lookup", ref.embedding_bag_ref):
+            loss_d = float(sd.fn(model, opt_state, batch)["loss"])
+        after_d = train_state(torch, model, opt_state, rows)
+        ok, worst, changed = loss_d == loss_k, 0.0, 0
+        for name, p in tables.items():
+            x, y = after_k[name], after_d[name]
+            ulp = torch.abs(torch.nextafter(x, torch.full_like(x, np.inf))
+                            - x)
+            ok &= bool(((x - y).abs() <= ulp).all())
+            worst = max(worst, float(((x - y).abs() / ulp).max()))
+            changed += int((x != y).sum())
+            keep = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+            keep[rows[name]] = False
+            ok &= bool(torch.equal(p.detach()[keep], whole[name][keep]))
+        dense = {k: v for k, v in after_d.items() if k not in tables}
+        same_d, rel_d = state_gap(torch, {k: after_k[k] for k in dense},
+                                  dense)
+        ok &= rel_d <= 2.0 ** -20
+        chk.ok(ok, f"{tag}: the row-gradient step == the step through a "
+               f"dense scatter-add gradient: loss {loss_d!r}, the touched "
+               f"table rows within one float32 ulp ({changed} of "
+               f"{sum(after_k[t].numel() for t in tables)} elements differ, "
+               f"at most {worst:.0f} ulp: the occurrences summed in another "
+               f"order), every other row untouched, the dense leaves within "
+               f"2^-20 (bit-identical: {same_d})")
+        del whole, after_d
+        restore_state(torch, model, opt_state, rows, snap)
+    del after_k, after_p, snap
+
+    table_bytes = max(p.numel() * p.element_size() for p in tables.values())
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, ms = timed_steps(torch, sd, model, opt_state, batches)
+    launches = K.embedding_bag.launches
+    counts = {sd.name: launches}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    warm = float(np.mean(ms[1:]))
+    chk.ok(all(np.isfinite(losses)), f"{tag}: losses of {TRAIN_STEPS} "
+           f"steps {[round(x, 6) for x in losses]}, all finite")
+    chk.ok(launches == LOOKUPS[arch] * TRAIN_STEPS,
+           f"{tag}: {TRAIN_STEPS} steps launched embedding_bag {launches} "
+           f"times, expected {LOOKUPS[arch] * TRAIN_STEPS}")
+    # DLRM: a (V, D) gradient of the 48 GB table would take as much again
+    dense_free = arch != "dlrm-mlperf" or peak - base < table_bytes
+    chk.ok(peak < total and dense_free,
+           f"{tag}: peak device memory {peak / 2**30:.3f} GiB of "
+           f"{total / 2**30:.3f}, {(peak - base) / 2**30:.3f} GiB above "
+           f"the model and optimizer state"
+           + (f": less than the {table_bytes / 2**30:.3f} GiB table, so no "
+              "(V, D) gradient was ever allocated"
+              if arch == "dlrm-mlperf" else ""))
+    chk.note(f"{tag}: steps {[round(x, 3) for x in ms]} ms (CUDA events; "
+             f"the first one cold), warm mean {warm:.3f} ms, "
+             f"{n / warm * 1e3:.4e} samples/s, model FLOPs "
+             f"{sd.model_flops / warm / 1e9:.3f} TFLOP/s")
+    rec = {"step_ms": ms, "warm_step_ms": warm,
+           "samples_per_s": n / warm * 1e3,
+           "model_tflops": sd.model_flops / warm / 1e9, "losses": losses,
+           "peak_gib": peak / 2**30}
+    if arch == "dlrm-mlperf":
+        rec["device_breakdown"] = device_breakdown(
+            torch, chk, K, lambda: sd.fn(model, opt_state, batches[-1]),
+            f"{tag} step")
+        row_ms = timed(torch, lambda: rs.row_grad(ids, cot,
+                                                  model.table.shape[0]), 5)
+        rec.update(row_grad_ms=row_ms, row_grad_share=row_ms / warm)
+        chk.note(f"{tag}: the row gradient alone (sort, segment sum, on "
+                 f"the step's {ids.shape[0]} cotangents) {row_ms:.3f} ms "
+                 f"(CUDA events), {100 * row_ms / warm:.1f}% of a warm step")
+        del ids, cot
+        n_full, rec["full_vocabulary"] = dlrm_full_vocab(
+            torch, chk, K, rs, sd, model, opt_state, batch, tag)
+        counts[f"{sd.name} full-vocabulary"] = n_full
+    del model, opt_state, batches, batch, tables
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def ranking_sample(torch, arch: str, model, query, scores, rows) -> tuple:
+    """(got, float64 scores, tolerance) of candidates ``rows``: the float64
+    forward with the parameters (and the dense features) rounded to
+    bfloat16, as the step casts them.  The tolerance is `RANK_REL_TOL` of
+    the sample's scale (of the deep tower's, for Wide & Deep), and for Wide
+    & Deep half a bfloat16 ulp (at most u16 of the value) of each value the
+    wide term rounds after the deep tower: every partial sum of the 40-id
+    bag in slot order, the dense linear term, their sum, and the score."""
+    rows_d = torch.from_numpy(rows).to(DEVICE)
+    sparse = query["sparse"].expand(rows.size, -1).clone()
+    sparse[:, 0] = query["cand_ids"][rows_d]
+    dense = query["dense"].expand(rows.size, -1)
+    got = scores[rows_d].double().cpu()
+    if arch == "dlrm-mlperf":
+        want = dlrm64(torch, model, dense, sparse, bf16=True)
+        return got, want, RANK_REL_TOL * float(want.abs().max())
+    deep, wide, _ = widedeep64(torch, model, dense, sparse, bf16=True)
+    gid = (sparse + model.offsets[None, :]).long()
+    bag = as64(torch, model.wide[gid][..., 0], True)
+    walk = bag.cumsum(1).abs().sum(1)      # the bag's partial sums, in order
+    score = deep + wide
+    tol = (RANK_REL_TOL * float(deep.abs().max())
+           + U16 * (walk + (wide - bag.sum(1)).abs() + wide.abs()
+                    + score.abs()))
+    return got, score, tol
+
+
+def rank_retrieval(torch, chk: Checks, K, ref, rs, steps, arch: str, clock):
+    """The ranking ``retrieval_cand`` step of ``arch`` over 1,000,000
+    candidates: launches, time, peak memory, the scores through the
+    kernel against the same scores through its plain version (on the
+    step's candidates and on candidates spread over field 0's vocabulary),
+    the top-100 against a host stable sort of the whole score vector, and
+    a sample of scores against a float64 forward.  Returns (launches,
+    record)."""
+    sd = steps.build_step(arch, "retrieval_cand")
+    c = steps.get_arch(arch).shapes["retrieval_cand"]["n_candidates"]
+    model, q = clock(f"{sd.name}: init_args", lambda: sd.init_args(DEVICE))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vals, idx = clock(f"{sd.name} (first call)", lambda: sd.fn(model, q))
+    launches = K.embedding_bag.launches
+    peak = torch.cuda.max_memory_allocated()
+    chunks = -(-c // rs.RANK_CHUNK)
+    want_launches = chunks * LOOKUPS[arch]
+    chk.ok(launches == want_launches,
+           f"{sd.name}: {c} candidates in {chunks} chunks launched "
+           f"embedding_bag {launches} times, expected {want_launches}")
+    ms = timed(torch, lambda: sd.fn(model, q), 3)
+    breakdown = device_breakdown(torch, chk, K, lambda: sd.fn(model, q),
+                                 sd.name)
+    chk.note(f"{sd.name}: {ms:.3f} ms a call (CUDA events, warm), "
+             f"{c / ms * 1e3:.4e} candidates/s, model FLOPs "
+             f"{sd.model_flops / ms / 1e9:.3f} TFLOP/s; peak device memory "
+             f"{peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above "
+             "the model")
+    with torch.inference_mode():
+        scores = rs.rank_candidates(model, q["dense"], q["sparse"],
+                                    q["cand_ids"])
+    spread = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, model.cfg.vocab_sizes[0], c).astype(np.int32)).to(DEVICE)
+    for what, cand in (("the step's", q["cand_ids"]),
+                       ("field 0's whole vocabulary of", spread)):
+        with torch.inference_mode():
+            got = (scores if cand is q["cand_ids"] else rs.rank_candidates(
+                model, q["dense"], q["sparse"], cand))
+            with mock.patch.object(K, "embedding_bag",
+                                   ref.embedding_bag_ref):
+                plain = rs.rank_candidates(model, q["dense"], q["sparse"],
+                                           cand)
+        chk.ok(torch.equal(got.view(torch.int32), plain.view(torch.int32)),
+               f"{sd.name}: the {c} scores of {what} "
+               f"{int(torch.unique(cand).numel())} distinct candidate ids "
+               f"through embedding_bag == through its plain version, bit "
+               f"for bit ({chunks} chunks x {LOOKUPS[arch]} lookups of "
+               f"{', '.join(model.TABLES)} cast to bfloat16)")
+        del got, plain
+    del spread
+    s = scores.cpu().numpy()
+    order = np.argsort(-s, kind="stable")[:100]
+    got_idx, got_vals = idx.cpu().numpy(), vals.cpu().numpy()
+    distinct = (np.unique(s).size, int(torch.unique(q["cand_ids"]).numel()))
+    chk.ok(np.array_equal(got_idx, order)
+           and np.array_equal(got_vals.view(np.int32), s[order].view(np.int32)),
+           f"{sd.name}: the step's top-100 == a host stable sort of the "
+           f"{c} scores (descending, ties by index) and its values == those "
+           f"scores; {distinct[0]} distinct scores for {distinct[1]} "
+           f"distinct candidate ids")
+    rng = np.random.default_rng(SEED + 40)
+    rows = np.union1d(rng.choice(c, N_RANK_SAMPLE, replace=False), order)
+    with torch.inference_mode():
+        got, want, tol = ranking_sample(torch, arch, model, q, scores, rows)
+    err = (got - want).abs()
+    chk.ok(bool((err <= tol).all()),
+           f"{sd.name}: {rows.size} sampled scores (the top-100 among them) "
+           f"vs a float64 forward of the bfloat16-rounded parameters, max "
+           f"|diff| {float(err.max()):.3e}, each within 2^-5 of the scale"
+           + (" of the deep tower + u16 of each rounded wide value"
+              if arch == "wide-deep" else "")
+           + f" (largest tolerance {float(torch.as_tensor(tol).max()):.3e})")
+    del model, q, scores
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "candidates_per_s": c / ms * 1e3,
+                      "model_tflops": sd.model_flops / ms / 1e9,
+                      "peak_gib": peak / 2**30,
+                      "distinct_scores": distinct[0],
+                      "device_breakdown": breakdown}
+
+
+def phase_recsys_train(torch, chk: Checks, K, ref, clock):
+    from repro_torch.launch import steps, train
+    from repro_torch.models import recsys as rs
+
+    print("phase 4b: recsys training (train_batch through launch.train) and "
+          "the ranking retrieval_cand at full width")
+    launches, recs = {}, {}
+    for arch in ("dlrm-mlperf", "wide-deep", "mind"):
+        counts, recs[f"{arch}:train_batch:train"] = train_arch(
+            torch, chk, K, ref, rs, train, arch, clock)
+        launches.update(counts)
+        chk.note(f"device memory held after {arch}'s training: "
+                 f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    for arch in ("dlrm-mlperf", "wide-deep"):
+        name = f"{arch}:retrieval_cand:retrieval"
+        launches[name], recs[name] = rank_retrieval(torch, chk, K, ref, rs,
+                                                    steps, arch, clock)
+    return launches, recs
 
 
 def ptxas_table(log: str, nvcc: str) -> dict:
@@ -3863,6 +4335,15 @@ def main() -> int:
         "launches_by_path": bag_launches, **main_bag["bags"]["lookup"],
         "paths": bag_paths, "device_breakdown": breakdown})
     if not phase_done("phase 4", t):
+        return 1
+    t = time.perf_counter()
+    train_launches, train_recs = phase_recsys_train(torch, chk, K, ref,
+                                                    clock)
+    bag = kernels[-1]
+    bag["launches_by_path"].update(train_launches)
+    bag["launches"] += sum(train_launches.values())
+    bag["training_and_ranking"] = train_recs
+    if not phase_done("phase 4b", t):
         return 1
     for rec in kernels:
         base = {"snn_count": "snn_count_stacked",

@@ -2,8 +2,10 @@
 ``repro.configs.registry`` for the archs ported so far.
 
 Each arch module registers an ArchSpec; ``get_arch(id)`` resolves through
-here.  Only the recsys serving archs are ported (``dlrm-mlperf``,
-``wide-deep``, ``mind``); ``ROADMAP.md`` lists the rest.
+here.  The ported archs are the recsys models ``dlrm-mlperf``,
+``wide-deep`` and ``mind``, for serving, training and candidate scoring.
+BERT4Rec and the LM and GNN families are not ported; ``ROADMAP.md`` lists
+them.
 """
 from __future__ import annotations
 

@@ -35,6 +35,7 @@ import torch
 
 from ..kernels import registry as _registry
 from ..kernels.ref import BIG as _BIG
+from ..utils import top_k
 from . import metrics as _metrics
 
 
@@ -364,27 +365,9 @@ def query_counts(index: SNNIndex, q: np.ndarray, radius, group_size: int = 64) -
 # Fixed-shape path                                                             #
 # --------------------------------------------------------------------------- #
 def _smallest_k(dhalf: torch.Tensor, k: int):
-    """(values, columns) of the ``k`` smallest entries of each row, ascending,
-    equal values in ascending column order: ``jax.lax.top_k`` of the
-    negated rows.  `torch.topk` promises no order among equal values, nor
-    which of them it keeps at the k-th value, so both are fixed here."""
-    vals, idx = torch.topk(dhalf, k, dim=1, largest=False, sorted=True)
-    if k == 0:
-        return vals, idx
-    idx, p = torch.sort(idx, dim=1)
-    vals, p2 = torch.sort(vals.gather(1, p), dim=1, stable=True)
-    idx = idx.gather(1, p2)
-    # rows with more entries at or below their k-th value than k: a tie at
-    # the k-th value, where the lowest columns must be the ones kept.  Tied
-    # +BIG entries are pruned pairs, masked by the caller, so they do not
-    # count
-    kth = vals[:, -1]
-    tied = (kth < _BIG) & ((dhalf <= kth[:, None]).sum(dim=1) > k)
-    for i in torch.nonzero(tied).flatten().tolist():
-        cols = torch.nonzero(dhalf[i] <= kth[i]).flatten()  # ascending
-        v, p = torch.sort(dhalf[i, cols], stable=True)
-        vals[i], idx[i] = v[:k], cols[p[:k]]
-    return vals, idx
+    """`top_k` of the smallest half distances; tied +BIG entries at the
+    k-th value are pruned pairs, masked by the caller, so they are left."""
+    return top_k(dhalf, k, largest=False, masked=_BIG)
 
 
 def query_radius_fixed(index: SNNIndex, q: np.ndarray, radius, max_neighbors: int,

@@ -67,18 +67,53 @@ def _unflatten(tree_like, leaves: list):
     return build(tree_like)
 
 
+# numpy has no bfloat16: a bfloat16 leaf is saved as its bits, an array of
+# this two-byte void type, which is what `np.save` writes for the JAX
+# package's bfloat16 arrays (its manifest names the dtype "bfloat16")
+_BF16_BITS = np.dtype("V2")
+# the checksum reads a shard in pieces of this size, not whole
+_CRC_CHUNK = 64 << 20
+
+
 def _to_host(leaf) -> np.ndarray:
+    """A copy of ``leaf`` on the host, so a tensor updated in place after
+    `CheckpointManager.save` returns leaves the snapshot as it was.  The
+    copy is made by the transfer itself: nothing new is allocated on the
+    leaf's device, and a bfloat16 leaf keeps its two bytes an element."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_BITS)
+        return host.numpy()
     return np.asarray(leaf)
 
 
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == _BF16_BITS else str(a.dtype)
+
+
 def _like(arr: np.ndarray, leaf):
-    """``arr`` as ``leaf``'s kind: a tensor on ``leaf``'s device for a
-    tensor leaf, else the numpy array."""
-    if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(leaf.device)
-    return arr
+    """``arr`` copied into ``leaf`` for a tensor leaf, cast to its dtype,
+    from the host straight to its device (no second copy of the leaf
+    there; a bfloat16 leaf's saved bits taken as bfloat16); else the numpy
+    array."""
+    if not isinstance(leaf, torch.Tensor):
+        return arr
+    if not arr.flags.c_contiguous:
+        # np.array keeps a 0-d array 0-d (np.ascontiguousarray makes it 1-d)
+        arr = np.array(arr, order="C")
+    host = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            if arr.dtype == _BF16_BITS else torch.from_numpy(arr))
+    with torch.no_grad():
+        return leaf.copy_(host)
+
+
+def _crc32(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(_CRC_CHUNK):
+            crc = zlib.crc32(chunk, crc)
+    return crc
 
 
 class CheckpointManager:
@@ -91,10 +126,11 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree, extra: dict | None = None, block: bool = False):
-        """Snapshot to host memory synchronously, write (a)synchronously."""
+        """Snapshot to host memory synchronously, write (a)synchronously.
+        The previous write ends first, so the host holds one snapshot."""
         leaves, treedef = _flatten(tree)
-        host = [_to_host(leaf) for leaf in leaves]
         self.wait()
+        host = [_to_host(leaf) for leaf in leaves]
         if self.async_write and not block:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, treedef, extra or {}),
@@ -116,13 +152,12 @@ class CheckpointManager:
         os.makedirs(tmp, exist_ok=True)
         shard_file = os.path.join(tmp, "shard_00000.npz")
         np.savez(shard_file, **{str(i): a for i, a in enumerate(host)})
-        with open(shard_file, "rb") as f:
-            crc = zlib.crc32(f.read())
+        crc = _crc32(shard_file)
         manifest = {
             "step": step, "treedef": treedef, "n_leaves": len(host),
             "shards": {"shard_00000.npz": crc},
             "shapes": [list(a.shape) for a in host],
-            "dtypes": [str(a.dtype) for a in host],
+            "dtypes": [_dtype_name(a) for a in host],
             "extra": extra,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -153,9 +188,8 @@ class CheckpointManager:
             with open(os.path.join(path, "manifest.json")) as f:
                 manifest = json.load(f)
             for shard, crc in manifest["shards"].items():
-                with open(os.path.join(path, shard), "rb") as f:
-                    if zlib.crc32(f.read()) != crc:
-                        return None
+                if _crc32(os.path.join(path, shard)) != crc:
+                    return None
             return manifest
         except (OSError, json.JSONDecodeError, KeyError):
             return None
@@ -173,12 +207,15 @@ class CheckpointManager:
                 yield s, path, manifest
 
     def restore(self, tree_like, step: int | None = None):
-        """Restore into the structure of ``tree_like``.
+        """Restore into ``tree_like``.
 
         Returns (tree, step, extra) or (None, None, None) if no valid
         checkpoint exists.  Corrupt checkpoints are skipped, newest-first.
-        A tensor leaf of ``tree_like`` comes back as a tensor on its
-        device, any other leaf as a numpy array, with the saved dtype.
+        The tensor leaves of ``tree_like`` receive the saved values in
+        place, in their own dtype and on their own device, and are
+        returned (a model whose table fills half the card restores without
+        a second copy of it there); any other leaf comes back as the saved
+        numpy array.  ``tree_like`` is untouched when nothing is restored.
         """
         like, treedef = _flatten(tree_like)
         for s, path, manifest in self._candidates(step):

@@ -1,3 +1,3 @@
-"""Launchers of the port: the step builders (`steps`), the SNN serving
-launcher (`serve`), the device meshes (`mesh`) and the pod-scale SNN
-service cell (`snn_cell`)."""
+"""Launchers of the port: the step builders (`steps`), the recsys trainer
+(`train`), the SNN serving launcher (`serve`), the device meshes (`mesh`)
+and the pod-scale SNN service cell (`snn_cell`)."""

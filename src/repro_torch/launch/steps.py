@@ -1,14 +1,19 @@
 """Step builders of the port: per (arch x shape) the step function, its
 analytic model FLOPs, and a constructor of concrete arguments.
 
-The counterpart of ``repro.launch.steps`` for the recsys serving path: the
-kinds ``rs_serve`` (DLRM, Wide & Deep, MIND) and MIND's ``rs_retrieval``.
-``StepDef`` keeps the JAX package's ``name``, ``fn``, ``model_flops`` and
-``init_args``; its PartitionSpec, sharding and donation fields have no
-meaning on one card and are left out.  The batch is the JAX package's numpy
-batch for the same ``default_rng(0)``; the parameters are made on the
-device from a seeded ``torch.Generator`` (``models.recsys.params_from_jax``
-carries the JAX package's own instead).
+The counterpart of ``repro.launch.steps`` for the recsys family: the kinds
+``rs_serve`` and ``rs_train`` (DLRM, Wide & Deep, MIND) and
+``rs_retrieval`` (MIND's capsules against the items; DLRM's and Wide &
+Deep's ranking forward over the candidates).  ``StepDef`` keeps the JAX
+package's ``name``, ``fn``, ``model_flops`` and ``init_args``; its
+PartitionSpec, sharding and donation fields have no meaning on one card and
+are left out.  The batch is the JAX package's numpy batch for the same
+``default_rng(0)``; the parameters are made on the device from a seeded
+``torch.Generator`` (``models.recsys.params_from_jax`` carries the JAX
+package's own instead).  A training step updates the model and the
+optimizer state in place and returns ``{"loss": ...}``.
+
+Not ported yet (``ROADMAP.md``): BERT4Rec, and the LM and GNN families.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import torch
 from ..configs.registry import ArchSpec, get_arch, list_archs
 from ..kernels import registry as _registry
 from ..models import recsys as rs
+from ..optim import adamw, apply_updates, partition_optimizer, sgd
+from ..utils import top_k, tree_map
 
 SEED = 0
 
@@ -39,7 +46,7 @@ def _mlp_flops(sizes):
 
 def rs_model_flops(arch_id, cfg, shape) -> float:
     """Analytic model FLOPs of one step: ``repro.launch.steps``'s count for
-    the ported kinds (serving, and MIND's candidate scoring)."""
+    the ported archs."""
     kind = shape["kind"]
     b = shape.get("batch", 1)
     if arch_id == "dlrm-mlperf":
@@ -54,11 +61,17 @@ def rs_model_flops(arch_id, cfg, shape) -> float:
     elif arch_id == "mind":
         d, s, k = cfg.embed_dim, cfg.hist_len, cfg.n_interests
         per = 2 * s * d * d + cfg.capsule_iters * (4 * s * k * d)
-        if kind == "rs_retrieval":
-            per += 2 * shape["n_candidates"] * d * k
+        if kind == "rs_train":
+            per += 2 * k * d * (1 + cfg.n_neg)
     else:
         raise KeyError(arch_id)
-    return per * b
+    if kind == "rs_retrieval":
+        if arch_id == "mind":
+            per += 2 * shape["n_candidates"] * cfg.embed_dim * cfg.n_interests
+        else:
+            per = per * shape["n_candidates"]  # a ranking forward a candidate
+        return per * b
+    return per * b * (3 if kind == "rs_train" else 1)
 
 
 def _rs_init_model(arch_id, cfg, generator, device):
@@ -108,6 +121,20 @@ def _not_ported(what: str) -> NotImplementedError:
                                "(ROADMAP.md lists what is left)")
 
 
+def route(path) -> str:
+    """The MLPerf recipe's routing: the embedding tables to row-wise SGD,
+    every other leaf to AdamW (``repro.launch.steps``'s route over the
+    same paths)."""
+    keys = [str(k) for k in path]
+    return "rows" if any(k in ("table", "items", "embed")
+                         and "layers" not in keys for k in keys) else "dense"
+
+
+def train_optimizer():
+    return partition_optimizer(route, {"rows": sgd(lr=1e-2),
+                                       "dense": adamw(lr=1e-3)})
+
+
 def build_rs_step(spec: ArchSpec, shape_name: str, *,
                   reduced: bool) -> StepDef:
     arch_id = spec.arch_id
@@ -116,11 +143,6 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
     if reduced:
         shape = {**shape, "batch": 8, "n_candidates": 128}
     kind = shape["kind"]
-    if kind == "rs_train":
-        raise _not_ported(f"{arch_id}:{shape_name} (training)")
-    if kind == "rs_retrieval" and arch_id != "mind":
-        raise _not_ported(f"{arch_id}:{shape_name} (ranking-model candidate "
-                          "scoring)")
     rng = np.random.default_rng(SEED)
     flops = rs_model_flops(arch_id, cfg, shape) if not reduced else 0.0
     b = shape.get("batch", 1)
@@ -129,6 +151,27 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
         dev = _registry.resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return dev, _rs_init_model(arch_id, cfg, gen, dev)
+
+    if kind == "rs_train":
+        opt = train_optimizer()
+        loss_f = rs.LOSSES[arch_id]
+        np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
+
+        def step(model, opt_state, batch):
+            loss, grads = rs.value_and_grad(loss_f, model, batch)
+            params = model.tree()
+            upd, new_state = opt.update(grads, opt_state, params)
+            apply_updates(params, upd)
+            with torch.no_grad():
+                tree_map(lambda old, new: old.copy_(new), opt_state, new_state)
+            return {"loss": loss}
+
+        def init_args(device=None):
+            dev, model = init_model(device)
+            return model, opt.init(model.tree()), _on(dev, np_batch)
+
+        return StepDef(name=f"{arch_id}:{shape_name}:train", fn=step,
+                       model_flops=flops, init_args=init_args)
 
     if kind == "rs_serve":
         np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
@@ -147,19 +190,37 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
         return StepDef(name=f"{arch_id}:{shape_name}:serve", fn=step,
                        model_flops=flops, init_args=init_args)
 
-    # rs_retrieval (MIND): a user's history scored against n_candidates
+    # rs_retrieval: one query scored against n_candidates, top-100 in
+    # jax.lax.top_k's order (equal scores by candidate index)
     c = shape["n_candidates"]
+    if arch_id == "mind":
+        @torch.inference_mode()
+        def step(model, query):
+            cand = model.items[:c]
+            return top_k(model.score_candidates(query["hist"], cand), 100)
 
-    @torch.inference_mode()
-    def step(model, query):
-        cand = model.items[:c]
-        return torch.topk(model.score_candidates(query["hist"], cand), 100,
-                          dim=1)
+        def init_args(device=None):
+            dev, model = init_model(device)
+            hist = rng.integers(0, cfg.n_items, (b, cfg.hist_len))
+            return model, _on(dev, {"hist": hist.astype(np.int32)})
+    else:
+        # ranking archs: a fixed user, field 0 set to each candidate id
+        nf = cfg.n_sparse if arch_id == "dlrm-mlperf" else len(cfg.vocab_sizes)
+        vmax = min(cfg.vocab_sizes)
 
-    def init_args(device=None):
-        dev, model = init_model(device)
-        hist = rng.integers(0, cfg.n_items, (b, cfg.hist_len))
-        return model, _on(dev, {"hist": hist.astype(np.int32)})
+        @torch.inference_mode()
+        def step(model, query):
+            scores = rs.rank_candidates(model, query["dense"],
+                                        query["sparse"], query["cand_ids"])
+            vals, idx = top_k(scores[None], 100)
+            return vals[0], idx[0]
+
+        def init_args(device=None):
+            dev, model = init_model(device)
+            q = {"dense": rng.normal(size=(1, cfg.n_dense)).astype(np.float32),
+                 "sparse": rng.integers(0, vmax, (1, nf)).astype(np.int32),
+                 "cand_ids": rng.integers(0, vmax, (c,)).astype(np.int32)}
+            return model, _on(dev, q)
 
     return StepDef(name=f"{arch_id}:{shape_name}:retrieval", fn=step,
                    model_flops=flops, init_args=init_args)

@@ -1,5 +1,5 @@
 """Neural-net building blocks of the port: the counterpart of the parts of
-``repro.models.layers`` the recsys serving path needs.
+``repro.models.layers`` the recsys models need.
 
 The JAX package keeps an MLP as a list of ``{"w": (in, out), "b": (out,)}``
 dicts applied as ``x @ w + b``; here it is a stack of ``nn.Linear`` layers,
@@ -45,6 +45,30 @@ class MLP(nn.Module):
             if i < last or self.final_relu:
                 x = torch.relu(x)
         return x
+
+    def bf16_forward(self, x):
+        """``mlp_apply`` with every weight and bias cast to bfloat16, under
+        JAX's promotion: ``x @ w`` runs in ``promote_types(x.dtype,
+        bfloat16)`` (a float32 ``x`` meets the rounded weights in float32)
+        and is rounded to that dtype before ``+ b``, which rounds again, as
+        in JAX (an ``nn.Linear`` would add the bias inside the product)."""
+        last = len(self.layers) - 1
+        bf = torch.bfloat16
+        for i, lin in enumerate(self.layers):
+            dt = torch.promote_types(x.dtype, bf)
+            w, b = lin.weight.to(bf).to(dt), lin.bias.to(bf).to(dt)
+            x = x.to(dt) @ w.T + b
+            if i < last or self.final_relu:
+                x = torch.relu(x)
+        return x
+
+    def tree(self, leaf=lambda p: p.detach()) -> list:
+        """The JAX ``mlp_params`` layout, ``[{"w": (in, out), "b": (out,)}]``,
+        of ``leaf(parameter)``: the parameters themselves by default (``w``
+        a transposed view of the Linear weight), or what ``leaf`` maps them
+        to (their gradients)."""
+        return [{"w": leaf(lin.weight).T, "b": leaf(lin.bias)}
+                for lin in self.layers]
 
     @torch.no_grad()
     def load_jax(self, params) -> "MLP":

@@ -1,20 +1,24 @@
-"""RecSys serving models of the port: DLRM (MLPerf), Wide & Deep, MIND.
+"""RecSys models of the port: DLRM (MLPerf), Wide & Deep, MIND.
 
-The counterpart of ``repro.models.recsys`` for the serving path.  Each
-model is an ``nn.Module`` over the same parameters as the JAX pytree
-(`params_from_jax` carries them across) and computes the same forward.
+The counterpart of ``repro.models.recsys``: serving, training (the losses
+and their gradients) and candidate scoring.  Each model is an ``nn.Module``
+over the same parameters as the JAX pytree (`params_from_jax` carries them
+across, `params_to_jax` back; ``model.tree()`` is that layout over the
+module's own storage) and computes the same forward.
 
 Shared substrate: a *stacked* embedding table (all categorical fields
 concatenated row-wise, each field at its row offset).  Every table lookup
-goes through `kernels.ops.embedding_bag`, so on the card each one is a
-launch of the hand-written CUDA embedding-bag kernel:
+goes through `bag_lookup`, whose forward is `kernels.ops.embedding_bag`, so
+on the card each one is a launch of the hand-written CUDA embedding-bag
+kernel:
 
 * DLRM's and Wide & Deep's deep lookups are bags of one id (the (B, F) ids
   as (B * F, 1) bags);
 * Wide & Deep's wide term is one bag of F ids a sample, summed over the
   (V, 1) wide table;
 * MIND's history gather is a bag of one id a history slot, whose -1
-  padding the kernel masks to a zero row.
+  padding the kernel masks to a zero row; its loss looks up the histories,
+  the targets and the negatives in one call.
 
 The JAX models do these lookups with ``jnp.take`` (and, for the wide term,
 a sum over the fields).  A bag of one is ``0 + 1 * row``, bit-identical to
@@ -24,8 +28,14 @@ exactly.  The wide sum adds its F terms in field order and differs from
 XLA's reduction only in summation order, within the recursive-summation
 bound ``F * 2^-24 * sum |w|``.
 
-Not ported yet (``ROADMAP.md``): training (losses), BERT4Rec, and the
-ranking models' candidate-scoring step.
+The gradient of a lookup is the table's *row gradient* (`row_grad`): the
+unique ids touched and their summed gradients, a sparse COO tensor, never
+a dense (V, D) one: DLRM's 48 GB table could not hold a dense twin on one
+card.  JAX computes it as XLA's scatter-add (the VJP of ``jnp.take``); the
+port sorts the occurrences by id and sums each id's in float32, in a
+fixed order, then rounds once to the table's dtype.
+
+Not ported yet (``ROADMAP.md``): BERT4Rec, which needs the transformer.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ from torch import nn
 from ..core import join as _join
 from ..kernels import ops as _ops
 from ..kernels import registry as _registry
+from ..utils import top_k as _top_k
+from ..utils import tree_map as _tree_map
 from .layers import MLP, mlp_params, uniform_init
 
 
@@ -80,15 +92,63 @@ def lookup_ids(ids: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return (ids + offsets[None, :]).reshape(-1, 1)
 
 
+def row_grad(ids: torch.Tensor, grad_out: torch.Tensor,
+             n_rows: int) -> torch.Tensor:
+    """The gradient of ``embedding_bag(ids, table)`` for a table of
+    ``n_rows`` rows, given the output's gradient ``grad_out`` (B, D): a
+    sparse COO (n_rows, D) tensor of the unique ids touched (ascending) and
+    their summed rows, in ``grad_out``'s dtype.
+
+    Every id >= 0 of bag b adds ``grad_out[b]`` to its row (an id past the
+    table to row n_rows - 1, which the forward read); padding adds nothing.
+    The occurrences are sorted by id (stably), and each id's are summed in
+    float32 in that order by one segment sum, then rounded once: the same
+    bits every run, and no atomics on the hot rows (DLRM's synthetic ids
+    put 1.7M occurrences a step on 78 rows)."""
+    with torch.profiler.record_function("row_grad"):
+        f = ids.shape[1]
+        flat = ids.reshape(-1)
+        valid = flat >= 0
+        occ = torch.nonzero(valid).flatten()
+        rows_of = flat[occ].clamp_max(n_rows - 1).long()
+        sorted_ids, order = torch.sort(rows_of, stable=True)
+        uniq, counts = torch.unique_consecutive(sorted_ids,
+                                                return_counts=True)
+        g = grad_out.float()[occ[order] // f]
+        sums = (torch.segment_reduce(g, "sum", lengths=counts, axis=0)
+                if counts.numel() else g)            # no id: no row
+        return torch.sparse_coo_tensor(
+            uniq[None], sums.to(grad_out.dtype), (n_rows, grad_out.shape[1]),
+            is_coalesced=True, check_invariants=False)
+
+
+class _BagLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return _ops.embedding_bag(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        return None, row_grad(ids, grad_out, ctx.n_rows)
+
+
+def bag_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``kernels.ops.embedding_bag(ids, table)`` (the CUDA kernel for a CUDA
+    table, the plain version for a CPU one) whose gradient with respect to
+    the table is its row gradient (`row_grad`)."""
+    return _BagLookup.apply(ids, table)
+
+
 def stacked_lookup(table: torch.Tensor, ids: torch.Tensor,
                    offsets: torch.Tensor) -> torch.Tensor:
     """ids: (B, F) per-field local ids -> (B, F, dim), in one launch."""
     b, f = ids.shape
-    return _ops.embedding_bag(lookup_ids(ids, offsets), table).view(b, f, -1)
-
-
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return bag_lookup(lookup_ids(ids, offsets), table).view(b, f, -1)
 
 
 # --------------------------------------------------------------------------- #
@@ -114,11 +174,13 @@ class DLRM(nn.Module):
     lookup (a bfloat16 table, as in the JAX package), the dot interaction's
     strict upper triangle in ``triu_indices`` order, and the top MLP."""
 
+    TABLES = ("table",)
+
     def __init__(self, cfg: DLRMConfig, table: torch.Tensor, bot: MLP,
                  top: MLP):
         super().__init__()
         self.cfg = cfg
-        self.table = _frozen(table)
+        self.table = nn.Parameter(table)
         self.bot, self.top = bot, top
         dev = table.device
         self.register_buffer("offsets", field_offsets(cfg.vocab_sizes, dev))
@@ -127,16 +189,35 @@ class DLRM(nn.Module):
         self.register_buffer("iu", iu)
         self.register_buffer("ju", ju)
 
+    def _interact(self, bot, emb):
+        """[bot, the strict upper triangle of z z^T], z = [bot, emb]; a
+        bfloat16 ``bot`` meets the float32 ``emb`` in float32, as in JAX."""
+        z = torch.cat([bot[:, None, :], emb], dim=1)            # (B, 27, D)
+        zz = torch.bmm(z, z.transpose(1, 2))                    # interaction
+        return torch.cat([bot, zz[:, self.iu, self.ju]], dim=1)  # (B, 479)
+
     def forward(self, dense, sparse_ids):
         """dense: (B, 13) float32; sparse_ids: (B, 26) int32 -> (B,)."""
         bot = self.bot(dense)
         emb = stacked_lookup(self.table, sparse_ids,
                              self.offsets).to(self.cfg.dtype)  # (B, 26, D)
-        z = torch.cat([bot[:, None, :], emb], dim=1)            # (B, 27, D)
-        zz = torch.bmm(z, z.transpose(1, 2))                    # interaction
-        inter = zz[:, self.iu, self.ju]                         # (B, 351)
-        x = torch.cat([bot, inter], dim=1)
-        return self.top(x)[:, 0]
+        return self.top(self._interact(bot, emb))[:, 0]
+
+    def score_bf16(self, dense, sparse_ids, table):
+        """The ranking retrieval's forward, with every float32 parameter
+        cast to bfloat16 (``table``: this model's table so cast) under JAX's
+        promotion: the bottom MLP in bfloat16, the lookup widened to
+        ``cfg.dtype`` (float32), so the interaction and the top MLP run in
+        float32 on the bfloat16-rounded weights.  -> (B,) float32."""
+        bot = self.bot.bf16_forward(dense.to(torch.bfloat16))
+        emb = stacked_lookup(table, sparse_ids,
+                             self.offsets).to(self.cfg.dtype)
+        return self.top.bf16_forward(self._interact(bot, emb))[:, 0]
+
+    def tree(self, leaf=lambda p: p.detach()) -> dict:
+        """The JAX parameter pytree's layout (`MLP.tree`)."""
+        return {"emb": {"table": leaf(self.table)},
+                "bot": self.bot.tree(leaf), "top": self.top.tree(leaf)}
 
 
 def dlrm_init(cfg: DLRMConfig, *, generator: torch.Generator | None = None,
@@ -170,13 +251,15 @@ class WideDeep(nn.Module):
     the wide term (a bag of the F ids over the (V, 1) wide table, and a
     linear term of the dense features)."""
 
+    TABLES = ("emb", "wide")
+
     def __init__(self, cfg: WideDeepConfig, emb: torch.Tensor,
                  wide: torch.Tensor, wide_dense: torch.Tensor, deep: MLP):
         super().__init__()
         self.cfg = cfg
-        self.emb = _frozen(emb)
-        self.wide = _frozen(wide)
-        self.wide_dense = _frozen(wide_dense)
+        self.emb = nn.Parameter(emb)
+        self.wide = nn.Parameter(wide)
+        self.wide_dense = nn.Parameter(wide_dense)
         self.deep = deep
         self.register_buffer("offsets",
                              field_offsets(cfg.vocab_sizes, emb.device))
@@ -187,14 +270,30 @@ class WideDeep(nn.Module):
         return self.deep(torch.cat([dense, emb], dim=1))[:, 0]
 
     def wide_logit(self, dense, sparse_ids):
-        wide = _ops.embedding_bag(sparse_ids + self.offsets[None, :],
-                                  self.wide)[:, 0]
+        wide = bag_lookup(sparse_ids + self.offsets[None, :], self.wide)[:, 0]
         return wide + (dense @ self.wide_dense)[:, 0]
 
     def forward(self, dense, sparse_ids):
         """dense: (B, 13) float32; sparse_ids: (B, 40) int32 -> (B,)."""
         return (self.deep_logit(dense, sparse_ids)
                 + self.wide_logit(dense, sparse_ids))
+
+    def score_bf16(self, dense, sparse_ids, emb, wide):
+        """The ranking retrieval's forward, wholly in bfloat16 (``emb`` and
+        ``wide``: the tables cast to it) -> (B,) bfloat16."""
+        bf = torch.bfloat16
+        d = dense.to(bf)
+        e = stacked_lookup(emb, sparse_ids, self.offsets).reshape(d.shape[0],
+                                                                  -1)
+        deep = self.deep.bf16_forward(torch.cat([d, e], dim=1))[:, 0]
+        w = bag_lookup(sparse_ids + self.offsets[None, :], wide)[:, 0]
+        return deep + (w + (d @ self.wide_dense.to(bf))[:, 0])
+
+    def tree(self, leaf=lambda p: p.detach()) -> dict:
+        return {"emb": {"table": leaf(self.emb)},
+                "wide": {"table": leaf(self.wide)},
+                "wide_dense": leaf(self.wide_dense),
+                "deep": self.deep.tree(leaf)}
 
 
 def widedeep_init(cfg: WideDeepConfig, *,
@@ -240,18 +339,23 @@ class MIND(nn.Module):
                  bilinear: torch.Tensor):
         super().__init__()
         self.cfg = cfg
-        self.items = _frozen(items)
-        self.bilinear = _frozen(bilinear)
+        self.items = nn.Parameter(items)
+        self.bilinear = nn.Parameter(bilinear)
 
     def forward(self, hist_ids):
         """hist_ids: (B, S) int32 with -1 padding -> (B, K, D) capsules."""
         b, s = hist_ids.shape
-        e = _ops.embedding_bag(hist_ids.reshape(b * s, 1),
-                               self.items).view(b, s, -1)       # (B, S, D)
-        mask = (hist_ids >= 0)[..., None]
+        e = bag_lookup(hist_ids.reshape(b * s, 1),
+                       self.items).view(b, s, -1)               # (B, S, D)
+        return self.capsules(e, hist_ids >= 0)
+
+    def capsules(self, e, valid):
+        """The routing over gathered histories ``e`` (B, S, D), zero where
+        ``valid`` (B, S) is False -> (B, K, D)."""
+        mask = valid[..., None]
         eh = e @ self.bilinear                                  # (B, S, D)
-        b_logit = torch.zeros((b, s, self.cfg.n_interests),
-                              dtype=torch.float32, device=hist_ids.device)
+        b_logit = torch.zeros(tuple(valid.shape) + (self.cfg.n_interests,),
+                              dtype=torch.float32, device=e.device)
         u = None
         for _ in range(self.cfg.capsule_iters):
             c = torch.where(mask, torch.softmax(b_logit, dim=-1), 0.0)
@@ -266,6 +370,9 @@ class MIND(nn.Module):
         u = self(hist_ids)
         return torch.matmul(u, cand_emb.T).amax(dim=1)
 
+    def tree(self, leaf=lambda p: p.detach()) -> dict:
+        return {"items": leaf(self.items), "bilinear": leaf(self.bilinear)}
+
 
 def mind_init(cfg: MINDConfig, *, generator: torch.Generator | None = None,
               device=None) -> MIND:
@@ -278,11 +385,106 @@ def mind_init(cfg: MINDConfig, *, generator: torch.Generator | None = None,
 
 
 # --------------------------------------------------------------------------- #
+# Losses and their gradients                                                   #
+# --------------------------------------------------------------------------- #
+def bce_loss(logits, labels):
+    """Mean binary cross-entropy on logits, in float32 (``jnp.maximum``'s
+    even split of the gradient at 0 is ``torch.maximum``'s too)."""
+    logits = logits.float()
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def dlrm_loss(model: DLRM, batch: dict):
+    return bce_loss(model(batch["dense"], batch["sparse"]), batch["labels"])
+
+
+def widedeep_loss(model: WideDeep, batch: dict):
+    return bce_loss(model(batch["dense"], batch["sparse"]), batch["labels"])
+
+
+def mind_loss(model: MIND, batch: dict):
+    """Sampled softmax with label-aware (max over the interests) scoring:
+    ``hist`` (B, S), ``target`` (B,), ``negatives`` (N,).
+
+    One lookup gathers the histories, the targets and the negatives (one
+    row gradient for the table).  JAX scores the (B, 1 + N, D) candidates
+    ``[pos, broadcast(neg)]``; here the positive (``(u * pos).sum(-1)``)
+    and the shared negatives (``u @ neg.T``) are scored apart and the
+    (B, K, 1 + N) scores concatenated: the same function, each score a
+    float32 dot product of D terms summed in another order (a few ulp),
+    without the (B, N, D) copy of the negatives (17.2 GB at B = 65,536)."""
+    hist, target, neg = batch["hist"], batch["target"], batch["negatives"]
+    b, s = hist.shape
+    ids = torch.cat([hist.reshape(-1), target, neg])[:, None]
+    rows = bag_lookup(ids, model.items)
+    e, pos, negs = torch.split(rows, [b * s, b, neg.shape[0]])
+    u = model.capsules(e.view(b, s, -1), hist >= 0)           # (B, K, D)
+    scores = torch.cat([(u * pos[:, None, :]).sum(-1, keepdim=True),
+                        u @ negs.T], dim=-1).amax(dim=1)       # (B, 1 + N)
+    lse = torch.logsumexp(scores.float(), dim=-1)
+    return torch.mean(lse - scores[:, 0])
+
+
+LOSSES = {"dlrm-mlperf": dlrm_loss, "wide-deep": widedeep_loss,
+          "mind": mind_loss}
+
+
+def value_and_grad(loss_fn, model: nn.Module, batch: dict):
+    """(loss, gradients in the JAX layout ``model.tree()``) of
+    ``loss_fn(model, batch)``: ``jax.value_and_grad``.  A table's gradient
+    is its row gradient (`row_grad`); a weight's is the (in, out) view of
+    the Linear weight's gradient."""
+    params = list(model.parameters())
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    by_param = {id(p): g for p, g in zip(params, grads)}
+    return loss.detach(), model.tree(lambda p: by_param[id(p)])
+
+
+# --------------------------------------------------------------------------- #
 # Shared retrieval scoring                                                     #
 # --------------------------------------------------------------------------- #
 def score_candidates(user_repr, cand_emb, top_k: int = 100):
-    """(B, D) x (C, D) -> the top-k MIPS scores and ids via one GEMM."""
-    return torch.topk(user_repr @ cand_emb.T, top_k, dim=1)
+    """(B, D) x (C, D) -> the top-k MIPS scores and ids via one GEMM, in
+    ``jax.lax.top_k``'s order (`utils.top_k`: equal scores by id)."""
+    return _top_k(user_repr @ cand_emb.T, top_k)
+
+
+# candidates a ranking model scores in one forward: DLRM's 1,000,000 at
+# once would hold 6.7 GB of bfloat16 lookups, 13.3 GB of their float32 copy
+# and 13.8 GB of interaction inputs beside its 48.07 GB table
+RANK_CHUNK = 131_072
+
+
+def rank_candidates(model, dense, sparse, cand_ids) -> torch.Tensor:
+    """The ranking retrieval's scores (C,) float32 of DLRM or Wide & Deep:
+    one user (``dense`` (1, n_dense), ``sparse`` (1, F)) with its field 0
+    set to each of the C candidate ids, through `score_bf16` (the
+    parameters cast to bfloat16, as the JAX step casts them).
+
+    Each candidate's score depends on that candidate alone, so the
+    candidates go through in equal chunks of at most `RANK_CHUNK` (the
+    last one padded with its final id): every chunk has
+    the same shapes, so runs the same GEMMs, and the chunking changes no
+    candidate's arithmetic but for what the GEMM library does with a row's
+    place in its tiles."""
+    c, nf = cand_ids.shape[0], sparse.shape[1]
+    tables = [getattr(model, name).to(torch.bfloat16) for name in
+              model.TABLES]
+    n_chunks = max(1, -(-c // RANK_CHUNK))
+    size = -(-c // n_chunks)
+    pad = n_chunks * size - c
+    ids = torch.cat([cand_ids, cand_ids[-1:].expand(pad)]) if pad else \
+        cand_ids
+    d = dense.expand(size, dense.shape[1])
+    out = []
+    for lo in range(0, n_chunks * size, size):
+        sp = sparse.expand(size, nf).clone()
+        sp[:, 0] = ids[lo:lo + size]
+        out.append(model.score_bf16(d, sp, *tables).float())
+    return torch.cat(out)[:c]
 
 
 def _host_rows(a) -> np.ndarray:
@@ -341,7 +543,8 @@ def params_from_jax(arch_id: str, tree, device=None, *,
                     reduced: bool = False) -> nn.Module:
     """The port's model of ``arch_id`` with the values of a JAX parameter
     pytree (``repro.launch.steps.build_step(...).init_args()[0]`` with its
-    leaves as numpy arrays), on ``device`` (default: the card).
+    leaves as numpy arrays, or `params_to_jax`'s), on ``device`` (default:
+    the card).
     ``reduced`` picks the arch's reduced config, as in `launch.steps`."""
     from ..configs.registry import get_arch
 
@@ -350,9 +553,10 @@ def params_from_jax(arch_id: str, tree, device=None, *,
     with torch.no_grad():
         if arch_id == "dlrm-mlperf":
             n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2
+            # a bfloat16 table given as float32 values (`params_to_jax`)
             table = _checked(_tensor(tree["emb"]["table"], dev),
                              (stacked_rows(cfg.vocab_sizes), cfg.embed_dim),
-                             "emb.table")
+                             "emb.table").to(torch.bfloat16)
             bot = _mlp(tree["bot"], (cfg.n_dense,) + cfg.bot_mlp, dev,
                        final_relu=True)
             top = _mlp(tree["top"], (n_int + cfg.bot_mlp[-1],) + cfg.top_mlp,
@@ -378,3 +582,19 @@ def params_from_jax(arch_id: str, tree, device=None, *,
                 _checked(_tensor(tree["bilinear"], dev),
                          (cfg.embed_dim, cfg.embed_dim), "bilinear"))
     raise KeyError(arch_id)
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """``model``'s parameters as the JAX package's pytree (``model.tree()``'s
+    layout: an MLP weight (in, out)) of numpy arrays, the inverse of
+    `params_from_jax`.  Numpy has no bfloat16: a bfloat16 leaf comes back
+    as the float32 array of the same values (``.astype(jnp.bfloat16)`` is
+    exact)."""
+    return _tree_map(_host_array, model.tree())
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()

@@ -1,0 +1,4 @@
+from .optimizers import (  # noqa: F401
+    adamw, sgd, make_optimizer, clip_by_global_norm, warmup_cosine,
+    partition_optimizer, apply_updates,
+)

@@ -16,11 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import utils
 from repro_torch.core import snn as tsnn
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import snn_query as tsq
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models import recsys as trs
+from repro_torch.utils import tree_leaves, tree_map
 
 # the package exports the function `join`, which shadows the module name
 tjoin = importlib.import_module("repro_torch.core.join")
@@ -934,3 +938,133 @@ def test_cuda_serve_steps_equal_the_cpu(card, arch, lookups):
     # float32 GEMMs in another order than the CPU's: 2^-16 of the scale
     tol = 2.0 ** -16 * float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= tol
+
+
+# --------------------------------------------------------------------------- #
+# recsys training and the ranking retrieval                                    #
+# --------------------------------------------------------------------------- #
+def _to_card(model, opt_state, batch, card):
+    return (model.to(card), tree_map(lambda t: t.to(card), opt_state),
+            {k: v.to(card) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("arch,lookups", [("dlrm-mlperf", 1),
+                                          ("wide-deep", 2), ("mind", 1)])
+def test_cuda_train_steps_equal_the_cpu(card, arch, lookups):
+    # three steps from the same state on the CPU (the plain lookups) and on
+    # the card (the kernel): losses within 2^-16; float32 leaves within
+    # 2^-16 of the leaf's scale plus 2^-12 of AdamW's lr a step (where a
+    # gradient element is near eps, its rounding moves the update); the
+    # bfloat16 table (row-wise SGD) within one bfloat16 ulp (2^-7 of the
+    # value) a row whose float32 gradient sum rounds the other way
+    sd = tsteps.build_step(arch, "train_batch", reduced=True)
+    model, opt_state, batch = sd.init_args(device="cpu")
+    card_args = _to_card(*sd.init_args(device="cpu"), card)
+    for _ in range(3):
+        want = float(sd.fn(model, opt_state, batch)["loss"])
+        tsq.reset_launch_counts()
+        got = float(sd.fn(*card_args)["loss"])
+        assert tsq.embedding_bag.launches == lookups
+        assert abs(got - want) <= 2.0 ** -16 * abs(want)
+    for a, b in zip(tree_leaves(model.tree()),
+                    tree_leaves(card_args[0].tree())):
+        err = (a.float() - b.cpu().float()).abs()
+        if a.dtype == torch.bfloat16:
+            assert bool((err <= 2.0 ** -7 * a.float().abs()).all())
+        else:
+            tol = 2.0 ** -16 * float(a.abs().max()) + 3 * 2.0 ** -12 * 1e-3
+            assert float(err.max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_grad_equals_the_cpu(card, dtype):
+    # 200,000 bags of one over 50 rows (4,000 a row) and bags of 7 with -1
+    # padding: the card's sort and segment sum give the CPU's rows, and the
+    # same bits on every call
+    g = torch.Generator().manual_seed(3)
+    for shape in ((200_000, 1), (30_000, 7)):
+        ids = torch.randint(-1, 50, shape, generator=g, dtype=torch.int32)
+        cot = torch.randn(shape[0], 64, generator=g).to(dtype)
+        want = trs.row_grad(ids, cot, 50)
+        got = trs.row_grad(ids.to(card), cot.to(card), 50)
+        again = trs.row_grad(ids.to(card), cot.to(card), 50)
+        assert torch.equal(got.indices().cpu(), want.indices())
+        assert torch.equal(got.values(), again.values())
+        scale = float(want.values().float().abs().max())
+        u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -24
+        err = float((got.values().cpu().float()
+                     - want.values().float()).abs().max())
+        assert err <= 2 * u * scale + shape[0] * 2.0 ** -24 * scale
+
+
+@pytest.mark.parametrize("arch", ["dlrm-mlperf", "wide-deep"])
+def test_cuda_ranking_retrieval_equals_the_cpu(card, arch):
+    # bfloat16 scores within 2^-6 of the largest; the top-100 ids equal the
+    # CPU's except between candidates whose CPU scores are that close
+    sd = tsteps.build_step(arch, "retrieval_cand", reduced=True)
+    model, q = sd.init_args(device="cpu")
+    want_vals, want_idx = sd.fn(model, q)
+    model = model.to(card)
+    tsq.reset_launch_counts()
+    got_vals, got_idx = sd.fn(model, {k: v.to(card) for k, v in q.items()})
+    torch.cuda.synchronize()
+    assert tsq.embedding_bag.launches == (1 if arch == "dlrm-mlperf" else 2)
+    with torch.inference_mode():
+        cpu_scores = trs.rank_candidates(model.cpu(), q["dense"], q["sparse"],
+                                         q["cand_ids"])
+    tol = 2.0 ** -6 * float(cpu_scores.abs().max())
+    assert float((got_vals.cpu() - want_vals).abs().max()) <= tol
+    differ = got_idx.cpu() != want_idx
+    if differ.any():
+        gap = (cpu_scores[got_idx.cpu()[differ]]
+               - cpu_scores[want_idx[differ]]).abs().max()
+        assert float(gap) <= tol
+
+
+def test_cuda_top_k_follows_the_cpu_on_ties(card):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 4, (5, 100_000), generator=g).float()
+    x[1] = 2.0
+    x[2, ::2] = -0.0
+    x[2, 1::2] = 0.0
+    for k in (1, 100, 1000):
+        for largest in (True, False):
+            cv, ci = utils.top_k(x, k, largest=largest)
+            gv, gi = utils.top_k(x.to(card), k, largest=largest)
+            assert torch.equal(gi.cpu(), ci)
+            assert torch.equal(gv.cpu().view(torch.int32),
+                               cv.view(torch.int32))
+
+
+def test_cuda_trainer_runs_on_the_card(card):
+    model = ttrain.main(["--arch", "wide-deep", "--reduced", "--steps", "3"])
+    assert model.emb.is_cuda
+
+
+def test_cuda_checkpoint_of_a_bfloat16_table_takes_no_room_on_the_card(
+        card, tmp_path):
+    """Saving a bfloat16 table and restoring it in place (the trainer's
+    ``--resume``) allocate nothing of its size on the card: no float32
+    copy and no second copy, which a table filling more than half of the
+    card (DLRM's 48.07 GB) has no room for."""
+    from repro_torch.ft import CheckpointManager
+
+    def table():
+        gen = torch.Generator(device=card).manual_seed(3)
+        return torch.randn((1 << 22, 128), generator=gen, device=card,
+                           dtype=torch.bfloat16)       # 1 GiB
+
+    t = table()
+    nbytes = t.numel() * t.element_size()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cm = CheckpointManager(str(tmp_path), async_write=False)
+    cm.save(0, {"table": t})
+    t.zero_()
+    back, step, _ = cm.restore({"table": t})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert step == 0 and back["table"] is t
+    assert peak - base < nbytes // 8
+    assert torch.equal(t.view(torch.int16), table().view(torch.int16))

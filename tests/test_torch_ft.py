@@ -99,6 +99,46 @@ def test_treedef_is_the_jax_packages(tmp_path):
     assert step == 4 and float(back["b"][1]["c"]) == 0.0
 
 
+def test_bfloat16_leaves_keep_their_bits_and_restore_in_place(tmp_path):
+    """A bfloat16 tensor is saved as its two-byte bits, the bytes and the
+    manifest dtype ("bfloat16") the JAX manager writes for a bfloat16
+    array; each package's checkpoint restores in the port bit for bit,
+    into the tree's own tensors (a float32 one takes the exact values)."""
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.normal(size=(6, 4)).astype(np.float32))
+    vals[0, :3] = torch.tensor([-0.0, float("inf"), 1e-40])
+    vals = vals.to(torch.bfloat16)
+    bits = vals.view(torch.int16)
+    ours, theirs = str(tmp_path / "port"), str(tmp_path / "jax")
+    CheckpointManager(ours, async_write=False).save(
+        1, {"t": vals, "w": torch.arange(3.0)})
+    jtree = {"t": jnp.asarray(vals.float().numpy()).astype(jnp.bfloat16),
+             "w": jnp.arange(3.0, dtype=jnp.float32)}
+    JCheckpointManager(theirs, async_write=False).save(1, jtree)
+    manifests = [json.load(open(os.path.join(d, "step_000000001",
+                                             "manifest.json")))
+                 for d in (ours, theirs)]
+    assert manifests[0]["dtypes"] == manifests[1]["dtypes"] == [
+        "bfloat16", "float32"]
+    mine, _, _ = CheckpointManager(ours).restore_flat()
+    jax_leaves, _, _ = JCheckpointManager(ours).restore_flat()
+    assert mine[0].dtype == jax_leaves[0].dtype == np.dtype("V2")
+    assert mine[0].tobytes() == np.asarray(jtree["t"]).tobytes()
+    for d in (ours, theirs):
+        like = {"t": torch.zeros(6, 4, dtype=torch.bfloat16),
+                "w": torch.zeros(3)}
+        ptr = like["t"].data_ptr()
+        back, step, _ = CheckpointManager(d).restore(like)
+        assert step == 1 and back["t"] is like["t"]
+        assert like["t"].data_ptr() == ptr
+        assert torch.equal(like["t"].view(torch.int16), bits)
+        assert torch.equal(like["w"], torch.arange(3.0))
+        back, _, _ = CheckpointManager(d).restore(
+            {"t": torch.zeros(6, 4), "w": torch.zeros(3)})
+        assert back["t"].dtype == torch.float32
+        assert torch.equal(back["t"], vals.float())
+
+
 def test_checkpoint_async_and_gc(tmp_path):
     cm = CheckpointManager(str(tmp_path), keep=2, async_write=True)
     for s in range(5):

@@ -54,14 +54,16 @@ SERVING_MODULES = ("configs/snn_default", "ft/checkpoint", "ft/elastic",
                    "ft/watchdog", "serving/runtime", "serving/registry",
                    "serving/server", "data/pipeline", "launch/serve")
 SHARDED_MODULES = ("core/sharded", "launch/mesh", "launch/snn_cell")
+TRAINING_MODULES = ("optim/optimizers", "launch/train", "utils")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    # the serving and sharded slices' modules are among the files scanned
-    assert {PORT / f"{m}.py"
-            for m in SERVING_MODULES + SHARDED_MODULES} <= set(files)
+    # the serving, sharded and training slices' modules are among the
+    # files scanned
+    assert {PORT / f"{m}.py" for m in SERVING_MODULES + SHARDED_MODULES
+            + TRAINING_MODULES} <= set(files)
     return files
 
 
@@ -176,14 +178,17 @@ def test_package_names_have_the_reference_meanings():
     assert public(jcore) - public(tcore) == set()
 
 
-@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand"])
+@pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand",
+                                   "train_batch"])
 def test_recsys_steps_build_on_the_card_by_default(no_card, shape):
     sd = tsteps.build_step("mind", shape, reduced=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sd.init_args()
-    model, batch = sd.init_args(device="cpu")
+    model, *state, batch = sd.init_args(device="cpu")
     assert model.items.device.type == "cpu"
     assert all(v.device.type == "cpu" for v in batch.values())
+    if state:                                   # the optimizer's state
+        assert state[0]["dense"]["mu"]["bilinear"].device.type == "cpu"
 
 
 def test_serving_entry_points_need_a_card_or_cpu(no_card, tmp_path, capsys):
