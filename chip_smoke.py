@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs nine phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs ten phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -119,7 +119,23 @@ or note, and each phase's time:
    gradient's time; DLRM's and Wide & Deep's ``retrieval_cand`` over
    1,000,000 candidates, timed, its top-100 against a host stable sort of
    the whole score vector and sampled scores against a float64 forward of
-   the bfloat16-rounded parameters.
+   the bfloat16-rounded parameters;
+5. LM serving through ``launch.steps.build_step`` with the parameters
+   seeded on the card in bfloat16: (c) the 14 reduced serving cells on the
+   card against the CPU; for nemotron-4-15b, internlm2-20b and minicpm3-4b
+   at full depth and llama4-scout-17b-a16e and qwen3-moe-235b-a22b at 4
+   layers (one card's 80 GB), ``prefill_32k`` at batch 1 (ms, tokens/s,
+   model FLOP/s against the bf16 dense peak, peak memory), (d) 16 greedy
+   tokens for 4 prompts of 256, (a) each of those decode steps against the
+   forward's logits (bfloat16; float32 compute with a capacity that drops
+   nothing for the MoE models), ``decode_32k`` (nemotron at batch 8,
+   internlm2 4, minicpm3 32, llama4 8, qwen3 32) and llama4's
+   ``long_500k`` (ms a step, bytes a step against the HBM peak, peak
+   memory); (b) minicpm3-4b's bfloat16 prefill against float32 compute
+   over the same weights, and cuBLAS's reduced-precision bfloat16
+   reductions on against off; a profiled prefill (llama4) and decode step
+   (nemotron); BERT4Rec's ``serve_p99``, ``serve_bulk`` and
+   ``retrieval_cand`` at full width, timed and held against the CPU.
 
 Before phase 1 it prints each kernel's registers, static shared memory
 and spills from the build.  Exits non-zero on any failed check, and
@@ -4158,6 +4174,428 @@ def phase_recsys_train(torch, chk: Checks, K, ref, clock):
     return launches, recs
 
 
+# --------------------------------------------------------------------------- #
+# Phase 5: LM serving and BERT4Rec's serving                                   #
+# --------------------------------------------------------------------------- #
+# H100 SXM dense bfloat16 peak, NVIDIA's data sheet (not measured here)
+BF16_PEAK = 989e12
+# arch: (layers kept, None = all; decode_32k batch), in the order they run.
+# One card's 80 GB cuts the MoE models to one pattern period of 4 layers
+# (4.4 and 5.0 GB of bfloat16 weights a layer) and the decode batches to
+# what the caches leave room for (4.3 GB of cache a nemotron sequence).
+LM_RUNS = {
+    "nemotron-4-15b": (None, 8),
+    "internlm2-20b": (None, 4),
+    "minicpm3-4b": (None, 32),
+    "llama4-scout-17b-a16e": (4, 8),
+    "qwen3-moe-235b-a22b": (4, 32),
+}
+# (a) and (d): prompts of TF_PROMPT tokens, TF_BATCH sequences, GEN_TOKENS
+# greedy tokens
+TF_PROMPT, TF_BATCH, GEN_TOKENS = 256, 4, 16
+# bounds, written in PERF.md before the chip call that checks them:
+# (a) decode against the forward's logits: the largest difference as a
+# share of the largest logit, and the share of rows with the same top-1
+# token; in bfloat16 for the dense models, for the MoE models in float32
+# compute and cache over the same bfloat16 weights (bfloat16 moves tokens
+# across the router's top-k boundary) with a capacity that drops nothing
+# (the forward's groups of 271 tokens would drop what decode keeps)
+A_BOUND = {"bf16": (0.08, 0.75), "f32": (1e-3, 0.95)}
+# (b) minicpm3-4b's bfloat16 prefill logits against float32 compute
+B_BOUND, B_BATCH, B_TOKENS = (0.08, 0.75), 8, 512
+# (c) the reduced cells on the card against the CPU: float32 outputs within
+# 2^-16 of their largest magnitude, bfloat16 caches within one ulp at theirs
+C_REL = 2.0 ** -16
+LM_PROFILED = {"prefill": "llama4-scout-17b-a16e", "decode": "nemotron-4-15b"}
+
+
+def bf16_ulp(magnitude: float) -> float:
+    """One bfloat16 ulp at ``magnitude``: 2^(e - 7) in [2^e, 2^(e + 1))."""
+    return 2.0 ** (np.floor(np.log2(max(magnitude, 2.0 ** -126))) - 7)
+
+
+def tree_bytes(torch, tree) -> int:
+    from repro_torch.utils import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def rows_agree(torch, got, want) -> tuple[float, float]:
+    """(largest |got - want| over the largest |want|, the share of rows
+    whose top-1 entries agree) of two (..., V) logit tensors."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    rel = float((g - w).abs().max() / w.abs().max())
+    return rel, float((g.argmax(-1) == w.argmax(-1)).float().mean())
+
+
+def lm_config(steps, arch: str, shape: str, layers):
+    cfg = steps.get_arch(arch).make_config(shape, False)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def prefilled(tf, params, cfg, prompt, n: int, cache_dtype):
+    """The prompt's prefill logits and a cache of P + n positions holding
+    its K/V, for n tokens to decode."""
+    b, p = prompt.shape
+    logits, cache = tf.prefill(params, prompt, cfg, cache_dtype)
+    full = tf.init_cache(cfg, b, p + n, dtype=cache_dtype,
+                         device=prompt.device)
+    for k in full:
+        full[k][:, :, :p] = cache[k]
+    return logits, full
+
+
+def greedy(torch, tf, params, cfg, prompt, n: int):
+    """(d): ``n`` greedy tokens after the prompt (prefill, then n - 1
+    decode steps) and each step's logits."""
+    p = prompt.shape[1]
+    logits, full = prefilled(tf, params, cfg, prompt, n, torch.bfloat16)
+    rows, toks = [logits], [logits.argmax(-1)]
+    for i in range(n - 1):
+        logits, _ = tf.decode_step(params, full, toks[-1], p + i, cfg)
+        rows.append(logits)
+        toks.append(logits.argmax(-1))
+    return torch.stack(toks, 1), torch.stack(rows, 1)
+
+
+def teacher_forced(torch, tf, params, cfg, prompt, gen, cache_dtype):
+    """(a): the prefill's logits and each decode step's, fed the generated
+    tokens ``gen``, against the forward over prompt + gen at positions
+    P - 1 ... P + n - 2 (the JAX package's teacher-forcing test)."""
+    p = prompt.shape[1]
+    logits, full = prefilled(tf, params, cfg, prompt, gen.shape[1],
+                             cache_dtype)
+    rows = [logits]
+    for i in range(gen.shape[1] - 1):
+        rows.append(tf.decode_step(params, full, gen[:, i], p + i, cfg)[0])
+    del full
+    hidden, _ = tf.forward(params, torch.cat([prompt, gen[:, :-1]], 1), cfg)
+    want = hidden[:, p - 1:] @ params["lm_head"].to(cfg.dtype)
+    return torch.stack(rows, 1), want
+
+
+def lm_profile(torch, chk: Checks, fn, tag: str) -> dict:
+    """One call of ``fn`` under torch.profiler, after a call outside the
+    trace and a few small kernels inside it (CUPTI's first records can be
+    lost): wall time, the card's busy time (its kernels and copies from
+    the call's start), GEMMs, softmax and the rest, and the top kernels.
+    A lost record makes the busy share smaller, never larger."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with record_function("measured"):
+            fn()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "measured" and e.device_type != cuda)
+    by_name: dict[str, float] = {}
+    for e in events:
+        if e.device_type == cuda and e.name != "measured" \
+                and e.time_range.start >= start:
+            us = getattr(e, "device_time_total", None)
+            us = e.cuda_time_total if us is None else us
+            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    groups = {"gemm": 0.0, "softmax": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        key = ("gemm" if any(s in low for s in ("gemm", "cutlass", "xmma",
+                                                 "cublas", "nvjet", "sm90_"))
+               else "softmax" if "softmax" in low else "other")
+        groups[key] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    chk.note(f"{tag} (torch.profiler, one call): wall {wall:.1f} ms, card "
+             f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%): GEMMs "
+             f"{groups['gemm']:.1f}, softmax {groups['softmax']:.1f}, other "
+             f"{groups['other']:.1f} ms; most time: "
+             + "; ".join(f"{k[:70]} {v:.1f} ms" for k, v in top))
+    return {"wall_ms": wall, "busy_ms": busy,
+            **{f"{k}_ms": v for k, v in groups.items()},
+            "top": [[k[:120], v] for k, v in top]}
+
+
+def lm_prefill(torch, chk: Checks, steps, tf, arch: str, layers, card: str):
+    """prefill_32k at batch 1: time, tokens/s, model FLOP/s and peak
+    memory; then (d) greedy generation, (a) decode against the forward
+    and, for minicpm3-4b, (b) bfloat16 against float32 compute."""
+    cut = {"n_layers": layers} if layers else None
+    sd = steps.build_step(arch, "prefill_32k", cfg_override=cut,
+                          shape_override={"global_batch": 1})
+    params, tokens = sd.init_args()
+    cfg = lm_config(steps, arch, "prefill_32k", layers)
+    rec = {"layers": cfg.n_layers, "weights_gb": tree_bytes(torch, params)
+           / 1e9}
+    with torch.inference_mode():
+        sd.fn(params, tokens[:, :cfg.chunk_q])       # cuBLAS warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logits, cache = sd.fn(params, tokens)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    s = tokens.shape[1]
+    rec.update(prefill_ms=ms, tokens_per_s=s / (ms / 1e3),
+               model_tflops=sd.model_flops / (ms / 1e3) / 1e12,
+               bf16_peak_share=sd.model_flops / (ms / 1e3) / BF16_PEAK,
+               prefill_peak_gb=peak)
+    chk.ok(bool(torch.isfinite(logits).all())
+           and all(bool(torch.isfinite(c).all()) for c in cache.values())
+           and tuple(logits.shape) == (1, cfg.vocab),
+           f"{sd.name} ({cfg.n_layers} layers, {rec['weights_gb']:.2f} GB of "
+           f"bfloat16 weights, batch 1 x {s}): logits and cache finite; "
+           f"{ms:.1f} ms (host clock, synchronized), {rec['tokens_per_s']:.0f}"
+           f" tokens/s, {rec['model_tflops']:.1f} TFLOP/s of model FLOPs = "
+           f"{100 * rec['bf16_peak_share']:.1f}% of the bf16 dense peak "
+           f"(989 TFLOP/s, data sheet), peak memory {peak:.2f} GB [{card}]")
+    del logits, cache
+    if LM_PROFILED["prefill"] == arch:
+        rec["prefill_profile"] = lm_profile(
+            torch, chk, lambda: sd.fn(params, tokens), f"{sd.name} profile")
+    del tokens
+    rng = np.random.default_rng(SEED + 50)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        TF_BATCH, TF_PROMPT)).astype(np.int64)).to(DEVICE)
+    with torch.inference_mode():
+        gen, rows = greedy(torch, tf, params, cfg, prompt, GEN_TOKENS)
+        chk.ok(bool(torch.isfinite(rows).all())
+               and tuple(gen.shape) == (TF_BATCH, GEN_TOKENS),
+               f"{arch} (d): {GEN_TOKENS} greedy tokens for {TF_BATCH} "
+               f"prompts of {TF_PROMPT} (bfloat16), every logit finite; "
+               f"first sequence {gen[0].tolist()}")
+        if cfg.moe is None:
+            kind, cfg_a = "bf16", cfg
+        else:
+            e = cfg.moe
+            kind = "f32"
+            cfg_a = dataclasses.replace(cfg, dtype=torch.float32, moe=(
+                dataclasses.replace(e, capacity_factor=e.n_experts
+                                    / e.top_k)))
+        got, want = teacher_forced(torch, tf, params, cfg_a, prompt, gen,
+                                   cfg_a.dtype)
+        rel, top1 = rows_agree(torch, got, want)
+        bound, share = A_BOUND[kind]
+        rec.update(a_rel=rel, a_top1=top1)
+        chk.ok(rel <= bound and top1 >= share,
+               f"{arch} (a) decode vs forward ({kind}"
+               + ("" if kind == "bf16" else " compute and cache, "
+                  "capacity_factor E/k: nothing dropped")
+               + f"), {got.shape[0] * got.shape[1]} rows: "
+               f"largest difference {rel:.4g} of the largest logit (bound "
+               f"{bound}), top-1 agree {top1:.3f} (bound {share})")
+        del got, want, rows
+        if arch == "minicpm3-4b":
+            rec.update(bf16_vs_f32(torch, chk, steps, params, arch))
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bf16_vs_f32(torch, chk: Checks, steps, params, arch: str) -> dict:
+    """(b): the bfloat16 prefill step's logits against the same weights
+    run at ``cfg_override={"dtype": float32}``; and the bfloat16 step with
+    cuBLAS's reduced-precision bfloat16 reductions off, against it on (the
+    default, which the package leaves alone)."""
+    shape = {"global_batch": B_BATCH, "seq_len": B_TOKENS}
+    bf = steps.build_step(arch, "prefill_32k", shape_override=shape)
+    f32 = steps.build_step(arch, "prefill_32k", shape_override=shape,
+                           cfg_override={"dtype": torch.float32})
+    vocab = steps.get_arch(arch).make_config("prefill_32k", False).vocab
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 51).integers(
+        0, vocab, (B_BATCH, B_TOKENS)).astype(np.int32)).to(DEVICE)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            True
+        lb = bf.fn(params, tokens)[0]
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        lb_full = bf.fn(params, tokens)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    l32 = f32.fn(params, tokens)[0]
+    rel, top1 = rows_agree(torch, lb, l32)
+    bound, share = B_BOUND
+    chk.ok(l32.dtype == torch.float32 and rel <= bound and top1 >= share,
+           f"{arch} (b) bfloat16 prefill logits vs float32 compute, same "
+           f"bfloat16 weights, {B_BATCH} x {B_TOKENS} tokens: largest "
+           f"difference {rel:.4g} of the largest logit (bound {bound}), "
+           f"top-1 agree {top1:.3f} (bound {share})")
+    rrel, rtop1 = rows_agree(torch, lb, lb_full)
+    chk.ok(rrel <= bound and rtop1 >= share,
+           f"{arch}: cuBLAS bfloat16 reduced-precision reductions on (the "
+           f"default) vs off: largest difference {rrel:.4g} of the largest "
+           f"logit, top-1 agree {rtop1:.3f}, within (b)'s bound")
+    return {"b_rel": rel, "b_top1": top1, "reduced_reduction_rel": rrel,
+            "reduced_reduction_top1": rtop1}
+
+
+def lm_decode(torch, chk: Checks, steps, arch: str, shape: str, layers,
+              batch, card: str) -> dict:
+    """A decode step at ``shape`` (the cache zeros up to Smax, position
+    Smax / 2, as the reference's init_args): ms a step, bytes a step
+    (the weights but the embedding table, whose B rows are gathered, and
+    the whole cache, which attention reads under its mask) against the HBM
+    peak, peak memory."""
+    cut = {"n_layers": layers} if layers else None
+    over = {"global_batch": batch} if batch else None
+    sd = steps.build_step(arch, shape, cfg_override=cut, shape_override=over)
+    params, cache, toks, pos = sd.init_args()
+    step_bytes = (tree_bytes(torch, params) - tree_bytes(torch, params[
+        "embed"]) + tree_bytes(torch, cache))
+    with torch.inference_mode():
+        logits, _ = sd.fn(params, cache, toks, pos)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = timed(torch, lambda: sd.fn(params, cache, toks, pos), 3, 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    b = toks.shape[0]
+    rec = {f"{shape}_batch": b, f"{shape}_step_ms": ms,
+           f"{shape}_tokens_per_s": b / (ms / 1e3),
+           f"{shape}_step_gb": step_bytes / 1e9,
+           f"{shape}_hbm_share": step_bytes / (ms / 1e3) / HBM_RATE,
+           f"{shape}_peak_gb": peak,
+           f"{shape}_model_tflops": sd.model_flops / (ms / 1e3) / 1e12}
+    chk.ok(bool(torch.isfinite(logits).all()),
+           f"{sd.name} (batch {b}, cache of {cache[next(iter(cache))].shape[2]}"
+           f" at position {pos}): logits finite; {ms:.2f} ms a step (CUDA "
+           f"events, 3 steps), {rec[f'{shape}_tokens_per_s']:.0f} tokens/s, "
+           f"{step_bytes / 1e9:.2f} GB read a step (weights and cache) = "
+           f"{100 * rec[f'{shape}_hbm_share']:.1f}% of the HBM peak "
+           f"(3.35 TB/s), peak memory {peak:.2f} GB [{card}]")
+    if LM_PROFILED["decode"] == arch and shape == "decode_32k":
+        rec["decode_profile"] = lm_profile(
+            torch, chk, lambda: sd.fn(params, cache, toks, pos),
+            f"{sd.name} profile")
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reduced_on_cpu(torch, chk: Checks, steps) -> None:
+    """(c): every reduced serving cell on the card and on the CPU with the
+    same parameters and inputs (TF32 is off)."""
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.utils import tree_leaves, tree_map
+
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    worst = {}
+    for arch, shape, _ in all_cells():
+        if shape not in ("prefill_32k", "decode_32k", "long_500k",
+                         "serve_p99", "serve_bulk", "retrieval_cand") or (
+                steps.get_arch(arch).family == "recsys"
+                and arch != "bert4rec"):
+            continue
+        sd = steps.build_step(arch, shape, reduced=True)
+        args = sd.init_args()
+        host = tree_map(cpu, list(args))
+        out = tree_leaves(sd.fn(*args))
+        want = tree_leaves(sd.fn(*host))
+        errs = []
+        for g, w in zip(out, want):
+            g = g.cpu()
+            if not g.is_floating_point():
+                errs.append(0.0 if torch.equal(g, w) else float("inf"))
+                continue
+            top = max(float(w.float().abs().max()), 1e-30)
+            tol = C_REL * top if g.dtype == torch.float32 else bf16_ulp(top)
+            errs.append(float((g.float() - w.float()).abs().max()) / tol)
+        worst[sd.name] = max(errs)
+    bad = {k: v for k, v in worst.items() if v > 1.0}
+    chk.ok(len(worst) == 14 and not bad,
+           f"(c) {len(worst)} reduced serving cells on the card vs the CPU: "
+           f"float32 outputs within 2^-16 and bfloat16 caches within one "
+           f"ulp at their largest magnitude, ids equal; worst "
+           f"{max(worst.values()):.3f} of the tolerance"
+           + (f"; beyond it: {bad}" if bad else ""))
+
+
+def bert4rec_serving(torch, chk: Checks, steps, rs, card: str) -> dict:
+    """BERT4Rec at full width: serve_p99 (512 sequences), serve_bulk
+    (262,144, in chunks of BERT4REC_CHUNK) and retrieval_cand (one user
+    against 1,000,000 items, top-100); time each call, and hold sampled
+    users and the retrieval's top-100 against the same step on the
+    CPU."""
+    from repro_torch.utils import tree_map
+
+    recs = {}
+    host = None
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        sd = steps.build_step("bert4rec", shape)
+        params, batch = sd.init_args()
+        if host is None:
+            host = tree_map(lambda t: t.cpu(), params)
+        reps = 5 if shape != "serve_bulk" else 1
+        out = sd.fn(params, batch)
+        ms = timed(torch, lambda: sd.fn(params, batch), reps, 0)
+        n = batch["seq"].shape[0]
+        if shape == "retrieval_cand":
+            want = sd.fn(host, {"seq": batch["seq"].cpu()})
+            rel = float((out[0].cpu() - want[0]).abs().max()
+                        / want[0].abs().max())
+            same = bool(torch.equal(out[1].cpu(), want[1]))
+            chk.ok(rel <= C_REL and same and tuple(out[1].shape) == (1, 100),
+                   f"{sd.name}: top-100 of 1,000,000 items equal to the "
+                   f"CPU's, scores within {rel:.3g} of the largest; "
+                   f"{ms:.2f} ms a call (CUDA events) [{card}]")
+        else:
+            idx = torch.arange(0, n, max(1, n // 64))
+            want = rs.bert4rec_user_repr(
+                host, batch["seq"][idx].cpu(),
+                steps.get_arch("bert4rec").make_config(shape, False))
+            rel = float((out[idx].cpu() - want).abs().max()
+                        / want.abs().max())
+            chk.ok(bool(torch.isfinite(out).all()) and rel <= C_REL
+                   and out.shape == (n, host["pos"].shape[1]),
+                   f"{sd.name}: {n} users finite, {len(idx)} sampled against "
+                   f"the CPU within {rel:.3g} of the largest; {ms:.2f} ms a "
+                   f"batch (CUDA events, {reps} calls), "
+                   f"{n / (ms / 1e3):.0f} sequences/s [{card}]")
+        recs[sd.name] = {"ms": ms, "rel_vs_cpu": rel}
+        del params, batch, out
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_lm(torch, chk: Checks, card: str) -> dict:
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys as rs
+    from repro_torch.models import transformer as tf
+
+    print("phase 5: LM serving (prefill and decode of the five LM "
+          "architectures through launch.steps.build_step, bfloat16 "
+          "parameters seeded on the card) and BERT4Rec's serving")
+    reduced_on_cpu(torch, chk, steps)
+    recs = {}
+    for arch, (layers, batch) in LM_RUNS.items():
+        t = time.perf_counter()
+        rec = lm_prefill(torch, chk, steps, tf, arch, layers, card)
+        for shape in steps.get_arch(arch).runnable_shapes():
+            if shape != "prefill_32k" and shape != "train_4k":
+                rec.update(lm_decode(torch, chk, steps, arch, shape, layers,
+                                     batch if shape == "decode_32k" else None,
+                                     card))
+        rec["seconds"] = time.perf_counter() - t
+        recs[arch] = rec
+        chk.note(f"{arch}: {rec['seconds']:.1f} s; device memory held "
+                 f"after it: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    recs["bert4rec"] = bert4rec_serving(torch, chk, steps, rs, card)
+    return recs
+
+
 def ptxas_table(log: str, nvcc: str) -> dict:
     """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
     "spill_loads"}} from nvcc's ``-Xptxas -v`` output, the names demangled
@@ -4344,6 +4782,13 @@ def main() -> int:
     bag["launches"] += sum(train_launches.values())
     bag["training_and_ranking"] = train_recs
     if not phase_done("phase 4b", t):
+        return 1
+    t = time.perf_counter()
+    Checks.note(f"device memory held before phase 5: "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    lm = phase_lm(torch, chk, card)
+    print("phase 5 record: " + json.dumps(lm))
+    if not phase_done("phase 5", t):
         return 1
     for rec in kernels:
         base = {"snn_count": "snn_count_stacked",

@@ -26,6 +26,6 @@ def make_config(shape_name: str, reduced: bool = False) -> DLRMConfig:
 
 
 register(ArchSpec(
-    arch_id="dlrm-mlperf", make_config=make_config,
+    arch_id="dlrm-mlperf", family="recsys", make_config=make_config,
     source="arXiv:1906.00091 (paper; MLPerf config)",
 ))

@@ -18,6 +18,6 @@ def make_config(shape_name: str, reduced: bool = False) -> MINDConfig:
 
 
 register(ArchSpec(
-    arch_id="mind", make_config=make_config,
+    arch_id="mind", family="recsys", make_config=make_config,
     source="arXiv:1904.08030 (unverified)",
 ))

@@ -2,15 +2,23 @@
 ``repro.configs.registry`` for the archs ported so far.
 
 Each arch module registers an ArchSpec; ``get_arch(id)`` resolves through
-here.  The ported archs are the recsys models ``dlrm-mlperf``,
-``wide-deep`` and ``mind``, for serving, training and candidate scoring.
-BERT4Rec and the LM and GNN families are not ported; ``ROADMAP.md`` lists
-them.
+here.  The ported archs are the five LMs (serving: ``prefill_32k``,
+``decode_32k``, ``long_500k``) and the recsys models ``dlrm-mlperf``,
+``wide-deep``, ``mind`` (serving, training, candidate scoring) and
+``bert4rec`` (serving).  Skipped cells carry the reference's reasons.  The
+GNN family (``gat-cora``) is not ported; ``ROADMAP.md`` lists it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
+
+LM_SHAPES = {
+    "train_4k": {"kind": "train", "seq_len": 4096, "global_batch": 256},
+    "prefill_32k": {"kind": "prefill", "seq_len": 32768, "global_batch": 32},
+    "decode_32k": {"kind": "decode", "seq_len": 32768, "global_batch": 128},
+    "long_500k": {"kind": "decode", "seq_len": 524288, "global_batch": 1},
+}
 
 RECSYS_SHAPES = {
     "train_batch": {"kind": "rs_train", "batch": 65536},
@@ -20,16 +28,23 @@ RECSYS_SHAPES = {
                        "n_candidates": 1_000_000},
 }
 
+FAMILY_SHAPES = {"lm": LM_SHAPES, "recsys": RECSYS_SHAPES}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
+    family: str                    # 'lm' | 'recsys'
     make_config: Callable          # (shape_name: str, reduced: bool) -> model cfg
     source: str                    # citation of the published config
+    skip_shapes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shapes(self) -> dict:
-        return RECSYS_SHAPES       # the only family ported
+        return FAMILY_SHAPES[self.family]
+
+    def runnable_shapes(self) -> list[str]:
+        return [s for s in self.shapes if s not in self.skip_shapes]
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -52,6 +67,20 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def all_cells(include_skipped: bool = False):
+    """Yield (arch_id, shape_name, skip reason or None) for every cell of
+    the ported archs (the skipped ones only with ``include_skipped``)."""
+    _ensure_loaded()
+    for aid in sorted(_REGISTRY):
+        spec = _REGISTRY[aid]
+        for shape in spec.shapes:
+            if shape in spec.skip_shapes:
+                if include_skipped:
+                    yield aid, shape, spec.skip_shapes[shape]
+            else:
+                yield aid, shape, None
+
+
 _LOADED = False
 
 
@@ -60,4 +89,6 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    from . import dlrm_mlperf, mind, wide_deep  # noqa: F401
+    from . import (bert4rec, dlrm_mlperf, internlm2_20b,  # noqa: F401
+                   llama4_scout_17b_a16e, mind, minicpm3_4b, nemotron_4_15b,
+                   qwen3_moe_235b_a22b, wide_deep)

@@ -21,6 +21,6 @@ def make_config(shape_name: str, reduced: bool = False) -> WideDeepConfig:
 
 
 register(ArchSpec(
-    arch_id="wide-deep", make_config=make_config,
+    arch_id="wide-deep", family="recsys", make_config=make_config,
     source="arXiv:1606.07792 (paper)",
 ))

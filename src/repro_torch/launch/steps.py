@@ -1,19 +1,29 @@
 """Step builders of the port: per (arch x shape) the step function, its
 analytic model FLOPs, and a constructor of concrete arguments.
 
-The counterpart of ``repro.launch.steps`` for the recsys family: the kinds
-``rs_serve`` and ``rs_train`` (DLRM, Wide & Deep, MIND) and
-``rs_retrieval`` (MIND's capsules against the items; DLRM's and Wide &
-Deep's ranking forward over the candidates).  ``StepDef`` keeps the JAX
-package's ``name``, ``fn``, ``model_flops`` and ``init_args``; its
-PartitionSpec, sharding and donation fields have no meaning on one card and
-are left out.  The batch is the JAX package's numpy batch for the same
-``default_rng(0)``; the parameters are made on the device from a seeded
-``torch.Generator`` (``models.recsys.params_from_jax`` carries the JAX
-package's own instead).  A training step updates the model and the
-optimizer state in place and returns ``{"loss": ...}``.
+The counterpart of ``repro.launch.steps`` for two families:
 
-Not ported yet (``ROADMAP.md``): BERT4Rec, and the LM and GNN families.
+* the LMs' serving kinds, ``prefill`` (``prefill_32k``) and ``decode``
+  (``decode_32k``, ``long_500k``), through `models.transformer`;
+* the recsys kinds ``rs_serve`` and ``rs_train`` (DLRM, Wide & Deep,
+  MIND; BERT4Rec serves) and ``rs_retrieval`` (MIND's capsules and
+  BERT4Rec's user representation against the items; DLRM's and Wide &
+  Deep's ranking forward over the candidates).
+
+``StepDef`` keeps the JAX package's ``name``, ``fn``, ``model_flops`` and
+``init_args``; its PartitionSpec, sharding and donation fields have no
+meaning on one card and are left out (a decode step writes its cache in
+place, where the reference donates it).  The batch or the tokens are the
+JAX package's numpy arrays for the same ``default_rng(0)``; the parameters
+are made on the device from a seeded ``torch.Generator``
+(``params_from_jax`` of `models.recsys` and `models.transformer` carries
+the JAX package's own instead).  An LM's parameters are held in its
+compute dtype (bfloat16 at full width), which its steps compute in
+anyway.  A recsys training step updates the model and the optimizer state
+in place and returns ``{"loss": ...}``.
+
+Not ported yet (``ROADMAP.md``): LM training (``train_4k``), BERT4Rec's
+training and the GNN family; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ import torch
 from ..configs.registry import ArchSpec, get_arch, list_archs
 from ..kernels import registry as _registry
 from ..models import recsys as rs
+from ..models import transformer as tf
+from ..models.layers import rope_freqs
 from ..optim import adamw, apply_updates, partition_optimizer, sgd
 from ..utils import top_k, tree_map
 
@@ -40,6 +52,119 @@ class StepDef:
     init_args: Callable   # (device=None) -> concrete args, on the card by default
 
 
+# --------------------------------------------------------------------------- #
+# LM family                                                                    #
+# --------------------------------------------------------------------------- #
+def lm_model_flops(cfg: tf.TransformerConfig, shape: dict) -> float:
+    """Analytic useful FLOPs of one step: ``2 * N_active * T`` (6x for
+    ``train``) plus the attention term; ``repro.launch.steps``'s count,
+    in its order of floating-point operations."""
+    d, l = cfg.d_model, cfg.n_layers
+    h, hd, hkv = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    if cfg.attn == "mla":
+        m = cfg.mla
+        attn_p = d * m.q_lora + m.q_lora * h * (m.qk_nope + m.qk_rope) + \
+            d * (m.kv_lora + m.qk_rope) + \
+            m.kv_lora * h * (m.qk_nope + m.v_head) + h * m.v_head * d
+        a_dim = m.qk_nope + m.qk_rope
+    else:
+        attn_p = d * h * hd + 2 * d * hkv * hd + h * hd * d
+        a_dim = hd
+    if cfg.moe is not None:
+        e = cfg.moe
+        # a float, as the reference's sum with its zero float terms
+        ffn_p = float(e.top_k * 3 * d * e.d_ff
+                      + 3 * d * e.d_ff * e.n_shared_experts)
+        ffn_p += d * e.n_experts  # router
+    else:
+        ffn_p = (3 if cfg.gated_ffn else 2) * d * cfg.d_ff
+    n_active = l * (attn_p + ffn_p) + d * cfg.vocab  # + lm_head
+    kind = shape["kind"]
+    s, b = shape["seq_len"], shape["global_batch"]
+    # attention score/value flops per layer (causal ~ S/2 mean context)
+    if kind == "decode":
+        att = l * 4 * h * a_dim * s * b
+        return 2 * n_active * b + att
+    t = b * s
+    ctx = s / 2
+    if cfg.layer_pattern != ("full",):
+        # 3/4 local (window) + 1/4 global
+        w = min(cfg.local_window, s)
+        ctx = 0.75 * min(w / 2, s / 2) + 0.25 * s / 2
+    att_fwd = l * 4 * h * a_dim * ctx * t
+    if kind == "train":
+        return 6 * n_active * t + 3 * att_fwd
+    return 2 * n_active * t + att_fwd  # prefill
+
+
+def _lm_tokens(rng, cfg, shape) -> np.ndarray:
+    return rng.integers(0, cfg.vocab, shape).astype(np.int32)
+
+
+def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                  shape_override: dict | None = None,
+                  cfg_override: dict | None = None) -> StepDef:
+    cfg = spec.make_config(shape_name, reduced)
+    if cfg_override:
+        cfg = dataclasses.replace(cfg, **cfg_override)
+    shape = dict(spec.shapes[shape_name])
+    if shape_override:
+        shape.update(shape_override)
+    if reduced:
+        shape = {**shape, "seq_len": 32, "global_batch": 4}
+        cfg = dataclasses.replace(cfg, max_seq=64)
+    kind = shape["kind"]
+    if kind == "train":
+        raise _not_ported(f"LM training ({spec.arch_id}:{shape_name})")
+    flops = lm_model_flops(cfg, shape) if not reduced else 0.0
+    b, s = shape["global_batch"], shape["seq_len"]
+    tables = {}
+
+    def rope(device):
+        """The config's RoPE tables on ``device``, made once."""
+        if device not in tables:
+            tables[device] = rope_freqs(cfg.rope_dim, cfg.max_seq,
+                                        cfg.rope_theta, device=device)
+        return tables[device]
+
+    def init_params(device):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return dev, tf.init_params(cfg, dtype=cfg.dtype, generator=gen,
+                                   device=dev)
+
+    if kind == "prefill":
+        @torch.inference_mode()
+        def step(params, tokens):
+            return tf.prefill(params, tokens, cfg, rope=rope(tokens.device))
+
+        def init_args(device=None):
+            dev, params = init_params(device)
+            rng = np.random.default_rng(SEED)
+            return params, torch.from_numpy(_lm_tokens(rng, cfg,
+                                                       (b, s))).to(dev)
+
+        return StepDef(name=f"{spec.arch_id}:{shape_name}:prefill", fn=step,
+                       model_flops=flops, init_args=init_args)
+
+    @torch.inference_mode()
+    def step(params, cache, tokens, pos):
+        return tf.decode_step(params, cache, tokens, pos, cfg,
+                              rope=rope(tokens.device))
+
+    def init_args(device=None):
+        dev, params = init_params(device)
+        rng = np.random.default_rng(SEED)
+        return (params, tf.init_cache(cfg, b, s, device=dev),
+                torch.from_numpy(_lm_tokens(rng, cfg, (b,))).to(dev), s // 2)
+
+    return StepDef(name=f"{spec.arch_id}:{shape_name}:decode", fn=step,
+                   model_flops=flops, init_args=init_args)
+
+
+# --------------------------------------------------------------------------- #
+# RecSys family                                                                #
+# --------------------------------------------------------------------------- #
 def _mlp_flops(sizes):
     return sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
@@ -63,11 +188,18 @@ def rs_model_flops(arch_id, cfg, shape) -> float:
         per = 2 * s * d * d + cfg.capsule_iters * (4 * s * k * d)
         if kind == "rs_train":
             per += 2 * k * d * (1 + cfg.n_neg)
+    elif arch_id == "bert4rec":
+        d, s = cfg.embed_dim, cfg.seq_len
+        per_layer = 2 * s * (4 * d * d + 3 * d * 4 * d) + 4 * s * s * d
+        per = cfg.n_blocks * per_layer
+        if kind == "rs_train":
+            per += 2 * s * d * (1 + cfg.n_neg)
     else:
         raise KeyError(arch_id)
     if kind == "rs_retrieval":
-        if arch_id == "mind":
-            per += 2 * shape["n_candidates"] * cfg.embed_dim * cfg.n_interests
+        if arch_id in ("mind", "bert4rec"):
+            per += 2 * shape["n_candidates"] * cfg.embed_dim * (
+                cfg.n_interests if arch_id == "mind" else 1)
         else:
             per = per * shape["n_candidates"]  # a ranking forward a candidate
         return per * b
@@ -81,6 +213,8 @@ def _rs_init_model(arch_id, cfg, generator, device):
         return rs.widedeep_init(cfg, generator=generator, device=device)
     if arch_id == "mind":
         return rs.mind_init(cfg, generator=generator, device=device)
+    if arch_id == "bert4rec":
+        return rs.bert4rec_init(cfg, generator=generator, device=device)
     raise KeyError(arch_id)
 
 
@@ -103,8 +237,17 @@ def _rs_batch(arch_id, cfg, b, rng, kind):
             "negatives": rng.integers(0, cfg.n_items,
                                       cfg.n_neg).astype(np.int32),
         }
-    else:
-        raise NotImplementedError(f"no batch for {arch_id!r} in the port")
+    else:  # bert4rec
+        lab = rng.integers(0, cfg.n_items, (b, cfg.seq_len)).astype(np.int32)
+        masked = rng.random((b, cfg.seq_len)) < 0.2
+        batch = {
+            "seq": np.where(masked, cfg.n_items,
+                            rng.integers(0, cfg.n_items,
+                                         (b, cfg.seq_len))).astype(np.int32),
+            "labels": np.where(masked, lab, -1).astype(np.int32),
+            "negatives": rng.integers(0, cfg.n_items,
+                                      cfg.n_neg).astype(np.int32),
+        }
     if kind == "rs_serve":
         batch.pop("labels", None)
         batch.pop("negatives", None)
@@ -135,11 +278,13 @@ def train_optimizer():
                                        "dense": adamw(lr=1e-3)})
 
 
-def build_rs_step(spec: ArchSpec, shape_name: str, *,
-                  reduced: bool) -> StepDef:
+def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                  shape_override: dict | None = None) -> StepDef:
     arch_id = spec.arch_id
     cfg = spec.make_config(shape_name, reduced)
     shape = dict(spec.shapes[shape_name])
+    if shape_override:
+        shape.update(shape_override)
     if reduced:
         shape = {**shape, "batch": 8, "n_candidates": 128}
     kind = shape["kind"]
@@ -153,6 +298,8 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
         return dev, _rs_init_model(arch_id, cfg, gen, dev)
 
     if kind == "rs_train":
+        if arch_id == "bert4rec":
+            raise _not_ported(f"BERT4Rec training ({arch_id}:{shape_name})")
         opt = train_optimizer()
         loss_f = rs.LOSSES[arch_id]
         np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
@@ -177,7 +324,9 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
         np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
         fwd = {"dlrm-mlperf": lambda m, b_: m(b_["dense"], b_["sparse"]),
                "wide-deep": lambda m, b_: m(b_["dense"], b_["sparse"]),
-               "mind": lambda m, b_: m(b_["hist"])}[arch_id]
+               "mind": lambda m, b_: m(b_["hist"]),
+               "bert4rec": lambda p, b_: rs.bert4rec_user_repr(p, b_["seq"],
+                                                               cfg)}[arch_id]
 
         @torch.inference_mode()
         def step(model, batch):
@@ -193,7 +342,17 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
     # rs_retrieval: one query scored against n_candidates, top-100 in
     # jax.lax.top_k's order (equal scores by candidate index)
     c = shape["n_candidates"]
-    if arch_id == "mind":
+    if arch_id == "bert4rec":
+        @torch.inference_mode()
+        def step(params, query):
+            u = rs.bert4rec_user_repr(params, query["seq"], cfg)
+            return top_k(u @ params["embed"][:c].T, 100)
+
+        def init_args(device=None):
+            dev, params = init_model(device)
+            seq = rng.integers(0, cfg.n_items, (b, cfg.seq_len))
+            return params, _on(dev, {"seq": seq.astype(np.int32)})
+    elif arch_id == "mind":
         @torch.inference_mode()
         def step(model, query):
             cand = model.items[:c]
@@ -226,10 +385,25 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *,
                    model_flops=flops, init_args=init_args)
 
 
-def build_step(arch_id: str, shape_name: str, *,
-               reduced: bool = False) -> StepDef:
-    """The step of ``arch_id`` at ``shape_name`` (``reduced`` = the arch's
-    small config, batch 8 and 128 candidates, as in the JAX package)."""
+# --------------------------------------------------------------------------- #
+# Entry                                                                        #
+# --------------------------------------------------------------------------- #
+def build_step(arch_id: str, shape_name: str, *, reduced: bool = False,
+               shape_override: dict | None = None,
+               cfg_override: dict | None = None) -> StepDef:
+    """The step of ``arch_id`` at ``shape_name``: ``reduced`` = the arch's
+    small config (LMs: 4 sequences of 32 tokens; recsys: batch 8 and 128
+    candidates, as in the JAX package); ``shape_override`` replaces
+    entries of the shape, ``cfg_override`` fields of an LM's config."""
     if arch_id not in list_archs():
         raise _not_ported(f"arch {arch_id!r} (ported: {list_archs()})")
-    return build_rs_step(get_arch(arch_id), shape_name, reduced=reduced)
+    spec = get_arch(arch_id)
+    if shape_name in spec.skip_shapes:
+        raise ValueError(f"{arch_id}:{shape_name} skipped: "
+                         f"{spec.skip_shapes[shape_name]}")
+    if spec.family == "lm":
+        return build_lm_step(spec, shape_name, reduced=reduced,
+                             shape_override=shape_override,
+                             cfg_override=cfg_override)
+    return build_rs_step(spec, shape_name, reduced=reduced,
+                         shape_override=shape_override)

@@ -5,8 +5,9 @@ for the recsys family (DLRM, Wide & Deep, MIND), on the card unless
 Features: deterministic data (a batch is a pure function of the step),
 checkpoint/resume through `ft.checkpoint` in the JAX package's tree layout
 (``(params, opt_state)``, an MLP weight (in, out)), a straggler watchdog, and
-JSONL metrics.  The LM and GNN families are not ported (``ROADMAP.md``):
-they raise ``NotImplementedError``, as `launch.steps.build_step` does.
+JSONL metrics.  LM training (an LM's default shape, ``train_4k``),
+BERT4Rec's and the GNN family are not ported (``ROADMAP.md``): they raise
+``NotImplementedError``, as `launch.steps.build_step` does.
 
 Usage:
   python -m repro_torch.launch.train --arch dlrm-mlperf --reduced --steps 20
@@ -22,7 +23,7 @@ import time
 
 import torch
 
-from ..configs.registry import get_arch
+from ..configs.registry import get_arch, list_archs
 from ..data.pipeline import RecsysSyntheticDataset
 from ..ft.checkpoint import CheckpointManager
 from ..ft.watchdog import StepTimer, StragglerWatchdog
@@ -44,10 +45,19 @@ def make_batch_source(arch_id: str, cfg, fixed: dict, device):
     return lambda i: fixed
 
 
-def setup(arch_id: str, shape: str = "train_batch", *, reduced: bool = False,
+def default_shape(arch_id: str) -> str:
+    """The reference's training shape of the arch's family (an arch the
+    port does not have takes the recsys one, and `build_step` says it is
+    not ported)."""
+    family = get_arch(arch_id).family if arch_id in list_archs() else None
+    return "train_4k" if family == "lm" else "train_batch"
+
+
+def setup(arch_id: str, shape: str | None = None, *, reduced: bool = False,
           device=None):
     """(step_def, model, opt_state, batch_at) of a training run, the model
     and its optimizer state on ``device`` (default: the card)."""
+    shape = shape or default_shape(arch_id)
     step_def = build_step(arch_id, shape, reduced=reduced)
     if not step_def.name.endswith(":train"):
         raise ValueError(f"{arch_id}:{shape} is not a training shape")
@@ -61,7 +71,8 @@ def setup(arch_id: str, shape: str = "train_batch", *, reduced: bool = False,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", default="train_batch")
+    ap.add_argument("--shape", default=None,
+                    help="default: the family's training shape")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,

@@ -1,10 +1,16 @@
-"""Models of the port: the recsys models (DLRM, Wide & Deep, MIND) for
-serving, training and candidate scoring.
+"""Models of the port: the recsys models (DLRM, Wide & Deep, MIND,
+BERT4Rec) and the LM stack.
 
-* layers — `uniform_init` and the MLP (`nn.Linear` stacks)
-* recsys — the stacked embedding table and its lookup (whose gradient is a
-           row gradient), the three models as `nn.Module`s, their losses,
-           candidate scoring, exact threshold retrieval, and
-           `params_from_jax` / `params_to_jax`, which carry weights between
-           the port and the JAX package's pytree layout
+* layers      — `uniform_init`, the MLP (`nn.Linear` stacks), the norms,
+                activations and rotary embedding of the reference
+* attention   — GQA and MLA attention (prefill and decode), query-chunked
+                and chunked-local softmax attention
+* moe         — the grouped, capacity-limited MoE FFN
+* transformer — the decoder-only LM: parameters, forward, prefill and
+                decode, and `params_from_jax` / `params_to_jax`
+* recsys      — the stacked embedding table and its lookup (whose gradient
+                is a row gradient), the recsys models, their losses,
+                candidate scoring, exact threshold retrieval, and
+                `params_from_jax` / `params_to_jax`, which carry weights
+                between the port and the JAX package's pytree layout
 """

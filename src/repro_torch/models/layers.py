@@ -1,28 +1,35 @@
-"""Neural-net building blocks of the port: the counterpart of the parts of
-``repro.models.layers`` the recsys models need.
+"""Neural-net building blocks of the port: the counterpart of
+``repro.models.layers``.
 
 The JAX package keeps an MLP as a list of ``{"w": (in, out), "b": (out,)}``
 dicts applied as ``x @ w + b``; here it is a stack of ``nn.Linear`` layers,
 whose weight is (out, in), so a JAX ``w`` is transposed on load.
+
+The normalisations, activations and rotary embedding follow the JAX
+functions' dtypes step for step: a norm reduces in float32 and scales in
+the input's dtype, RoPE multiplies a bfloat16 input by float32 tables in
+float32 and rounds once.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 
-def uniform_init(shape, scale: float | None = None, *,
+def uniform_init(shape, scale: float | None = None, *, lead: tuple = (),
                  dtype=torch.float32, generator: torch.Generator | None = None,
                  device=None) -> torch.Tensor:
     """LeCun-ish uniform init in ``[-s, s]``; ``s`` defaults to
     ``1 / sqrt(fan_in)`` with ``fan_in = shape[0]`` (the JAX layout's input
-    axis).  Filled in place on ``device`` from ``generator``, so a table of
-    tens of GB needs no second copy."""
+    axis).  ``lead`` axes stack copies of ``shape`` (the transformer's
+    (groups, period) of layers).  Filled in place on ``device`` from
+    ``generator``, so a table of tens of GB needs no second copy."""
     fan_in = shape[0] if len(shape) > 1 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
     return out.uniform_(-s, s, generator=generator)
 
 
@@ -96,3 +103,77 @@ def mlp_params(sizes, *, final_relu: bool = False, dtype=torch.float32,
                 generator=generator, device=device).T)
             lin.bias.zero_()
     return mlp
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x / rms(x) * weight``: the mean square in float32, the product
+    ``x * rsqrt`` in float32 rounded to ``x``'s dtype, then scaled by
+    ``weight`` in that dtype."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * weight + bias
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = torch.relu(x)
+    return r * r
+
+
+def _const(c: float, x: torch.Tensor) -> torch.Tensor:
+    """The constant ``c`` rounded to ``x``'s dtype, as JAX rounds a
+    constant of a bfloat16 expression (a 0-d CPU tensor: a scalar to a
+    CUDA product, no copy)."""
+    return torch.tensor(c, dtype=x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, ``x * sigmoid(x)`` with the sigmoid as JAX lowers
+    it, ``1 / (1 + exp(-x))``, every step rounded to ``x``'s dtype
+    (``F.silu`` rounds once: 40% of bfloat16 outputs differ)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation), step for step in
+    ``x``'s dtype with its constants rounded to that dtype."""
+    inner = _const(math.sqrt(2 / math.pi), x) * (
+        x + _const(0.044715, x) * (x * x * x))
+    return x * (_const(0.5, x) * (1 + torch.tanh(inner)))
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": gelu,
+    "silu": silu,
+    "sq_relu": squared_relu,
+}
+
+
+def rope_freqs(head_dim: int, max_pos: int, theta: float = 10000.0, *,
+               device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(max_pos, head_dim // 2) float32 cos/sin tables, computed in float64
+    numpy and rounded once, as in JAX (row t depends on t alone, so a
+    shorter table is a prefix of a longer one)."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+    f = np.outer(np.arange(max_pos), inv)
+    return (torch.from_numpy(np.cos(f).astype(np.float32)).to(device),
+            torch.from_numpy(np.sin(f).astype(np.float32)).to(device))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  A bfloat16
+    ``x`` meets the float32 tables in float32 and is rounded once."""
+    c = cos[positions][..., None, :]             # (..., S, 1, D/2)
+    s = sin[positions][..., None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)

@@ -1,0 +1,142 @@
+"""Mixture-of-Experts FFN of the port: the counterpart of
+``repro.models.moe``, sort-based capacity dispatch.
+
+The tokens are split into ``gcd(T, dispatch_groups)`` groups, each with
+its own capacity (GShard's per-group semantics; the reference vmaps the
+group function, here the group is a leading batch axis).  In a group: the
+(token, k) assignments are sorted by expert (stably), each gets its rank
+within its expert, ranks at or past the capacity are dropped, slot (e, c)
+of a dense (E, C, d) buffer takes the token at sorted position
+``starts[e] + c``, the experts run as batched gated matmuls, and the
+outputs are combined, weighted by the (renormalised) router
+probabilities.  The router's top-k is `utils.top_k` (``lax.top_k``'s
+order: equal probabilities to the lower expert).
+
+Aux values: the Switch load-balance loss, the router z-loss and the share
+of dropped assignments, each the mean over the groups.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..utils import top_k
+from .layers import ACTIVATIONS, uniform_init
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_model: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0
+    renorm_topk: bool = True     # qwen3 norm_topk_prob
+    act: str = "silu"            # experts are gated (SwiGLU) with this act
+    dispatch_groups: int = 32    # the groups are gcd(T, dispatch_groups)
+
+
+def moe_params(cfg: MoEConfig, *, lead: tuple = (), dtype=torch.float32,
+               router_dtype=torch.float32, generator=None,
+               device=None) -> dict:
+    """The reference's tree: a float32 router (``router_dtype``) and the
+    expert stacks (E, d, f), (E, f, d) in ``dtype``."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    kw = dict(lead=lead, dtype=dtype, generator=generator, device=device)
+    p = {
+        "router": uniform_init((d, e), **{**kw, "dtype": router_dtype}),
+        "w1": uniform_init((e, d, f), **kw),
+        "w3": uniform_init((e, d, f), **kw),
+        "w2": uniform_init((e, f, d), **kw),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"w1": uniform_init((d, fs), **kw),
+                       "w3": uniform_init((d, fs), **kw),
+                       "w2": uniform_init((fs, d), **kw)}
+    return p
+
+
+def capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(c, cfg.top_k)
+
+
+def moe_apply(p, x, cfg: MoEConfig):
+    """x: (T, d) -> (y (T, d), aux {load_balance, z_loss, dropped_frac})."""
+    t, d = x.shape
+    g = math.gcd(t, max(cfg.dispatch_groups, 1))
+    y, aux = _moe_apply_groups(p, x.reshape(g, t // g, d), cfg)
+    return y.reshape(t, d), {k: v.mean() for k, v in aux.items()}
+
+
+def _moe_apply_groups(p, x, cfg: MoEConfig):
+    """The reference's ``_moe_apply_group`` on each of the G groups of
+    x: (G, t, d) -> (y (G, t, d), aux values (G,))."""
+    g, t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n = t * k
+    c = capacity(t, cfg)
+    act = ACTIVATIONS[cfg.act]
+    dev = x.device
+    gi = torch.arange(g, device=dev)[:, None]
+
+    # the router in float32 (a bfloat16 router promoted, as in JAX)
+    logits = x.float() @ p["router"].float()                 # (G, t, E)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(probs.reshape(g * t, e), k)
+    topv, topi = topv.reshape(g, t, k), topi.reshape(g, t, k)
+    if cfg.renorm_topk:
+        topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+
+    # ---- dispatch bookkeeping (sort by expert, rank within expert) ----
+    flat_e = topi.reshape(g, n)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(1, order)
+    st = flat_t[order]                                       # (G, n)
+    counts = torch.zeros((g, e), dtype=torch.long, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(1) - counts
+    rank = torch.arange(n, device=dev) - starts.gather(1, se)
+    kept = rank < c
+
+    # gather dispatch: slot (e, c) takes sorted position starts[e] + c
+    cgrid = torch.arange(c, device=dev)
+    slot_pos = starts[:, :, None] + cgrid                    # (G, E, C)
+    slot_valid = (cgrid < counts[:, :, None]) & (slot_pos < n)
+    slot_tok = st.gather(1, slot_pos.clamp_max(n - 1).reshape(g, -1))
+    buf = x[gi, slot_tok].reshape(g, e, c, d) * \
+        slot_valid[..., None].to(x.dtype)
+
+    # ---- expert FFN (gated) ----
+    h = act(torch.einsum("gecd,edf->gecf", buf, p["w1"])) * \
+        torch.einsum("gecd,edf->gecf", buf, p["w3"])
+    y_buf = torch.einsum("gecf,efd->gecd", h, p["w2"])
+
+    # ---- combine: a dropped assignment reads nothing (the reference's
+    # fill of index E), the rest their slot ----
+    y_sorted = y_buf[gi, se.clamp_max(e - 1), torch.where(kept, rank, 0)]
+    y_sorted = torch.where(kept[..., None], y_sorted, 0.0)
+    inv = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=dev).expand(g, n))
+    y_flat = y_sorted[gi, inv]                               # (G, n, d)
+    gates = topv.reshape(g, n, 1).to(x.dtype)
+    y = torch.sum((y_flat * gates).reshape(g, t, k, d), dim=2)
+
+    if cfg.n_shared_experts:
+        s = p["shared"]
+        y = y + (act(x @ s["w1"]) * (x @ s["w3"])) @ s["w2"]
+
+    # ---- aux values ----
+    frac = torch.zeros((g, e), dtype=torch.float32, device=dev).scatter_add_(
+        1, topi[..., 0], torch.ones((g, t), device=dev)) / t
+    aux = {
+        "load_balance": e * torch.sum(frac * probs.mean(1), dim=-1),
+        "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2, dim=-1),
+        "dropped_frac": 1.0 - kept.sum(-1) / n,
+    }
+    return y, aux

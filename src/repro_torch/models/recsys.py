@@ -1,16 +1,21 @@
-"""RecSys models of the port: DLRM (MLPerf), Wide & Deep, MIND.
+"""RecSys models of the port: DLRM (MLPerf), Wide & Deep, MIND, BERT4Rec.
 
 The counterpart of ``repro.models.recsys``: serving, training (the losses
-and their gradients) and candidate scoring.  Each model is an ``nn.Module``
-over the same parameters as the JAX pytree (`params_from_jax` carries them
-across, `params_to_jax` back; ``model.tree()`` is that layout over the
-module's own storage) and computes the same forward.
+and their gradients) and candidate scoring of DLRM, Wide & Deep and MIND,
+and BERT4Rec's serving.  Each of the three is an ``nn.Module`` over the
+same parameters as the JAX pytree (`params_from_jax` carries them across,
+`params_to_jax` back; ``model.tree()`` is that layout over the module's
+own storage) and computes the same forward.  BERT4Rec is the
+transformer's parameter dict (plus ``pos``) and functions over it, as the
+LMs in `models.transformer` are.
 
 Shared substrate: a *stacked* embedding table (all categorical fields
 concatenated row-wise, each field at its row offset).  Every table lookup
-goes through `bag_lookup`, whose forward is `kernels.ops.embedding_bag`, so
-on the card each one is a launch of the hand-written CUDA embedding-bag
-kernel:
+of the three goes through `bag_lookup`, whose forward is
+`kernels.ops.embedding_bag`, so on the card each one is a launch of the
+hand-written CUDA embedding-bag kernel (BERT4Rec's item embedding is the
+transformer's row gather, as in JAX, where the item embedding is no
+embedding bag either):
 
 * DLRM's and Wide & Deep's deep lookups are bags of one id (the (B, F) ids
   as (B * F, 1) bags);
@@ -35,7 +40,7 @@ card.  JAX computes it as XLA's scatter-add (the VJP of ``jnp.take``); the
 port sorts the occurrences by id and sums each id's in float32, in a
 fixed order, then rounds once to the table's dtype.
 
-Not ported yet (``ROADMAP.md``): BERT4Rec, which needs the transformer.
+Not ported yet (``ROADMAP.md``): BERT4Rec's training (its loss).
 """
 from __future__ import annotations
 
@@ -48,9 +53,13 @@ from torch import nn
 from ..core import join as _join
 from ..kernels import ops as _ops
 from ..kernels import registry as _registry
+from ..utils import to_numpy, to_tensor
 from ..utils import top_k as _top_k
 from ..utils import tree_map as _tree_map
-from .layers import MLP, mlp_params, uniform_init
+from . import transformer as tf
+from .attention import gqa_forward
+from .layers import MLP, mlp_params, rms_norm, rope_freqs, uniform_init
+from .transformer import TransformerConfig
 
 
 # --------------------------------------------------------------------------- #
@@ -385,6 +394,80 @@ def mind_init(cfg: MINDConfig, *, generator: torch.Generator | None = None,
 
 
 # --------------------------------------------------------------------------- #
+# BERT4Rec: a bidirectional transformer over item sequences (serving)          #
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class Bert4RecConfig:
+    name: str
+    n_items: int = 1_000_000
+    embed_dim: int = 64
+    n_blocks: int = 2
+    n_heads: int = 2
+    seq_len: int = 200
+    n_neg: int = 1024
+    dtype: torch.dtype = torch.float32
+
+    def tf_config(self) -> TransformerConfig:
+        vocab = -(-(self.n_items + 1) // 64) * 64   # +1 = [MASK]; padded
+        return TransformerConfig(
+            name=self.name + "-core", n_layers=self.n_blocks,
+            d_model=self.embed_dim, n_heads=self.n_heads,
+            n_kv_heads=self.n_heads, head_dim=self.embed_dim // self.n_heads,
+            d_ff=4 * self.embed_dim, vocab=vocab, max_seq=self.seq_len,
+            dtype=self.dtype)
+
+
+# Sequences one BERT4Rec forward encodes at once: `serve_bulk`'s 262,144
+# sequences of 200 at once would hold 53.7 GB of FFN activations (and 84 GB
+# of attention weights, which `attention._attend` splits anyway).
+BERT4REC_CHUNK = 16_384
+
+
+def bert4rec_init(cfg: Bert4RecConfig, *,
+                  generator: torch.Generator | None = None,
+                  device=None) -> dict:
+    """The reference's tree: the transformer's (``embed`` (vocab, D), the
+    stacked layers, ``final_norm``, ``lm_head``) and ``pos`` (S, D)."""
+    params = tf.init_params(cfg.tf_config(), generator=generator,
+                            device=device)
+    params["pos"] = uniform_init((cfg.seq_len, cfg.embed_dim), scale=0.02,
+                                 dtype=cfg.dtype, generator=generator,
+                                 device=device)
+    return params
+
+
+def _bert4rec_hidden(params, seq_ids, cfg: Bert4RecConfig):
+    """Bidirectional encoding; -1 pads, ``n_items`` is [MASK] -> (B, S, D):
+    the transformer's layers with non-causal full attention (every block
+    'full', RoPE on) and its dense gated FFN."""
+    tcfg = cfg.tf_config()
+    b, s = seq_ids.shape
+    x = tf.embed_tokens(params, seq_ids.clamp_min(0), tcfg) + \
+        params["pos"][None, :s, :]
+    cos, sin = rope_freqs(tcfg.rope_dim, tcfg.max_seq, tcfg.rope_theta,
+                          device=x.device)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for _, _, lp in tf.layer_params(params, tcfg):
+        h = rms_norm(x, lp["attn_norm"])
+        attn_out, _ = gqa_forward(
+            lp["attn"], h, cos, sin, positions, n_heads=tcfg.n_heads,
+            n_kv_heads=tcfg.n_kv_heads, head_dim=tcfg.head_dim,
+            causal=False)
+        x = x + attn_out
+        y, _ = tf.ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), tcfg)
+        x = x + y
+    return rms_norm(x, params["final_norm"].to(tcfg.dtype))
+
+
+def bert4rec_user_repr(params, seq_ids, cfg: Bert4RecConfig):
+    """(B, S) -> (B, D): the hidden state at the last (mask) position.
+    The sequences are encoded in chunks of at most `BERT4REC_CHUNK`; a
+    sequence's encoding depends on that sequence alone."""
+    return torch.cat([_bert4rec_hidden(params, chunk, cfg)[:, -1, :]
+                      for chunk in torch.split(seq_ids, BERT4REC_CHUNK)])
+
+
+# --------------------------------------------------------------------------- #
 # Losses and their gradients                                                   #
 # --------------------------------------------------------------------------- #
 def bce_loss(logits, labels):
@@ -515,21 +598,9 @@ def retrieve_above(user_repr, cand_emb, threshold, *, index=None,
 # --------------------------------------------------------------------------- #
 # Weights carried over from the JAX package                                    #
 # --------------------------------------------------------------------------- #
-def _tensor(a, device) -> torch.Tensor:
-    """A host array as a tensor on ``device``; a bfloat16 array (numpy's
-    ``bfloat16`` extension type) moves its bits, not its values."""
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:      # torch tensors share writable memory
-        a = a.copy()
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
-
-
 def _mlp(params, sizes, device, **kw) -> MLP:
     return MLP(sizes, device=device, **kw).load_jax(
-        [{k: _tensor(v, device) for k, v in p.items()} for p in params])
+        [{k: to_tensor(v, device) for k, v in p.items()} for p in params])
 
 
 def _checked(t: torch.Tensor, shape, what: str) -> torch.Tensor:
@@ -540,11 +611,12 @@ def _checked(t: torch.Tensor, shape, what: str) -> torch.Tensor:
 
 
 def params_from_jax(arch_id: str, tree, device=None, *,
-                    reduced: bool = False) -> nn.Module:
+                    reduced: bool = False):
     """The port's model of ``arch_id`` with the values of a JAX parameter
     pytree (``repro.launch.steps.build_step(...).init_args()[0]`` with its
     leaves as numpy arrays, or `params_to_jax`'s), on ``device`` (default:
-    the card).
+    the card): an ``nn.Module``, or for BERT4Rec the parameter dict (the
+    transformer's, `transformer.params_from_jax`, and ``pos``).
     ``reduced`` picks the arch's reduced config, as in `launch.steps`."""
     from ..configs.registry import get_arch
 
@@ -554,7 +626,7 @@ def params_from_jax(arch_id: str, tree, device=None, *,
         if arch_id == "dlrm-mlperf":
             n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2
             # a bfloat16 table given as float32 values (`params_to_jax`)
-            table = _checked(_tensor(tree["emb"]["table"], dev),
+            table = _checked(to_tensor(tree["emb"]["table"], dev),
                              (stacked_rows(cfg.vocab_sizes), cfg.embed_dim),
                              "emb.table").to(torch.bfloat16)
             bot = _mlp(tree["bot"], (cfg.n_dense,) + cfg.bot_mlp, dev,
@@ -567,34 +639,34 @@ def params_from_jax(arch_id: str, tree, device=None, *,
             d_in = len(cfg.vocab_sizes) * cfg.embed_dim + cfg.n_dense
             return WideDeep(
                 cfg,
-                _checked(_tensor(tree["emb"]["table"], dev),
+                _checked(to_tensor(tree["emb"]["table"], dev),
                          (rows, cfg.embed_dim), "emb.table"),
-                _checked(_tensor(tree["wide"]["table"], dev), (rows, 1),
+                _checked(to_tensor(tree["wide"]["table"], dev), (rows, 1),
                          "wide.table"),
-                _checked(_tensor(tree["wide_dense"], dev), (cfg.n_dense, 1),
+                _checked(to_tensor(tree["wide_dense"], dev), (cfg.n_dense, 1),
                          "wide_dense"),
                 _mlp(tree["deep"], (d_in,) + cfg.deep_mlp + (1,), dev))
         if arch_id == "mind":
             return MIND(
                 cfg,
-                _checked(_tensor(tree["items"], dev),
+                _checked(to_tensor(tree["items"], dev),
                          (cfg.n_items, cfg.embed_dim), "items"),
-                _checked(_tensor(tree["bilinear"], dev),
+                _checked(to_tensor(tree["bilinear"], dev),
                          (cfg.embed_dim, cfg.embed_dim), "bilinear"))
+    if arch_id == "bert4rec":
+        pos = _checked(to_tensor(tree["pos"], dev),
+                       (cfg.seq_len, cfg.embed_dim), "pos")
+        core = {k: v for k, v in tree.items() if k != "pos"}
+        return {**tf.params_from_jax(core, cfg.tf_config(), dev), "pos": pos}
     raise KeyError(arch_id)
 
 
-def params_to_jax(model: nn.Module) -> dict:
+def params_to_jax(model) -> dict:
     """``model``'s parameters as the JAX package's pytree (``model.tree()``'s
-    layout: an MLP weight (in, out)) of numpy arrays, the inverse of
-    `params_from_jax`.  Numpy has no bfloat16: a bfloat16 leaf comes back
-    as the float32 array of the same values (``.astype(jnp.bfloat16)`` is
-    exact)."""
-    return _tree_map(_host_array, model.tree())
+    layout: an MLP weight (in, out); BERT4Rec's dict as it is) of numpy
+    arrays, the inverse of `params_from_jax`.  Numpy has no bfloat16: a
+    bfloat16 leaf comes back as the float32 array of the same values
+    (``.astype(jnp.bfloat16)`` is exact)."""
+    return _tree_map(to_numpy, model if isinstance(model, dict)
+                     else model.tree())
 
-
-def _host_array(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy().copy()

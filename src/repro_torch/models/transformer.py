@@ -1,0 +1,298 @@
+"""Decoder-only transformer LM of the port: the serving half of
+``repro.models.transformer`` (the five LM architectures).
+
+* GQA or MLA attention; dense (gated or plain) or MoE FFN in each layer.
+* Layer patterns, cycled: 'full' | 'local' (chunked window, llama4's
+  iRoPE) | 'global_nope' (full attention without RoPE).  The layers'
+  parameters are stacked (G, p, ...): G groups of one pattern period p, as
+  the reference scans them; here a Python loop walks them.
+* `forward` (hidden states), `prefill` (last-token logits and the KV
+  cache) and `decode_step` (one token, the cache written in place where
+  the reference donates it).
+
+Every step casts each parameter to ``cfg.dtype`` at use, as the reference
+does, so parameters held in ``cfg.dtype`` (`init_params(dtype=cfg.dtype)`,
+half the memory of the reference's float32 tree) give the same bits as the
+float32 tree.  The parameters are a plain dict of tensors in the JAX
+pytree's layout (`params_from_jax` / `params_to_jax` carry them across).
+The training half (``lm_loss``, ``loss_fn``) is not ported yet
+(``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..kernels import registry as _registry
+from ..utils import (to_numpy, to_tensor, tree_leaves, tree_map,
+                     tree_map_with_path)
+from .attention import (MLADims, gqa_decode, gqa_forward, gqa_params,
+                        mla_decode, mla_forward, mla_params)
+from .layers import ACTIVATIONS, rms_norm, rope_freqs, uniform_init
+from .moe import MoEConfig, moe_apply, moe_params
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    act: str = "silu"
+    gated_ffn: bool = True               # SwiGLU-style if True, plain MLP else
+    attn: str = "gqa"                    # 'gqa' | 'mla'
+    mla: MLADims | None = None
+    moe: MoEConfig | None = None
+    rope_theta: float = 10000.0
+    max_seq: int = 8192
+    layer_pattern: tuple = ("full",)
+    local_window: int = 8192
+    chunk_q: int | None = None
+    dtype: torch.dtype = torch.float32   # compute dtype
+    param_dtype: torch.dtype = torch.float32
+    aux_loss_weight: float = 0.01
+    z_loss_weight: float = 1e-3
+
+    @property
+    def pattern_period(self) -> int:
+        return len(self.layer_pattern)
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % self.pattern_period:
+            raise ValueError(f"{self.n_layers} layers are not whole periods "
+                             f"of {self.layer_pattern}")
+        return self.n_layers // self.pattern_period
+
+    @property
+    def rope_dim(self) -> int:
+        return self.mla.qk_rope if self.attn == "mla" else self.head_dim
+
+
+# --------------------------------------------------------------------------- #
+# Params                                                                       #
+# --------------------------------------------------------------------------- #
+def init_params(cfg: TransformerConfig, *, dtype=None, generator=None,
+                device=None) -> dict:
+    """Random parameters in the reference's layout, each layer leaf stacked
+    (G, p, ...), uniform in ``1 / sqrt(fan_in)`` and the norms ones.  In
+    ``dtype`` (a serving step holds them in ``cfg.dtype``); by default the
+    reference's dtypes, ``cfg.param_dtype`` and a float32 MoE router."""
+    pdt = cfg.param_dtype if dtype is None else dtype
+    lead = (cfg.n_groups, cfg.pattern_period)
+    kw = dict(lead=lead, dtype=pdt, generator=generator, device=device)
+    if cfg.attn == "mla":
+        m = cfg.mla
+        attn = mla_params(cfg.d_model, cfg.n_heads, m.q_lora, m.kv_lora,
+                          m.qk_nope, m.qk_rope, m.v_head, **kw)
+    else:
+        attn = gqa_params(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, **kw)
+    if cfg.moe is not None:
+        ffn = moe_params(cfg.moe, router_dtype=torch.float32
+                         if dtype is None else dtype, **kw)
+    else:
+        d, f = cfg.d_model, cfg.d_ff
+        ffn = {"w1": uniform_init((d, f), **kw)}
+        if cfg.gated_ffn:
+            ffn["w3"] = uniform_init((d, f), **kw)
+        ffn["w2"] = uniform_init((f, d), **kw)
+    ones = dict(dtype=pdt, device=device)
+    flat = dict(dtype=pdt, generator=generator, device=device)
+    return {
+        "embed": uniform_init((cfg.vocab, cfg.d_model), **flat),
+        "layers": {"attn": attn, "ffn": ffn,
+                   "attn_norm": torch.ones(lead + (cfg.d_model,), **ones),
+                   "ffn_norm": torch.ones(lead + (cfg.d_model,), **ones)},
+        "final_norm": torch.ones((cfg.d_model,), **ones),
+        "lm_head": uniform_init((cfg.d_model, cfg.vocab), **flat),
+    }
+
+
+def param_count(params) -> int:
+    return sum(int(p.numel()) for p in tree_leaves(params))
+
+
+def params_from_jax(tree, cfg: TransformerConfig, device=None,
+                    dtype=None) -> dict:
+    """The JAX package's parameter pytree (numpy leaves; bfloat16 leaves
+    moved as their bits) as tensors on ``device`` (default: the card), cast
+    to ``dtype`` if given.  The tree must have `init_params`' structure and
+    shapes for ``cfg``."""
+    dev = _registry.resolve_device(device)
+    want = init_params(cfg, device="meta")
+    if _keys(tree) != _keys(want):
+        raise ValueError("the tree's structure is not the config's")
+
+    def leaf(path, a, w):
+        t = to_tensor(a, dev)
+        if tuple(t.shape) != tuple(w.shape):
+            raise ValueError(f"{'.'.join(map(str, path))} has shape "
+                             f"{tuple(t.shape)}, the config wants "
+                             f"{tuple(w.shape)}")
+        return t if dtype is None else t.to(dtype)
+
+    return tree_map_with_path(leaf, tree, want)
+
+
+def _keys(tree):
+    """A dict tree's nested keys, its leaves None."""
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    return None
+
+
+def params_to_jax(params) -> dict:
+    """The inverse of `params_from_jax`: numpy leaves (a bfloat16 leaf as
+    the float32 array of its values)."""
+    return tree_map(to_numpy, params)
+
+
+# --------------------------------------------------------------------------- #
+# Forward                                                                      #
+# --------------------------------------------------------------------------- #
+def _rope(cfg: TransformerConfig, rope, device):
+    """The (cos, sin) tables given, or the config's, on ``device``."""
+    if rope is not None:
+        return rope
+    return rope_freqs(cfg.rope_dim, cfg.max_seq, cfg.rope_theta,
+                      device=device)
+
+
+def layer_params(params, cfg: TransformerConfig):
+    """(layer index, kind, the layer's parameters in ``cfg.dtype``) in
+    order: group by group, the pattern within each."""
+    layers = params["layers"]
+    for gi in range(cfg.n_groups):
+        for j, kind in enumerate(cfg.layer_pattern):
+            yield (gi * cfg.pattern_period + j, kind,
+                   tree_map(lambda a: a[gi, j].to(cfg.dtype), layers))
+
+
+def ffn_apply(lp, x, cfg: TransformerConfig):
+    """The FFN over x: (..., d) -> (y, MoE aux values or None)."""
+    if cfg.moe is not None:
+        d = x.shape[-1]
+        y, aux = moe_apply(lp, x.reshape(-1, d), cfg.moe)
+        return y.reshape(x.shape), aux
+    act = ACTIVATIONS[cfg.act]
+    h = x @ lp["w1"]
+    h = act(h) * (x @ lp["w3"]) if cfg.gated_ffn else act(h)
+    return h @ lp["w2"], None
+
+
+def _attn_apply(lp, h, kind, cos, sin, positions, cfg: TransformerConfig):
+    if cfg.attn == "mla":
+        return mla_forward(lp, h, cos, sin, positions, cfg.mla, causal=True,
+                           chunk_q=cfg.chunk_q)
+    return gqa_forward(
+        lp, h, cos, sin, positions, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, causal=True,
+        chunk_q=cfg.chunk_q,
+        local_window=cfg.local_window if kind == "local" else None,
+        use_rope=(kind != "global_nope"))
+
+
+def embed_tokens(params, tokens, cfg: TransformerConfig):
+    """The tokens' embedding rows in ``cfg.dtype``: gathered, then cast
+    (the reference casts the table, then gathers: the same values without
+    a cast copy of the whole table)."""
+    return params["embed"][tokens].to(cfg.dtype)
+
+
+def forward(params, tokens, cfg: TransformerConfig, positions=None, *,
+            rope=None):
+    """tokens: (B, S) -> final hidden (B, S, d), total aux loss (scalar)."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = embed_tokens(params, tokens, cfg)
+    cos, sin = _rope(cfg, rope, x.device)
+    aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, kind, lp in layer_params(params, cfg):
+        h = rms_norm(x, lp["attn_norm"])
+        attn_out, _ = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
+                                  cfg)
+        x = x + attn_out
+        y, aux = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
+        x = x + y
+        if aux is not None:
+            aux_acc = aux_acc + cfg.aux_loss_weight * aux["load_balance"] \
+                + cfg.z_loss_weight * aux["z_loss"]
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype))
+    return x, aux_acc / cfg.n_layers
+
+
+# --------------------------------------------------------------------------- #
+# Serving: prefill + decode                                                    #
+# --------------------------------------------------------------------------- #
+def _cache_shapes(cfg: TransformerConfig, batch: int, max_seq: int) -> dict:
+    lb = (cfg.n_layers, batch, max_seq)
+    if cfg.attn == "mla":
+        return {"ckv": lb + (cfg.mla.kv_lora,), "kpe": lb + (cfg.mla.qk_rope,)}
+    kv = lb + (cfg.n_kv_heads, cfg.head_dim)
+    return {"k": kv, "v": kv}
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """A zero cache: GQA ``k``/``v`` (L, B, S, Hkv, D), MLA ``ckv``
+    (L, B, S, r) and ``kpe`` (L, B, S, dr)."""
+    return {k: torch.zeros(s, dtype=dtype, device=device)
+            for k, s in _cache_shapes(cfg, batch, max_seq).items()}
+
+
+def prefill(params, tokens, cfg: TransformerConfig,
+            cache_dtype=torch.bfloat16, *, rope=None):
+    """Run the prompt; returns (last-token logits (B, V), cache over S)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = embed_tokens(params, tokens, cfg)
+    cos, sin = _rope(cfg, rope, x.device)
+    cache = {k: torch.empty(sh, dtype=cache_dtype, device=x.device)
+             for k, sh in _cache_shapes(cfg, b, s).items()}
+    for li, kind, lp in layer_params(params, cfg):
+        h = rms_norm(x, lp["attn_norm"])
+        attn_out, kv = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
+                                   cfg)
+        for name, t in zip(cache, kv):
+            cache[name][li] = t            # rounded to the cache's dtype
+        x = x + attn_out
+        y, _ = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
+        x = x + y
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype))
+    logits = x[:, -1, :] @ params["lm_head"].to(cfg.dtype)
+    return logits, cache
+
+
+def decode_step(params, cache, tokens, pos, cfg: TransformerConfig, *,
+                rope=None):
+    """One decode step.  tokens: (B,); pos: the next position (an int).
+    Writes the cache in place at ``pos``; returns (logits (B, V), cache)."""
+    pos = int(pos)
+    x = embed_tokens(params, tokens, cfg)
+    cos, sin = _rope(cfg, rope, x.device)
+    for li, kind, lp in layer_params(params, cfg):
+        h = rms_norm(x, lp["attn_norm"])
+        if cfg.attn == "mla":
+            attn_out, _, _ = mla_decode(lp["attn"], h, cache["ckv"][li],
+                                        cache["kpe"][li], pos, cos, sin,
+                                        cfg.mla)
+        else:
+            attn_out, _, _ = gqa_decode(
+                lp["attn"], h, cache["k"][li], cache["v"][li], pos, cos, sin,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim,
+                local_window=cfg.local_window if kind == "local" else None,
+                use_rope=(kind != "global_nope"))
+        x = x + attn_out
+        y, _ = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
+        x = x + y
+    x = rms_norm(x, params["final_norm"].to(cfg.dtype))
+    return x @ params["lm_head"].to(cfg.dtype), cache
+

@@ -1,7 +1,9 @@
 """Helpers the port's layers share: trees of tensors (nested dicts, lists and
-tuples, as JAX's pytrees) and a top-k in ``jax.lax.top_k``'s order."""
+tuples, as JAX's pytrees), host arrays to and from tensors, and a top-k in
+``jax.lax.top_k``'s order."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,6 +31,27 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def to_tensor(a, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``; a bfloat16 array (numpy's
+    ``bfloat16`` extension type) moves its bits, not its values."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:      # torch tensors share writable memory
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array of its own; numpy has no bfloat16, so a
+    bfloat16 tensor comes back as the float32 array of the same values."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
 def _order_keys(x: torch.Tensor) -> torch.Tensor:
     """int32 keys of a float32 ``x`` in IEEE total order (-NaN < -inf < ...
     < -0.0 < +0.0 < ... < +inf < +NaN), the order ``jax.lax.top_k``
@@ -43,10 +66,11 @@ def top_k(x: torch.Tensor, k: int, *, largest: bool = True, masked=None):
     in IEEE total order, equal values in ascending column order:
     ``jax.lax.top_k``'s rule (of the negated rows for the smallest).
     `torch.topk` promises no order among equal values, nor which of them it
-    keeps at the k-th value, so both are fixed here.  A row whose k-th
-    value ties with entries past it is resolved by a stable sort of the
-    row's entries at or beyond that value; ``masked`` names a k-th value
-    whose ties need no resolving (entries the caller masks)."""
+    keeps at the k-th value, so both are fixed here.  The rows whose k-th
+    value ties with entries past it are resolved together, by one top-k of
+    int64 keys (the value's key, then the column) that tie nowhere;
+    ``masked`` names a k-th value whose ties need no resolving (entries the
+    caller masks)."""
     keys = _order_keys(x)
     kv, idx = torch.topk(keys, k, dim=1, largest=largest, sorted=True)
     if k:
@@ -54,17 +78,20 @@ def top_k(x: torch.Tensor, k: int, *, largest: bool = True, masked=None):
         kv, p2 = torch.sort(kv.gather(1, p), dim=1, descending=largest,
                             stable=True)
         idx = idx.gather(1, p2)
-
-        def beyond(row, kth):
-            return row >= kth if largest else row <= kth
-
-        kth = kv[:, -1]
-        tied = beyond(keys, kth[:, None]).sum(dim=1) > k
+        kth = kv[:, -1:]
+        beyond = keys >= kth if largest else keys <= kth
+        tied = beyond.sum(dim=1) > k
         if masked is not None:
-            tied &= kth != _order_keys(torch.tensor(
+            tied &= kth[:, 0] != _order_keys(torch.tensor(
                 [masked], dtype=torch.float32, device=x.device))
-        for i in torch.nonzero(tied).flatten().tolist():
-            cols = torch.nonzero(beyond(keys[i], kth[i])).flatten()
-            _, p = torch.sort(keys[i, cols], descending=largest, stable=True)
-            idx[i] = cols[p[:k]]
+        rows = torch.nonzero(tied).flatten()
+        if rows.numel():
+            n = keys.shape[1]
+            col = torch.arange(n, device=x.device)
+            # the value's key in the high 32 bits, the column (reversed for
+            # the largest, so that the lower column wins) in the low 32
+            low = n - 1 - col if largest else col
+            wide = (keys[rows].long() << 32) | low
+            idx[rows] = torch.topk(wide, k, dim=1, largest=largest,
+                                   sorted=True)[1]
     return x.gather(1, idx), idx

@@ -1068,3 +1068,95 @@ def test_cuda_checkpoint_of_a_bfloat16_table_takes_no_room_on_the_card(
     assert step == 0 and back["table"] is t
     assert peak - base < nbytes // 8
     assert torch.equal(t.view(torch.int16), table().view(torch.int16))
+
+
+# --------------------------------------------------------------------------- #
+# LM and BERT4Rec serving                                                      #
+# --------------------------------------------------------------------------- #
+LM_CELLS = [("nemotron-4-15b", "prefill_32k"), ("internlm2-20b", "decode_32k"),
+            ("minicpm3-4b", "prefill_32k"), ("minicpm3-4b", "decode_32k"),
+            ("llama4-scout-17b-a16e", "long_500k"),
+            ("qwen3-moe-235b-a22b", "prefill_32k"),
+            ("qwen3-moe-235b-a22b", "decode_32k"),
+            ("bert4rec", "retrieval_cand")]
+
+
+def _bf16_ulp(magnitude: float) -> float:
+    """One bfloat16 ulp at ``magnitude``: 2^(e - 7) in [2^e, 2^(e + 1))."""
+    return 2.0 ** (np.floor(np.log2(max(magnitude, 2.0 ** -126))) - 7)
+
+
+def _close_to_cpu(got, want):
+    """float32 within 2^-16 of the largest magnitude (TF32 off), bfloat16
+    (the caches) within one ulp at it, integers equal."""
+    got = got.cpu()
+    if not got.is_floating_point():
+        assert torch.equal(got, want)
+        return
+    top = float(want.float().abs().max())
+    tol = 2.0 ** -16 * top if got.dtype == torch.float32 else _bf16_ulp(top)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch,shape", LM_CELLS)
+def test_cuda_lm_steps_equal_the_cpu(card, arch, shape):
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sd = tsteps.build_step(arch, shape, reduced=True)
+        args = sd.init_args()
+        host = tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor)
+                        else t, list(args))
+        got, want = sd.fn(*args), sd.fn(*host)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        _close_to_cpu(g, w)
+    if "decode" in sd.name:
+        assert got[1] is args[1]                  # the cache, in place
+
+
+def test_cuda_attention_pieces_and_tied_routers(card, monkeypatch):
+    """The score pieces of `attention._attend` (heads by KV group, then
+    query rows) agree with one whole call on the card to a bfloat16 ulp
+    (cuBLAS may order a row's sums by its shapes); a zero router's tied
+    probabilities take the lowest experts on the card as on the CPU."""
+    from repro_torch.models import attention as ta
+    from repro_torch.models import moe as tm
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(s, generator=gen, device=card,
+                           dtype=torch.bfloat16)
+               for s in ((2, 256, 12, 64), (2, 256, 4, 64), (2, 256, 4, 64)))
+    scale = ta.softmax_scale(64, torch.bfloat16)
+    whole = ta.full_attention(q, k, v, causal=True, scale=scale, chunk_q=128)
+    monkeypatch.setattr(ta, "SCORE_BYTES", 2 * 256 * 4 * 3 * 37)
+    pieces = ta.full_attention(q, k, v, causal=True, scale=scale, chunk_q=128)
+    assert float((pieces.float() - whole.float()).abs().max()) <= \
+        _bf16_ulp(float(whole.float().abs().max()))
+    cfg = tm.MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32)
+    p = tm.moe_params(cfg, generator=gen, device=card)
+    p["router"].zero_()
+    x = torch.randn((96, 64), generator=gen, device=card)
+    y, aux = tm.moe_apply(p, x, cfg)
+    hp = tree_map(lambda t: t.cpu(), p)
+    y_cpu, aux_cpu = tm.moe_apply(hp, x.cpu(), cfg)
+    _close_to_cpu(y, y_cpu)
+    # the mean over 32 groups, summed in another order
+    assert abs(float(aux["dropped_frac"]) - float(aux_cpu["dropped_frac"])
+               ) <= 2.0 ** -20 and float(aux_cpu["dropped_frac"]) > 0
+
+
+def test_cuda_lm_parameters_are_held_in_the_compute_dtype(card):
+    sd = tsteps.build_step("llama4-scout-17b-a16e", "decode_32k",
+                           reduced=True,
+                           cfg_override={"dtype": torch.bfloat16})
+    params, cache, toks, pos = sd.init_args()
+    assert {(t.dtype, t.device.type) for t in tree_leaves(params)} == {
+        (torch.bfloat16, "cuda")}
+    f32 = tree_map(lambda t: t.float(), params)
+    c2 = tree_map(torch.clone, cache)
+    a, _ = sd.fn(params, cache, toks, pos)
+    b, _ = sd.fn(f32, c2, toks, pos)
+    assert torch.equal(a, b)
+    assert all(torch.equal(cache[n], c2[n]) for n in cache)

@@ -8,6 +8,7 @@
   ``device="cpu"``.
 """
 import ast
+import dataclasses
 import importlib
 import inspect
 from pathlib import Path
@@ -23,7 +24,10 @@ from repro_torch.core import snn as tsnn
 from repro_torch.core import streaming as tst
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
+from repro_torch.models import recsys as trs
+from repro_torch.models import transformer as tt
 from repro_torch.serving import IndexRegistry, SNNServer, TenantRuntime
+from repro_torch.utils import tree_leaves
 
 # the package exports functions named `join` and `dbscan`, which shadow the
 # module names
@@ -55,15 +59,19 @@ SERVING_MODULES = ("configs/snn_default", "ft/checkpoint", "ft/elastic",
                    "serving/server", "data/pipeline", "launch/serve")
 SHARDED_MODULES = ("core/sharded", "launch/mesh", "launch/snn_cell")
 TRAINING_MODULES = ("optim/optimizers", "launch/train", "utils")
+LM_MODULES = ("models/attention", "models/transformer", "models/moe",
+              "configs/nemotron_4_15b", "configs/internlm2_20b",
+              "configs/minicpm3_4b", "configs/llama4_scout_17b_a16e",
+              "configs/qwen3_moe_235b_a22b", "configs/bert4rec")
 
 
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    # the serving, sharded and training slices' modules are among the
+    # the serving, sharded, training and LM slices' modules are among the
     # files scanned
     assert {PORT / f"{m}.py" for m in SERVING_MODULES + SHARDED_MODULES
-            + TRAINING_MODULES} <= set(files)
+            + TRAINING_MODULES + LM_MODULES} <= set(files)
     return files
 
 
@@ -189,6 +197,26 @@ def test_recsys_steps_build_on_the_card_by_default(no_card, shape):
     assert all(v.device.type == "cpu" for v in batch.values())
     if state:                                   # the optimizer's state
         assert state[0]["dense"]["mu"]["bilinear"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen3-moe-235b-a22b", "decode_32k"), ("minicpm3-4b", "prefill_32k"),
+    ("bert4rec", "retrieval_cand")])
+def test_lm_steps_build_on_the_card_by_default(no_card, arch, shape):
+    sd = tsteps.build_step(arch, shape, reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sd.init_args()
+    params, *rest = sd.init_args(device="cpu")
+    tensors = tree_leaves(params) + [t for t in tree_leaves(rest)
+                                     if isinstance(t, torch.Tensor)]
+    assert {t.device.type for t in tensors} == {"cpu"}
+    tree = trs.params_to_jax(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trs.params_from_jax(arch, tree, reduced=True) if arch == "bert4rec" \
+            else tt.params_from_jax(tree, dataclasses.replace(
+                tsteps.get_arch(arch).make_config(shape, True), max_seq=64))
+    out = sd.fn(params, *rest)
+    assert {t.device.type for t in tree_leaves(out)} == {"cpu"}
 
 
 def test_serving_entry_points_need_a_card_or_cpu(no_card, tmp_path, capsys):

@@ -214,7 +214,7 @@ def test_params_from_jax_moves_bfloat16_bits():
         trs.params_from_jax("dlrm-mlperf", _np_tree(jparams), device="cpu")
 
 
-@pytest.mark.parametrize("arch,shape", [("bert4rec", "serve_p99")])
+@pytest.mark.parametrize("arch,shape", [("bert4rec", "train_batch")])
 def test_unported_steps_raise(arch, shape):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsteps.build_step(arch, shape, reduced=True)
@@ -232,7 +232,10 @@ def test_model_flops_match_reference(arch, shape):
 
 
 def test_registry_lists_the_ported_archs_with_reference_configs():
-    assert tsteps.list_archs() == sorted(ARCHS)
+    assert set(ARCHS) <= set(tsteps.list_archs())
+    assert {a for a in tsteps.list_archs()
+            if tsteps.get_arch(a).family == "recsys"} == set(ARCHS) | {
+                "bert4rec"}
     for arch in ARCHS:
         for reduced in (True, False):
             jcfg = jsteps.get_arch(arch).make_config("serve_p99", reduced)
