@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs ten phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs eleven phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -135,7 +135,22 @@ or note, and each phase's time:
    over the same weights, and cuBLAS's reduced-precision bfloat16
    reductions on against off; a profiled prefill (llama4) and decode step
    (nemotron); BERT4Rec's ``serve_p99``, ``serve_bulk`` and
-   ``retrieval_cand`` at full width, timed and held against the CPU.
+   ``retrieval_cand`` at full width, timed and held against the CPU;
+6. training through ``launch.steps.build_step`` and `launch.train`'s
+   step (float32 parameters, gradients and AdamW moments): each LM's
+   training state counted; (c) the 10 reduced training cells (the five
+   LMs' ``train_4k``, BERT4Rec's ``train_batch``, the four ``gat-cora``
+   shapes) on the card against the CPU, three steps; minicpm3-4b's
+   ``train_4k`` at full width and depth (62 layers) and
+   qwen3-moe-235b-a22b's at 1 of 94 layers, each microbatch one sequence
+   of 4,096 tokens, 2 and 8 microbatches a step: the first step by hand
+   with the in-place AdamW of sampled leaves held bit for bit against the
+   functional one, then 3 timed steps on the trainer's token stream (ms,
+   tokens/s, model FLOP/s against the bf16 dense peak, peak memory, the
+   losses), a profiled step and qwen3's dropped share; BERT4Rec's
+   ``train_batch`` (65,536 sequences) and the four ``gat-cora`` shapes at
+   full size (ogb_products: 2,449,029 nodes, 64,308,169 edges), 3 timed
+   steps each after one untimed.
 
 Before phase 1 it prints each kernel's registers, static shared memory
 and spills from the build.  Exits non-zero on any failed check, and
@@ -4298,13 +4313,19 @@ def lm_profile(torch, chk: Checks, fn, tag: str) -> dict:
     events = prof.events()
     start = min(e.time_range.start for e in events
                 if e.name == "measured" and e.device_type != cuda)
+    return profile_summary(chk, [e for e in events if e.device_type == cuda
+                                 and e.name != "measured"
+                                 and e.time_range.start >= start], wall, tag)
+
+
+def profile_summary(chk: Checks, events, wall: float, tag: str) -> dict:
+    """The note and record of a profiled call from its device events:
+    busy time, GEMMs, softmax and the rest, the top kernels."""
     by_name: dict[str, float] = {}
     for e in events:
-        if e.device_type == cuda and e.name != "measured" \
-                and e.time_range.start >= start:
-            us = getattr(e, "device_time_total", None)
-            us = e.cuda_time_total if us is None else us
-            by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
+        us = getattr(e, "device_time_total", None)
+        us = e.cuda_time_total if us is None else us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3
     busy = sum(by_name.values())
     groups = {"gemm": 0.0, "softmax": 0.0, "other": 0.0}
     for name, ms in by_name.items():
@@ -4596,6 +4617,375 @@ def phase_lm(torch, chk: Checks, card: str) -> dict:
     return recs
 
 
+# --------------------------------------------------------------------------- #
+# phase 6                                                                      #
+# --------------------------------------------------------------------------- #
+# arch: layers kept (None = all) at train_4k's full width and chunk_q 1024,
+# one 4,096-token sequence a microbatch and the reference's accumulation
+# (`steps.lm_accum`: 2 dense, 8 MoE): a global batch of 2 and 8 sequences,
+# not 256.  Float32 parameters, gradients and AdamW moments take 16 bytes a
+# parameter: minicpm3-4b's 4.262B are 68.2 GB, qwen3-moe's first layer
+# (with its embedding and head) 3.733B, 59.7 GB; a second layer would not
+# fit on one card (PERF.md section 4).
+LM_TRAIN_RUNS = {"minicpm3-4b": None, "qwen3-moe-235b-a22b": 1}
+# timed steps of each phase-6 run (after one step that is not timed)
+P6_STEPS = 3
+# (c) every reduced training cell on the card against the CPU: the losses
+# within 2^-16; the parameters after three steps with at least 999 in 1,000
+# elements within 2^-16 of the leaf's largest magnitude plus 2^-12 of the lr
+# a step, every element within 2 lr a step (AdamW amplifies the rounding of
+# a gradient whose moments are small; a near-tied router takes the other
+# expert); lr is the family's largest (BERT4Rec's row-wise SGD)
+P6_LOSS_REL = 2.0 ** -16
+P6_LR = {"lm": 3e-4, "recsys": 1e-2, "gnn": 5e-3}
+# leaves of an LM whose in-place AdamW update is held against the
+# functional one (the embedding's first rows: the update is elementwise)
+P6_SAMPLED = (("final_norm",), ("layers", "attn_norm"),
+              ("layers", "attn", "wkv_a"), ("layers", "ffn", "router"),
+              ("embed",))
+P6_EMBED_ROWS = 4096
+
+
+def sync_ms(torch, fn):
+    """(fn(), its milliseconds on the host clock, the card synchronized)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def train_close(torch, got_tree, want_tree, lr: float, steps: int):
+    """(within (c)'s bounds, the largest difference in units of lr, the
+    share of elements past the tight bound) of the card's parameters
+    against the CPU's."""
+    from repro_torch.utils import tree_leaves
+
+    far = total = 0
+    worst = 0.0
+    for a, b in zip(tree_leaves(want_tree), tree_leaves(got_tree)):
+        err = (a.float() - b.cpu().float()).abs()
+        worst = max(worst, float(err.max()) / lr)
+        tol = 2.0 ** -16 * float(a.abs().max()) + 2.0 ** -12 * lr * steps
+        far += int((err > tol).sum())
+        total += err.numel()
+    return (worst <= 2 * steps and far * 1000 <= total), worst, far / total
+
+
+def train_profile(torch, chk: Checks, fn, tag: str) -> dict:
+    """One call of ``fn`` (a warm training step) traced with the card's
+    activity alone: a step launches some 10^5 kernels, and with the host's
+    operator events beside them the trace took most of a minute to read.
+    A few small kernels run first in the trace (CUPTI's first records can
+    be lost); every device record counts toward the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    return profile_summary(chk, [e for e in prof.events()
+                                 if e.device_type == cuda], wall, tag)
+
+
+def reduced_training_on_cpu(torch, chk: Checks, steps) -> None:
+    """(c): the reduced training cells of the LMs, BERT4Rec and the GAT on
+    the card and on the CPU, three steps each from the same state (TF32
+    off)."""
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.utils import tree_map
+
+    worst, bad = {}, {}
+    for arch, shape, _ in all_cells():
+        family = steps.get_arch(arch).family
+        if not (shape == "train_4k" or family == "gnn"
+                or (arch, shape) == ("bert4rec", "train_batch")):
+            continue
+        sd = steps.build_step(arch, shape, reduced=True)
+        args = sd.init_args()
+        host = tree_map(lambda t: t.to("cpu", copy=True), list(args))
+        rel = 0.0
+        for _ in range(3):
+            got = float(sd.fn(*args)["loss"])
+            want = float(sd.fn(*host)["loss"])
+            rel = max(rel, abs(got - want) / abs(want))
+        ok, lr_units, share = train_close(torch, args[0], host[0],
+                                          P6_LR[family], 3)
+        worst[sd.name] = (rel, lr_units, share)
+        if not ok or rel > P6_LOSS_REL or not np.isfinite(got):
+            bad[sd.name] = worst[sd.name]
+    chk.ok(len(worst) == 10 and not bad,
+           f"(c) {len(worst)} reduced training cells on the card vs the CPU, "
+           f"3 steps each: losses within 2^-16 (worst "
+           f"{max(v[0] for v in worst.values()):.3g}), parameters within "
+           f"(c)'s bounds (largest difference "
+           f"{max(v[1] for v in worst.values()):.3g} lr, at most "
+           f"{max(v[2] for v in worst.values()):.2e} of the elements past "
+           f"2^-16 of the leaf + 2^-12 lr a step)"
+           + (f"; beyond them: {bad}" if bad else ""))
+
+
+def sampled_leaves(params, state, grads) -> dict:
+    """{path: (param, mu, nu, grad)} of the `P6_SAMPLED` leaves the config
+    has, the embedding cut to its first rows (views, not copies)."""
+    out = {}
+    for path in P6_SAMPLED:
+        trees = [params, state["mu"], state["nu"], grads]
+        try:
+            for key in path:
+                trees = [t[key] for t in trees]
+        except KeyError:
+            continue
+        if path == ("embed",):
+            trees = [t[:P6_EMBED_ROWS] for t in trees]
+        out[".".join(path)] = tuple(trees)
+    return out
+
+
+def inplace_vs_functional(torch, chk: Checks, steps, cfg, accum, params,
+                          state, batch, tag: str) -> float:
+    """The run's first step by hand, as the step runs it (`lm_grads`,
+    the in-place clip and `update_`), with the sampled leaves' AdamW held
+    against the functional `adamw.update` and `apply_updates` on copies of
+    their parameters, moments and clipped gradients, bit for bit.  Returns
+    the step's loss."""
+    from repro_torch.optim import apply_updates, clip_by_global_norm_
+
+    loss, grads = steps.lm_grads(params, batch, cfg, accum)
+    clip_by_global_norm_(grads, 1.0)
+    picked = sampled_leaves(params, state, grads)
+    before = {k: tuple(t.clone() for t in v) for k, v in picked.items()}
+    step0 = state["step"].clone()
+    opt = steps.make_lm_optimizer()
+    opt.update_(grads, state, params)
+    del grads
+    sub_p = {k: v[0] for k, v in before.items()}
+    upd, new = opt.update({k: v[3] for k, v in before.items()},
+                          {"mu": {k: v[1] for k, v in before.items()},
+                           "nu": {k: v[2] for k, v in before.items()},
+                           "step": step0}, sub_p)
+    apply_updates(sub_p, upd)
+    same = all(torch.equal(sub_p[k], picked[k][0])
+               and torch.equal(new["mu"][k], picked[k][1])
+               and torch.equal(new["nu"][k], picked[k][2]) for k in picked)
+    n = sum(v[0].numel() for v in picked.values())
+    chk.ok(same and len(picked) >= 4 and int(state["step"]) == 1,
+           f"{tag}: the in-place AdamW of step 0 (clip, then update_, one "
+           f"leaf at a time) == the functional adamw.update + apply_updates "
+           f"on the same clipped gradients, bit for bit, on "
+           f"{len(picked)} sampled leaves ({', '.join(picked)}; {n:,} "
+           f"parameters), moments included")
+    return float(loss)
+
+
+def dropped_share(torch, tf, params, cfg, batch) -> float:
+    """The MoE layers' mean share of dropped assignments over the first
+    microbatch's forward (the sequence alone, as the step runs it)."""
+    shares = []
+    real = tf.moe_apply
+
+    def recording(p, x, mcfg):
+        y, aux = real(p, x, mcfg)
+        shares.append(float(aux["dropped_frac"]))
+        return y, aux
+    with torch.no_grad(), mock.patch.object(tf, "moe_apply", recording):
+        tf.forward(params, batch["tokens"][:1], cfg)
+    return float(np.mean(shares))
+
+
+def lm_train(torch, chk: Checks, steps, train, tf, arch: str, layers,
+             card: str) -> dict:
+    """``train_4k`` at full width: one untimed step by hand (the in-place
+    optimizer against the functional one), `P6_STEPS` steps through
+    ``build_step``'s step on `launch.train`'s token stream, each timed
+    (host clock, synchronized), tokens/s, model FLOP/s against the bf16
+    dense peak, peak memory, the losses; a profiled step; the MoE's
+    dropped share."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.utils import tree_leaves
+
+    cfg = lm_config(steps, arch, "train_4k", layers)
+    accum = steps.lm_accum(cfg, False)
+    cut = {"n_layers": layers} if layers else None
+    sd = steps.build_step(arch, "train_4k", cfg_override=cut,
+                          shape_override={"global_batch": accum})
+    torch.cuda.reset_peak_memory_stats()
+    (params, state, fixed), init_ms = sync_ms(torch, sd.init_args)
+    batch_at = train.make_batch_source(get_arch(arch), cfg, fixed, DEVICE)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    full = get_arch(arch).make_config("train_4k", False).n_layers
+    tag = (f"{sd.name} ({cfg.n_layers} of {full} layers, "
+           f"{n_params / 1e9:.3f}B float32 parameters, {accum} x 1 x "
+           f"{cfg.max_seq} tokens a step)")
+    loss0, ms0 = sync_ms(torch, lambda: inplace_vs_functional(
+        torch, chk, steps, cfg, accum, params, state, batch_at(0), tag))
+    rec = {"layers": cfg.n_layers, "accum": accum, "params_b": n_params / 1e9,
+           "init_ms": init_ms, "step0_ms": ms0, "loss0": loss0}
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = [loss0], [], []
+    for i in range(1, P6_STEPS + 1):
+        batch = batch_at(i)
+        m, ms = sync_ms(torch, lambda: sd.fn(params, state, batch))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.mean(times))
+    tokens = accum * cfg.max_seq
+    rec.update(step_ms=times, mean_step_ms=ms,
+               tokens_per_s=tokens / (ms / 1e3),
+               model_tflops=sd.model_flops / (ms / 1e3) / 1e12,
+               bf16_peak_share=sd.model_flops / (ms / 1e3) / BF16_PEAK,
+               peak_gb=peak, losses=losses, grad_norms=norms)
+    ln_v = float(np.log(cfg.vocab))
+    chk.ok(all(np.isfinite(losses + norms)) and abs(loss0 - ln_v) <= 1.0
+           and int(state["step"]) == P6_STEPS + 1,
+           f"{tag}: losses {[round(x, 4) for x in losses]} (step 0 against "
+           f"ln V = {ln_v:.3f}), gradient norms "
+           f"{[round(x, 3) for x in norms]}, all finite; step 0 (by hand, "
+           f"cuBLAS warm-up) {ms0:.1f} ms; steps 1-{P6_STEPS} "
+           f"{[round(t, 1) for t in times]} ms (host clock, synchronized), "
+           f"{rec['tokens_per_s']:.0f} tokens/s, {rec['model_tflops']:.1f} "
+           f"TFLOP/s of model FLOPs = {100 * rec['bf16_peak_share']:.1f}% of "
+           f"the bf16 dense peak (989 TFLOP/s, data sheet), peak memory "
+           f"{peak:.2f} GB [{card}]")
+    batch = batch_at(P6_STEPS + 1)
+    rec["profile"] = train_profile(
+        torch, chk, lambda: sd.fn(params, state, batch),
+        f"{sd.name} training step profile")
+    if cfg.moe is not None:
+        rec["dropped_share"] = dropped_share(torch, tf, params, cfg,
+                                             batch_at(0))
+        chk.note(f"{sd.name}: dropped share of the MoE assignments over one "
+                 f"sequence's forward {rec['dropped_share']:.4f} "
+                 f"(capacity factor {cfg.moe.capacity_factor}, "
+                 f"{accum} microbatches of one sequence)")
+    del params, state, fixed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def setup_train(torch, train, arch: str, shape: str):
+    """`launch.train.setup` on the card, its time, and the peak memory
+    counted from it."""
+    torch.cuda.reset_peak_memory_stats()
+    return sync_ms(torch, lambda: train.setup(arch, shape, device=DEVICE))
+
+
+def timed_train(torch, chk: Checks, sd, model, state, batch_at, unit: str,
+                per_step: int, peak_ref: str, card: str) -> dict:
+    """One untimed step, then `P6_STEPS` timed ones (host clock,
+    synchronized) through the trainer's step: ms, ``unit``/s, model FLOP/s
+    against the FP32 peak (these models run in float32), peak memory,
+    losses finite."""
+    losses = [float(sd.fn(model, state, batch_at(0))["loss"])]
+    times = []
+    for i in range(1, P6_STEPS + 1):
+        batch = batch_at(i)
+        m, ms = sync_ms(torch, lambda: sd.fn(model, state, batch))
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = float(np.mean(times))
+    rec = {"step_ms": times, "mean_step_ms": ms,
+           f"{unit}_per_s": per_step / (ms / 1e3),
+           "model_tflops": sd.model_flops / (ms / 1e3) / 1e12,
+           "fp32_peak_share": sd.model_flops / (ms / 1e3) / FP32_PEAK,
+           "peak_gb": peak, "losses": losses}
+    chk.ok(all(np.isfinite(losses)),
+           f"{sd.name} ({per_step:,} {unit} a step): losses "
+           f"{[round(x, 4) for x in losses]} finite; steps "
+           f"{[round(t, 1) for t in times]} ms (host clock, synchronized), "
+           f"{rec[f'{unit}_per_s']:.0f} {unit}/s, "
+           f"{rec['model_tflops']:.2f} TFLOP/s of model FLOPs = "
+           f"{100 * rec['fp32_peak_share']:.1f}% of the FP32 peak (67 "
+           f"TFLOP/s, data sheet; float32 model, TF32 off), peak memory "
+           f"{peak:.2f} GB ({peak_ref}) [{card}]")
+    return rec
+
+
+def bert4rec_train(torch, chk: Checks, train, card: str) -> dict:
+    """BERT4Rec's ``train_batch`` (65,536 sequences of 200) at full width
+    through `launch.train`: the encoder and the loss in chunks of
+    `BERT4REC_TRAIN_CHUNK` sequences, the MLPerf optimizer split."""
+    (sd, params, state, batch_at), init_ms = setup_train(
+        torch, train, "bert4rec", "train_batch")
+    n = batch_at(0)["seq"].shape[0]
+    rec = timed_train(torch, chk, sd, params, state, batch_at, "sequences",
+                      n, "from train.setup on", card)
+    rec["init_ms"] = init_ms
+    del params, state, batch_at
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gnn_train(torch, chk: Checks, train, card: str) -> dict:
+    """The four ``gat-cora`` shapes at full size through `launch.train`:
+    cora's full graph, the reddit-sized minibatch (1,024 seeds, fanout 15
+    x 10), ogb_products' full graph (2,449,029 nodes, 64,308,169 edges
+    with the self loops) and 128 molecules."""
+    recs = {}
+    for shape in ("full_graph_sm", "minibatch_lg", "ogb_products",
+                  "molecule"):
+        (sd, params, state, batch_at), init_ms = setup_train(
+            torch, train, "gat-cora", shape)
+        b = batch_at(0)
+        if "edge_mask" in b:
+            per, unit = int(b["edge_mask"].sum()), "edges"
+        elif "x0" in b:
+            per, unit = b["x0"].shape[0], "seeds"
+        else:
+            per, unit = b["x"].shape[0], "graphs"
+        recs[shape] = timed_train(torch, chk, sd, params, state, batch_at,
+                                  unit, per, "from train.setup on, the "
+                                  "batch made on the host included", card)
+        recs[shape]["init_ms"] = init_ms
+        del params, state, batch_at, b
+        torch.cuda.empty_cache()
+    return recs
+
+
+def training_state_note(chk: Checks, steps, tf) -> None:
+    """Each LM's training state at full depth and at one pattern period
+    (the least depth the config allows): 16 bytes a parameter (float32
+    parameters, gradients and AdamW's two moments), counted on the meta
+    device."""
+    parts = []
+    for arch in LM_RUNS:
+        cfg = lm_config(steps, arch, "train_4k", None)
+        period = dataclasses.replace(cfg, n_layers=cfg.pattern_period)
+        n, n1 = (tf.param_count(tf.init_params(c, device="meta"))
+                 for c in (cfg, period))
+        parts.append(f"{arch} {n / 1e9:.3f}B parameters, {16 * n / 1e9:.1f}"
+                     f" GB at {cfg.n_layers} layers, {16 * n1 / 1e9:.1f} GB "
+                     f"at {cfg.pattern_period}")
+    chk.note("training state (16 bytes a parameter) of each LM: "
+             + "; ".join(parts))
+
+
+def phase_training(torch, chk: Checks, card: str) -> dict:
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as tf
+
+    print("phase 6: training at full width through launch.train's step "
+          "and launch.steps.build_step: the LMs' train_4k, BERT4Rec's "
+          "train_batch and the four gat-cora shapes")
+    training_state_note(chk, steps, tf)
+    reduced_training_on_cpu(torch, chk, steps)
+    recs = {}
+    for arch, layers in LM_TRAIN_RUNS.items():
+        recs[arch] = lm_train(torch, chk, steps, train, tf, arch, layers,
+                              card)
+    recs["bert4rec"] = bert4rec_train(torch, chk, train, card)
+    recs["gat-cora"] = gnn_train(torch, chk, train, card)
+    return recs
+
+
 def ptxas_table(log: str, nvcc: str) -> dict:
     """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
     "spill_loads"}} from nvcc's ``-Xptxas -v`` output, the names demangled
@@ -4789,6 +5179,13 @@ def main() -> int:
     lm = phase_lm(torch, chk, card)
     print("phase 5 record: " + json.dumps(lm))
     if not phase_done("phase 5", t):
+        return 1
+    t = time.perf_counter()
+    Checks.note(f"device memory held before phase 6: "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    training = phase_training(torch, chk, card)
+    print("phase 6 record: " + json.dumps(training))
+    if not phase_done("phase 6", t):
         return 1
     for rec in kernels:
         base = {"snn_count": "snn_count_stacked",

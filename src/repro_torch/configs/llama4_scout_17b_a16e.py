@@ -23,7 +23,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
             moe=MoEConfig(n_experts=4, top_k=1, d_model=64, d_ff=128,
                           n_shared_experts=1, renorm_topk=False),
             layer_pattern=("local", "local", "local", "global_nope"),
-            local_window=16, max_seq=128)
+            local_window=16, max_seq=128, remat=False)
     long = shape_name in ("prefill_32k", "decode_32k")
     max_seq = 524288 if shape_name == "long_500k" else (32768 if long else 4096)
     return TransformerConfig(
@@ -35,7 +35,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
         layer_pattern=("local", "local", "local", "global_nope"),
         local_window=8192, max_seq=max_seq,
         chunk_q={"train_4k": 1024, "prefill_32k": 2048}.get(shape_name),
-        dtype=torch.bfloat16, param_dtype=torch.float32)
+        xent_chunk=16384, dtype=torch.bfloat16, param_dtype=torch.float32)
 
 
 register(ArchSpec(

@@ -17,7 +17,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
             n_kv_heads=4, head_dim=16, d_ff=128, vocab=512, attn="mla",
             mla=MLADims(n_heads=4, q_lora=32, kv_lora=16, qk_nope=8,
                         qk_rope=8, v_head=16),
-            max_seq=128)
+            max_seq=128, remat=False)
     long = shape_name in ("prefill_32k", "decode_32k", "long_500k")
     # vocab 73448 padded to 73472 (/64) for clean TP sharding of embed/lm_head
     # (standard practice; padded ids never occur in data).
@@ -29,7 +29,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
         act="silu", gated_ffn=True, rope_theta=10000.0,
         max_seq=32768 if long else 4096,
         chunk_q={"train_4k": 1024, "prefill_32k": 2048}.get(shape_name),
-        dtype=torch.bfloat16, param_dtype=torch.float32)
+        xent_chunk=16384, dtype=torch.bfloat16, param_dtype=torch.float32)
 
 
 register(ArchSpec(

@@ -13,7 +13,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
         return TransformerConfig(
             name="nemotron-4-15b/reduced", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=256, vocab=512,
-            act="sq_relu", gated_ffn=False, max_seq=128)
+            act="sq_relu", gated_ffn=False, max_seq=128, remat=False)
     long = shape_name in ("prefill_32k", "decode_32k", "long_500k")
     return TransformerConfig(
         name="nemotron-4-15b", n_layers=32, d_model=6144, n_heads=48,
@@ -21,7 +21,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
         act="sq_relu", gated_ffn=False, rope_theta=10000.0,
         max_seq=32768 if long else 4096,
         chunk_q={"train_4k": 1024, "prefill_32k": 2048}.get(shape_name),
-        dtype=torch.bfloat16, param_dtype=torch.float32)
+        xent_chunk=16384, dtype=torch.bfloat16, param_dtype=torch.float32)
 
 
 register(ArchSpec(

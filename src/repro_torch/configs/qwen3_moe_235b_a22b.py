@@ -15,7 +15,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
             name="qwen3-moe/reduced", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, head_dim=16, d_ff=128, vocab=512,
             moe=MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=32),
-            max_seq=128)
+            max_seq=128, remat=False)
     long = shape_name in ("prefill_32k", "decode_32k", "long_500k")
     return TransformerConfig(
         name="qwen3-moe-235b-a22b", n_layers=94, d_model=4096, n_heads=64,
@@ -25,7 +25,7 @@ def make_config(shape_name: str, reduced: bool = False) -> TransformerConfig:
         act="silu", gated_ffn=True, rope_theta=1000000.0,
         max_seq=32768 if long else 4096,
         chunk_q={"train_4k": 1024, "prefill_32k": 2048}.get(shape_name),
-        dtype=torch.bfloat16, param_dtype=torch.float32)
+        xent_chunk=16384, dtype=torch.bfloat16, param_dtype=torch.float32)
 
 
 register(ArchSpec(

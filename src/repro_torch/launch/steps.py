@@ -1,14 +1,19 @@
 """Step builders of the port: per (arch x shape) the step function, its
 analytic model FLOPs, and a constructor of concrete arguments.
 
-The counterpart of ``repro.launch.steps`` for two families:
+The counterpart of ``repro.launch.steps`` for its three families:
 
-* the LMs' serving kinds, ``prefill`` (``prefill_32k``) and ``decode``
-  (``decode_32k``, ``long_500k``), through `models.transformer`;
-* the recsys kinds ``rs_serve`` and ``rs_train`` (DLRM, Wide & Deep,
-  MIND; BERT4Rec serves) and ``rs_retrieval`` (MIND's capsules and
-  BERT4Rec's user representation against the items; DLRM's and Wide &
-  Deep's ranking forward over the candidates).
+* the LMs: ``train`` (``train_4k``: gradient accumulation over
+  microbatches, the global-norm clip, AdamW) and the serving kinds
+  ``prefill`` (``prefill_32k``) and ``decode`` (``decode_32k``,
+  ``long_500k``), through `models.transformer`;
+* the GAT (``gat-cora``): ``gnn_full`` (``full_graph_sm``,
+  ``ogb_products``), ``gnn_minibatch`` (``minibatch_lg``) and
+  ``gnn_batched`` (``molecule``), each a training step, through
+  `models.gnn`;
+* the recsys kinds ``rs_train``, ``rs_serve`` and ``rs_retrieval`` (MIND's
+  capsules and BERT4Rec's user representation against the items; DLRM's
+  and Wide & Deep's ranking forward over the candidates).
 
 ``StepDef`` keeps the JAX package's ``name``, ``fn``, ``model_flops`` and
 ``init_args``; its PartitionSpec, sharding and donation fields have no
@@ -16,14 +21,14 @@ meaning on one card and are left out (a decode step writes its cache in
 place, where the reference donates it).  The batch or the tokens are the
 JAX package's numpy arrays for the same ``default_rng(0)``; the parameters
 are made on the device from a seeded ``torch.Generator``
-(``params_from_jax`` of `models.recsys` and `models.transformer` carries
-the JAX package's own instead).  An LM's parameters are held in its
-compute dtype (bfloat16 at full width), which its steps compute in
-anyway.  A recsys training step updates the model and the optimizer state
-in place and returns ``{"loss": ...}``.
-
-Not ported yet (``ROADMAP.md``): LM training (``train_4k``), BERT4Rec's
-training and the GNN family; they raise ``NotImplementedError``.
+(``params_from_jax`` of `models.recsys`, `models.transformer` and
+`models.gnn` carries the JAX package's own instead).  An LM's serving
+steps hold its parameters in its compute dtype (bfloat16 at full width),
+which they compute in anyway; its training step holds them in float32
+(``cfg.param_dtype``), as the reference.  A training step updates the
+parameters and the optimizer state in place and returns its metrics
+(``{"loss"}``; with ``"grad_norm"`` for the LMs and the GAT, whose
+AdamW runs in place, `optim.adamw`'s ``update_``).
 """
 from __future__ import annotations
 
@@ -33,13 +38,15 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..configs.registry import ArchSpec, get_arch, list_archs
+from ..configs.registry import ArchSpec, get_arch, list_archs  # noqa: F401
 from ..kernels import registry as _registry
+from ..models import gnn as gnn_mod
 from ..models import recsys as rs
 from ..models import transformer as tf
 from ..models.layers import rope_freqs
-from ..optim import adamw, apply_updates, partition_optimizer, sgd
-from ..utils import top_k, tree_map
+from ..optim import (adamw, apply_updates, clip_by_global_norm_,
+                     partition_optimizer, sgd)
+from ..utils import top_k, tree_leaves, tree_map
 
 SEED = 0
 
@@ -101,6 +108,51 @@ def _lm_tokens(rng, cfg, shape) -> np.ndarray:
     return rng.integers(0, cfg.vocab, shape).astype(np.int32)
 
 
+def make_lm_optimizer():
+    return adamw(lr=3e-4, weight_decay=0.1)
+
+
+def lm_accum(cfg: tf.TransformerConfig, reduced: bool) -> int:
+    """The reference's microbatches a training step: deeper for MoE, whose
+    dispatch working set grows with the microbatch's tokens."""
+    return 1 if reduced else (8 if cfg.moe is not None else 2)
+
+
+def lm_grads(params, batch, cfg: tf.TransformerConfig, accum: int, *,
+             rope=None):
+    """(loss, float32 gradients in ``params``' layout) of `loss_fn` over
+    ``batch`` in ``accum`` microbatches of consecutive sequences: each
+    microbatch's backward adds its gradient into one tree (``(0 + g1) +
+    g2 + ...``, the reference's scan), and the loss and the sums are
+    divided by ``accum`` (where it is above 1, as in the reference)."""
+    dev = batch["tokens"].device
+    grads = tree_map(torch.zeros_like, params)
+    view = tf.train_view(params, grads, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    b = batch["tokens"].shape[0]
+    if b % accum:
+        raise ValueError(f"{accum} microbatches do not divide a batch of {b}")
+    mb = b // accum
+    for i in range(0, b, mb):
+        loss = tf.loss_fn(view, {k: v[i:i + mb] for k, v in batch.items()},
+                          cfg, rope=rope)
+        loss.backward()
+        total = total + loss.detach()
+    if accum == 1:
+        return total, grads
+    for g in tree_leaves(grads):
+        g.div_(accum)
+    return total / accum, grads
+
+
+def adamw_step_(opt, grads, opt_state, params) -> torch.Tensor:
+    """Clip ``grads`` to a global norm of 1 and apply ``opt``'s AdamW,
+    both in place; returns the norm before the clip."""
+    gn = clip_by_global_norm_(grads, 1.0)
+    opt.update_(grads, opt_state, params)
+    return gn
+
+
 def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                   shape_override: dict | None = None,
                   cfg_override: dict | None = None) -> StepDef:
@@ -114,8 +166,6 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         shape = {**shape, "seq_len": 32, "global_batch": 4}
         cfg = dataclasses.replace(cfg, max_seq=64)
     kind = shape["kind"]
-    if kind == "train":
-        raise _not_ported(f"LM training ({spec.arch_id}:{shape_name})")
     flops = lm_model_flops(cfg, shape) if not reduced else 0.0
     b, s = shape["global_batch"], shape["seq_len"]
     tables = {}
@@ -132,6 +182,28 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return dev, tf.init_params(cfg, dtype=cfg.dtype, generator=gen,
                                    device=dev)
+
+    if kind == "train":
+        opt = make_lm_optimizer()
+        accum = lm_accum(cfg, reduced)
+
+        def step(params, opt_state, batch):
+            loss, grads = lm_grads(params, batch, cfg, accum,
+                                   rope=rope(batch["tokens"].device))
+            gn = adamw_step_(opt, grads, opt_state, params)
+            return {"loss": loss, "grad_norm": gn}
+
+        def init_args(device=None):
+            dev = _registry.resolve_device(device)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            params = tf.init_params(cfg, generator=gen, device=dev)
+            rng = np.random.default_rng(SEED)
+            batch = {"tokens": _lm_tokens(rng, cfg, (b, s)),
+                     "labels": _lm_tokens(rng, cfg, (b, s))}
+            return params, opt.init(params), _on(dev, batch)
+
+        return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
+                       model_flops=flops, init_args=init_args)
 
     if kind == "prefill":
         @torch.inference_mode()
@@ -159,6 +231,127 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                 torch.from_numpy(_lm_tokens(rng, cfg, (b,))).to(dev), s // 2)
 
     return StepDef(name=f"{spec.arch_id}:{shape_name}:decode", fn=step,
+                   model_flops=flops, init_args=init_args)
+
+
+# --------------------------------------------------------------------------- #
+# GNN family                                                                   #
+# --------------------------------------------------------------------------- #
+def gnn_model_flops(cfg: gnn_mod.GATConfig, shape: dict) -> float:
+    """Analytic model FLOPs of one training step (forward and twice its
+    backward): ``repro.launch.steps``'s count."""
+    kind = shape["kind"]
+    h, dh, c = cfg.n_heads, cfg.d_hidden, cfg.n_classes
+    if kind == "gnn_minibatch":
+        b = shape["batch_nodes"]
+        f1, f2 = shape["fanout"]
+        n_eff = b * (1 + f1 + f1 * f2)
+        e_eff = b * f1 + b * f1 * f2 + b * (f1 + 1)
+        d_in = shape["d_feat"]
+    elif kind == "gnn_batched":
+        n_eff = shape["batch"] * shape["n_nodes"]
+        e_eff = shape["batch"] * shape["n_edges"]
+        d_in = shape["d_feat"]
+    else:
+        n_eff, e_eff, d_in = (shape["n_nodes"], shape["n_edges"],
+                              shape["d_feat"])
+    l1 = 2 * n_eff * d_in * h * dh + e_eff * h * (4 * dh + 8)
+    l2 = 2 * n_eff * (h * dh) * c + e_eff * (4 * c + 8)
+    return 3 * (l1 + l2)
+
+
+# the reference's reduced graphs
+GNN_REDUCED = {"gnn_full": {"n_nodes": 64, "n_edges": 256},
+               "gnn_minibatch": {"batch_nodes": 8, "fanout": (3, 2)},
+               "gnn_batched": {"batch": 4, "n_nodes": 10, "n_edges": 20}}
+# the full graph's nodes and edges are padded to multiples of this
+GNN_PAD = 512
+
+
+def _gnn_full_batch(rng, cfg, shape) -> dict:
+    """The reference's full-graph batch: E random edges plus a self loop a
+    node, nodes and edges padded to multiples of `GNN_PAD` (padded edges
+    masked, padded nodes out of the loss)."""
+    n, e, d = shape["n_nodes"], shape["n_edges"], shape["d_feat"]
+    etot = e + n
+    npad = -(-n // GNN_PAD) * GNN_PAD
+    epad = -(-etot // GNN_PAD) * GNN_PAD
+    src = rng.integers(0, n, etot).astype(np.int32)
+    dst = rng.integers(0, n, etot).astype(np.int32)
+    src[e:etot] = np.arange(n)
+    dst[e:etot] = np.arange(n)
+    return {
+        "x": np.pad(rng.normal(size=(n, d)).astype(np.float32),
+                    ((0, npad - n), (0, 0))),
+        "src": np.pad(src, (0, epad - etot)),
+        "dst": np.pad(dst, (0, epad - etot)),
+        "edge_mask": np.arange(epad) < etot,
+        "labels": np.pad(rng.integers(0, cfg.n_classes, n).astype(np.int32),
+                         (0, npad - n)),
+        "mask": np.arange(npad) < n,
+    }
+
+
+def _gnn_minibatch_batch(rng, cfg, shape) -> dict:
+    b, (f1, f2), d = shape["batch_nodes"], shape["fanout"], shape["d_feat"]
+    return {
+        "x0": rng.normal(size=(b, d)).astype(np.float32),
+        "x1": rng.normal(size=(b, f1, d)).astype(np.float32),
+        "x2": rng.normal(size=(b, f1, f2, d)).astype(np.float32),
+        "labels": rng.integers(0, cfg.n_classes, b).astype(np.int32),
+    }
+
+
+def _gnn_batched_batch(rng, cfg, shape) -> dict:
+    g, n, e, d = (shape["batch"], shape["n_nodes"], shape["n_edges"],
+                  shape["d_feat"])
+    return {
+        "x": rng.normal(size=(g, n, d)).astype(np.float32),
+        "src": rng.integers(0, n, (g, e)).astype(np.int32),
+        "dst": rng.integers(0, n, (g, e)).astype(np.int32),
+        "labels": rng.integers(0, cfg.n_classes, g).astype(np.int32),
+    }
+
+
+GNN_REGIMES = {"gnn_full": (gnn_mod.loss_full, _gnn_full_batch),
+               "gnn_minibatch": (gnn_mod.loss_minibatch,
+                                 _gnn_minibatch_batch),
+               "gnn_batched": (gnn_mod.loss_batched_graphs,
+                               _gnn_batched_batch)}
+
+
+def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                   shape_override: dict | None = None) -> StepDef:
+    """A GAT training step: the regime's loss and its gradient, the clip at
+    a global norm of 1 and AdamW(5e-3), in place.  The batch is drawn from
+    the builder's ``default_rng(0)`` when ``init_args`` is called, as in
+    the reference (a second call draws the next batch)."""
+    cfg = spec.make_config(shape_name, reduced)
+    shape = dict(spec.shapes[shape_name])
+    if shape_override:
+        shape.update(shape_override)
+    kind = shape["kind"]
+    if reduced:
+        shape.update(GNN_REDUCED[kind])
+        shape["d_feat"] = cfg.d_in
+        shape["n_classes"] = cfg.n_classes
+    opt = adamw(lr=5e-3)
+    flops = gnn_model_flops(cfg, shape) if not reduced else 0.0
+    loss_f, make_batch = GNN_REGIMES[kind]
+    rng = np.random.default_rng(SEED)
+
+    def step(params, opt_state, batch):
+        loss, grads = gnn_mod.value_and_grad(loss_f, params, batch, cfg)
+        gn = adamw_step_(opt, grads, opt_state, params)
+        return {"loss": loss, "grad_norm": gn}
+
+    def init_args(device=None):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = gnn_mod.init_params(cfg, generator=gen, device=dev)
+        return params, opt.init(params), _on(dev, make_batch(rng, cfg, shape))
+
+    return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
                    model_flops=flops, init_args=init_args)
 
 
@@ -259,11 +452,6 @@ def _on(device, arrays: dict) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               "(ROADMAP.md lists what is left)")
-
-
 def route(path) -> str:
     """The MLPerf recipe's routing: the embedding tables to row-wise SGD,
     every other leaf to AdamW (``repro.launch.steps``'s route over the
@@ -298,15 +486,21 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         return dev, _rs_init_model(arch_id, cfg, gen, dev)
 
     if kind == "rs_train":
-        if arch_id == "bert4rec":
-            raise _not_ported(f"BERT4Rec training ({arch_id}:{shape_name})")
         opt = train_optimizer()
-        loss_f = rs.LOSSES[arch_id]
         np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
+        if arch_id == "bert4rec":
+            def value_and_grad(params, batch):
+                return (*rs.bert4rec_value_and_grad(params, batch, cfg),
+                        params)
+        else:
+            loss_f = rs.LOSSES[arch_id]
+
+            def value_and_grad(model, batch):
+                return (*rs.value_and_grad(loss_f, model, batch),
+                        model.tree())
 
         def step(model, opt_state, batch):
-            loss, grads = rs.value_and_grad(loss_f, model, batch)
-            params = model.tree()
+            loss, grads, params = value_and_grad(model, batch)
             upd, new_state = opt.update(grads, opt_state, params)
             apply_updates(params, upd)
             with torch.no_grad():
@@ -315,7 +509,8 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
 
         def init_args(device=None):
             dev, model = init_model(device)
-            return model, opt.init(model.tree()), _on(dev, np_batch)
+            params = model if isinstance(model, dict) else model.tree()
+            return model, opt.init(params), _on(dev, np_batch)
 
         return StepDef(name=f"{arch_id}:{shape_name}:train", fn=step,
                        model_flops=flops, init_args=init_args)
@@ -392,11 +587,10 @@ def build_step(arch_id: str, shape_name: str, *, reduced: bool = False,
                shape_override: dict | None = None,
                cfg_override: dict | None = None) -> StepDef:
     """The step of ``arch_id`` at ``shape_name``: ``reduced`` = the arch's
-    small config (LMs: 4 sequences of 32 tokens; recsys: batch 8 and 128
-    candidates, as in the JAX package); ``shape_override`` replaces
-    entries of the shape, ``cfg_override`` fields of an LM's config."""
-    if arch_id not in list_archs():
-        raise _not_ported(f"arch {arch_id!r} (ported: {list_archs()})")
+    small config (LMs: 4 sequences of 32 tokens; the GAT: the reference's
+    small graphs; recsys: batch 8 and 128 candidates, as in the JAX
+    package); ``shape_override`` replaces entries of the shape,
+    ``cfg_override`` fields of an LM's config."""
     spec = get_arch(arch_id)
     if shape_name in spec.skip_shapes:
         raise ValueError(f"{arch_id}:{shape_name} skipped: "
@@ -405,5 +599,6 @@ def build_step(arch_id: str, shape_name: str, *, reduced: bool = False,
         return build_lm_step(spec, shape_name, reduced=reduced,
                              shape_override=shape_override,
                              cfg_override=cfg_override)
-    return build_rs_step(spec, shape_name, reduced=reduced,
-                         shape_override=shape_override)
+    builder = {"gnn": build_gnn_step, "recsys": build_rs_step}[spec.family]
+    return builder(spec, shape_name, reduced=reduced,
+                   shape_override=shape_override)

@@ -1,15 +1,18 @@
 """Training launcher of the port: the counterpart of ``repro.launch.train``
-for the recsys family (DLRM, Wide & Deep, MIND), on the card unless
-``--device cpu``.
+for every family (the LMs' ``train_4k``, the GAT's graph regimes, the
+recsys models' ``train_batch``), on the card unless ``--device cpu``.
 
 Features: deterministic data (a batch is a pure function of the step),
 checkpoint/resume through `ft.checkpoint` in the JAX package's tree layout
-(``(params, opt_state)``, an MLP weight (in, out)), a straggler watchdog, and
-JSONL metrics.  LM training (an LM's default shape, ``train_4k``),
-BERT4Rec's and the GNN family are not ported (``ROADMAP.md``): they raise
-``NotImplementedError``, as `launch.steps.build_step` does.
+(``(params, opt_state)``; an MLP weight (in, out), an LM's layers stacked
+(G, p, ...)), so a checkpoint that ``repro.launch.train`` wrote resumes
+here, a straggler watchdog, and JSONL metrics.  The model is an
+``nn.Module`` (DLRM, Wide & Deep, MIND) or a dict tree of tensors (the
+LMs, BERT4Rec, the GAT); a step updates it and its optimizer state in
+place.
 
 Usage:
+  python -m repro_torch.launch.train --arch minicpm3-4b --reduced --device cpu
   python -m repro_torch.launch.train --arch dlrm-mlperf --reduced --steps 20
   python -m repro_torch.launch.train --arch mind --reduced --device cpu \\
       --steps 50 --ckpt-dir /tmp/ck --resume --log /tmp/mind.jsonl
@@ -23,48 +26,62 @@ import time
 
 import torch
 
-from ..configs.registry import get_arch, list_archs
-from ..data.pipeline import RecsysSyntheticDataset
+from ..configs.registry import get_arch
+from ..data.pipeline import LMSyntheticDataset, RecsysSyntheticDataset
 from ..ft.checkpoint import CheckpointManager
 from ..ft.watchdog import StepTimer, StragglerWatchdog
+from ..utils import tree_leaves
 from .steps import build_step
 
 
-def make_batch_source(arch_id: str, cfg, fixed: dict, device):
+def _on(device, arrays: dict) -> dict:
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+def make_batch_source(spec, cfg, fixed: dict, device):
     """Returns ``step -> batch`` (tensors on ``device``) for the arch's
-    train shape: DLRM's and Wide & Deep's click model
-    (`data.pipeline.RecsysSyntheticDataset`, ids below the smallest
-    vocabulary, as in the JAX trainer), else the fixed batch of
-    ``init_args``."""
-    if arch_id in ("dlrm-mlperf", "wide-deep"):
+    train shape, as the JAX trainer's: the LMs' Markov token stream
+    (`data.pipeline.LMSyntheticDataset`) and DLRM's and Wide & Deep's
+    click model (`RecsysSyntheticDataset`, ids below the smallest
+    vocabulary), each of the shape of ``init_args``' batch; else that fixed
+    batch."""
+    if spec.family == "lm":
+        b, s = fixed["tokens"].shape
+        ds = LMSyntheticDataset(vocab=cfg.vocab, seq_len=s, batch=b)
+        return lambda i: _on(device, ds.batch_at(i))
+    if spec.arch_id in ("dlrm-mlperf", "wide-deep"):
         b, nf = fixed["sparse"].shape
         ds = RecsysSyntheticDataset(n_dense=cfg.n_dense, n_sparse=nf,
                                     vocab=int(min(cfg.vocab_sizes)), batch=b)
-        return lambda i: {k: torch.from_numpy(v).to(device)
-                          for k, v in ds.batch_at(i).items()}
+        return lambda i: _on(device, ds.batch_at(i))
     return lambda i: fixed
 
 
-def default_shape(arch_id: str) -> str:
-    """The reference's training shape of the arch's family (an arch the
-    port does not have takes the recsys one, and `build_step` says it is
-    not ported)."""
-    family = get_arch(arch_id).family if arch_id in list_archs() else None
-    return "train_4k" if family == "lm" else "train_batch"
+def default_shape(spec) -> str:
+    """The reference's training shape of the arch's family."""
+    return {"lm": "train_4k", "gnn": "full_graph_sm",
+            "recsys": "train_batch"}[spec.family]
+
+
+def params_of(model):
+    """The model's parameters as the JAX package's tree: a dict tree is its
+    own, an ``nn.Module``'s is ``model.tree()``."""
+    return model if isinstance(model, dict) else model.tree()
 
 
 def setup(arch_id: str, shape: str | None = None, *, reduced: bool = False,
           device=None):
     """(step_def, model, opt_state, batch_at) of a training run, the model
     and its optimizer state on ``device`` (default: the card)."""
-    shape = shape or default_shape(arch_id)
+    spec = get_arch(arch_id)
+    shape = shape or default_shape(spec)
     step_def = build_step(arch_id, shape, reduced=reduced)
     if not step_def.name.endswith(":train"):
         raise ValueError(f"{arch_id}:{shape} is not a training shape")
     model, opt_state, fixed = step_def.init_args(device)
-    cfg = get_arch(arch_id).make_config(shape, reduced)
-    batch_at = make_batch_source(arch_id, cfg, fixed,
-                                 next(model.parameters()).device)
+    cfg = spec.make_config(shape, reduced)
+    batch_at = make_batch_source(spec, cfg, fixed,
+                                 tree_leaves(params_of(model))[0].device)
     return step_def, model, opt_state, batch_at
 
 
@@ -85,7 +102,7 @@ def main(argv=None):
 
     step_def, model, opt_state, batch_at = setup(
         args.arch, args.shape, reduced=args.reduced, device=args.device)
-    state = (model.tree(), opt_state)
+    state = (params_of(model), opt_state)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0

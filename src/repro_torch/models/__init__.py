@@ -1,5 +1,5 @@
 """Models of the port: the recsys models (DLRM, Wide & Deep, MIND,
-BERT4Rec) and the LM stack.
+BERT4Rec), the LM stack and the GAT.
 
 * layers      — `uniform_init`, the MLP (`nn.Linear` stacks), the norms,
                 activations and rotary embedding of the reference
@@ -7,7 +7,10 @@ BERT4Rec) and the LM stack.
                 and chunked-local softmax attention
 * moe         — the grouped, capacity-limited MoE FFN
 * transformer — the decoder-only LM: parameters, forward, prefill and
-                decode, and `params_from_jax` / `params_to_jax`
+                decode, the training loss, `train_view`, and
+                `params_from_jax` / `params_to_jax`
+* gnn         — the GAT (full-graph, minibatch and batched-graph regimes,
+                their losses) and the host `NeighborSampler`
 * recsys      — the stacked embedding table and its lookup (whose gradient
                 is a row gradient), the recsys models, their losses,
                 candidate scoring, exact threshold retrieval, and

@@ -22,8 +22,10 @@ groups, so that no piece holds more than `SCORE_BYTES` of float32 scores
 (nemotron's 32k prefill chunk would be 12.9 GB).  Each row is computed by
 the same formula in a piece as in the whole (on the CPU bit for bit; the
 card's GEMM library may order a row's sums by the shapes it is given).
-``constrain`` (sharding hints) has no meaning on one card and is left
-out.  Params are plain dicts of tensors, the JAX pytree's layout.
+Under autograd each query chunk and each local window runs under
+``torch.utils.checkpoint``, as the reference's are ``jax.checkpoint``
+bodies: a backward holds one chunk's scores at a time.  ``constrain``
+(sharding hints) has no meaning on one card and is left out.  Params are plain dicts of tensors, the JAX pytree's layout.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import apply_rope, rms_norm, uniform_init
 
@@ -121,6 +124,15 @@ def _attend(q, k, v, scale, mask_rows):
     return out
 
 
+def _attend_chunk(q, k, v, scale, mask_rows):
+    """`_attend` of one query chunk or window: under a checkpoint when a
+    backward will follow."""
+    if torch.is_grad_enabled():
+        return checkpoint(_attend, q, k, v, scale, mask_rows,
+                          use_reentrant=False)
+    return _attend(q, k, v, scale, mask_rows)
+
+
 def full_attention(q, k, v, *, causal: bool, scale,
                    chunk_q: int | None = None):
     """Softmax attention of queries at positions 0 .. Sq - 1 over keys at
@@ -145,8 +157,8 @@ def full_attention(q, k, v, *, causal: bool, scale,
         raise ValueError(f"chunk_q {chunk_q} does not divide {sq} queries")
     out = q.new_empty(b, sq, h, v.shape[-1])
     for c0 in range(0, sq, chunk_q):
-        out[:, c0:c0 + chunk_q] = _attend(q[:, c0:c0 + chunk_q], k, v, scale,
-                                          mask_from(c0))
+        out[:, c0:c0 + chunk_q] = _attend_chunk(q[:, c0:c0 + chunk_q], k, v,
+                                                scale, mask_from(c0))
     return out
 
 
@@ -165,7 +177,8 @@ def local_chunked_attention(q, k, v, *, window: int, scale):
     out = q.new_empty(b, s, h, v.shape[-1])
     for w0 in range(0, s, window):
         sl = slice(w0, w0 + window)
-        out[:, sl] = _attend(q[:, sl], k[:, sl], v[:, sl], scale, mask_rows)
+        out[:, sl] = _attend_chunk(q[:, sl], k[:, sl], v[:, sl], scale,
+                                   mask_rows)
     return out
 
 

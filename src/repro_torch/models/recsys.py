@@ -1,8 +1,8 @@
 """RecSys models of the port: DLRM (MLPerf), Wide & Deep, MIND, BERT4Rec.
 
 The counterpart of ``repro.models.recsys``: serving, training (the losses
-and their gradients) and candidate scoring of DLRM, Wide & Deep and MIND,
-and BERT4Rec's serving.  Each of the three is an ``nn.Module`` over the
+and their gradients) and candidate scoring of DLRM, Wide & Deep, MIND and
+BERT4Rec.  Each of the three is an ``nn.Module`` over the
 same parameters as the JAX pytree (`params_from_jax` carries them across,
 `params_to_jax` back; ``model.tree()`` is that layout over the module's
 own storage) and computes the same forward.  BERT4Rec is the
@@ -38,9 +38,10 @@ unique ids touched and their summed gradients, a sparse COO tensor, never
 a dense (V, D) one: DLRM's 48 GB table could not hold a dense twin on one
 card.  JAX computes it as XLA's scatter-add (the VJP of ``jnp.take``); the
 port sorts the occurrences by id and sums each id's in float32, in a
-fixed order, then rounds once to the table's dtype.
-
-Not ported yet (``ROADMAP.md``): BERT4Rec's training (its loss).
+fixed order, then rounds once to the table's dtype.  BERT4Rec's table is
+read three times a step (the input items, the positives, the sampled
+negatives) by plain row gathers, and its gradient is one dense (V, D)
+tensor, as JAX's (256 MB at full width).
 """
 from __future__ import annotations
 
@@ -48,7 +49,9 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import join as _join
 from ..kernels import ops as _ops
@@ -394,7 +397,7 @@ def mind_init(cfg: MINDConfig, *, generator: torch.Generator | None = None,
 
 
 # --------------------------------------------------------------------------- #
-# BERT4Rec: a bidirectional transformer over item sequences (serving)          #
+# BERT4Rec: a bidirectional transformer over item sequences                   #
 # --------------------------------------------------------------------------- #
 @dataclasses.dataclass(frozen=True)
 class Bert4RecConfig:
@@ -414,7 +417,7 @@ class Bert4RecConfig:
             d_model=self.embed_dim, n_heads=self.n_heads,
             n_kv_heads=self.n_heads, head_dim=self.embed_dim // self.n_heads,
             d_ff=4 * self.embed_dim, vocab=vocab, max_seq=self.seq_len,
-            dtype=self.dtype)
+            remat=False, dtype=self.dtype)
 
 
 # Sequences one BERT4Rec forward encodes at once: `serve_bulk`'s 262,144
@@ -465,6 +468,86 @@ def bert4rec_user_repr(params, seq_ids, cfg: Bert4RecConfig):
     sequence's encoding depends on that sequence alone."""
     return torch.cat([_bert4rec_hidden(params, chunk, cfg)[:, -1, :]
                       for chunk in torch.split(seq_ids, BERT4REC_CHUNK)])
+
+
+def _bert4rec_chunk(hc, lc, table, neg):
+    """(sum of the masked-item losses, their count) of hidden states hc
+    (C, S, D) with labels lc (C, S) (-1: not masked): each masked slot's
+    positive item against the shared negatives ``neg`` (N, D), the
+    log-sum-exp over the 1 + N scores in float32.  The unmasked slots
+    gather row 0, as the reference's ``take(table, max(lc, 0))`` does
+    (``F.embedding``: their zero gradients, four fifths of the slots, are
+    summed in parallel, see `transformer.embed_tokens`)."""
+    pos = F.embedding(lc.clamp_min(0), table)                   # (C, S, D)
+    s_pos = torch.einsum("bsd,bsd->bs", hc, pos)[..., None]
+    s_neg = torch.einsum("bsd,nd->bsn", hc, neg)
+    scores = torch.cat([s_pos, s_neg], -1).float()
+    lse = torch.logsumexp(scores, dim=-1)
+    valid = lc >= 0
+    per = torch.where(valid, lse - scores[..., 0], 0.0)
+    return per.sum(), valid.sum()
+
+
+def bert4rec_loss(params, batch, cfg: Bert4RecConfig,
+                  batch_chunk: int = 4096):
+    """Masked-item prediction with sampled negatives, the reference's:
+    ``seq`` (B, S) with [MASK] = n_items at the masked slots, ``labels``
+    (B, S) (-1: not masked), ``negatives`` (n_neg,).  The (B, S, 1 + N)
+    scores are the memory hot spot, so the loss is taken in chunks of
+    ``batch_chunk`` sequences where they divide B, each under a
+    checkpoint in a backward.  The encoder runs over the whole batch; a
+    training step at 65,536 sequences takes `bert4rec_value_and_grad`."""
+    h = _bert4rec_hidden(params, batch["seq"], cfg)
+    labels = batch["labels"]
+    table = params["embed"].to(cfg.dtype)
+    neg = F.embedding(batch["negatives"], table)                # (N, D)
+    b = h.shape[0]
+    if b <= batch_chunk or b % batch_chunk:
+        tot, cnt = _bert4rec_chunk(h, labels, table, neg)
+    else:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+        remat = torch.is_grad_enabled()
+        for i in range(0, b, batch_chunk):
+            args = (h[i:i + batch_chunk], labels[i:i + batch_chunk], table,
+                    neg)
+            l, c = (checkpoint(_bert4rec_chunk, *args, use_reentrant=False)
+                    if remat else _bert4rec_chunk(*args))
+            tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp_min(cnt, 1)
+
+
+# Sequences a training step encodes and differentiates at once: the
+# encoder's backward over 65,536 x 200 tokens would hold 42 GB of attention
+# weights; the loss chunks of the reference are this size.
+BERT4REC_TRAIN_CHUNK = 4096
+
+
+def bert4rec_value_and_grad(params, batch, cfg: Bert4RecConfig,
+                            chunk: int = BERT4REC_TRAIN_CHUNK):
+    """(loss, gradients in ``params``' layout) of `bert4rec_loss`, the
+    encoder and the loss taken ``chunk`` sequences at a time.
+
+    The loss is ``sum_c tot_c / cnt`` over the whole batch's count cnt,
+    so chunk c's backward starts from ``1 / cnt``, as the reference's
+    division gives every chunk; each gradient is the sum of the chunks'
+    (added into one tree in chunk order): the reference's function, its
+    sums over the sequences in another order.  The table's gradient is
+    one dense tensor."""
+    labels = batch["labels"]
+    cnt = torch.clamp_min((labels >= 0).sum(), 1)
+    scale = torch.ones((), dtype=torch.float32, device=labels.device) / cnt
+    grads = _tree_map(torch.zeros_like, params)
+    view = tf.train_view(params, grads, cfg.tf_config())
+    tot = torch.zeros((), dtype=torch.float32, device=labels.device)
+    for i in range(0, labels.shape[0], chunk):
+        h = _bert4rec_hidden(view, batch["seq"][i:i + chunk], cfg)
+        table = view["embed"].to(cfg.dtype)
+        l, _ = _bert4rec_chunk(h, labels[i:i + chunk], table,
+                               F.embedding(batch["negatives"], table))
+        l.backward(scale)
+        tot = tot + l.detach()
+    return tot / cnt, grads
 
 
 # --------------------------------------------------------------------------- #

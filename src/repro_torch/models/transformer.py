@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM of the port: the serving half of
-``repro.models.transformer`` (the five LM architectures).
+"""Decoder-only transformer LM of the port: ``repro.models.transformer``
+(the five LM architectures), serving and training.
 
 * GQA or MLA attention; dense (gated or plain) or MoE FFN in each layer.
 * Layer patterns, cycled: 'full' | 'local' (chunked window, llama4's
@@ -9,23 +9,33 @@
 * `forward` (hidden states), `prefill` (last-token logits and the KV
   cache) and `decode_step` (one token, the cache written in place where
   the reference donates it).
+* `lm_loss` (the cross-entropy, chunked over the tokens by
+  ``cfg.xent_chunk``) and `loss_fn`.  Under autograd `forward` runs each
+  pattern group under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+  set, and `lm_loss` each chunk under its own: the reference's
+  ``jax.checkpoint`` boundaries, so the backward recomputes what JAX's
+  does.
 
 Every step casts each parameter to ``cfg.dtype`` at use, as the reference
 does, so parameters held in ``cfg.dtype`` (`init_params(dtype=cfg.dtype)`,
 half the memory of the reference's float32 tree) give the same bits as the
-float32 tree.  The parameters are a plain dict of tensors in the JAX
-pytree's layout (`params_from_jax` / `params_to_jax` carry them across).
-The training half (``lm_loss``, ``loss_fn``) is not ported yet
-(``ROADMAP.md``).
+float32 tree.  Training holds them in ``cfg.param_dtype`` (float32) and
+casts each layer inside its checkpointed group, so the backward recomputes
+the bfloat16 copies instead of keeping them.  The parameters are a plain
+dict of tensors in the JAX pytree's layout (`params_from_jax` /
+`params_to_jax` carry them across); `train_view` makes its leaves autograd
+leaves whose gradients land in a tree of the same layout.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import registry as _registry
-from ..utils import (to_numpy, to_tensor, tree_leaves, tree_map,
+from ..utils import (grad_view, to_numpy, to_tensor, tree_leaves, tree_map,
                      tree_map_with_path)
 from .attention import (MLADims, gqa_decode, gqa_forward, gqa_params,
                         mla_decode, mla_forward, mla_params)
@@ -53,6 +63,8 @@ class TransformerConfig:
     layer_pattern: tuple = ("full",)
     local_window: int = 8192
     chunk_q: int | None = None
+    xent_chunk: int | None = None        # tokens a cross-entropy chunk
+    remat: bool = True                   # recompute each group's forward
     dtype: torch.dtype = torch.float32   # compute dtype
     param_dtype: torch.dtype = torch.float32
     aux_loss_weight: float = 0.01
@@ -164,14 +176,42 @@ def _rope(cfg: TransformerConfig, rope, device):
                       device=device)
 
 
+def group_params(params, gi: int):
+    """Group ``gi``'s parameters, each leaf (p, ...): a view of the stacked
+    (G, p, ...) leaves, or the group's own tree where `train_view` split
+    the stack into a list of groups."""
+    layers = params["layers"]
+    if isinstance(layers, list):
+        return layers[gi]
+    return tree_map(lambda a: a[gi], layers)
+
+
+def _cast_layer(gp, j: int, cfg: TransformerConfig):
+    return tree_map(lambda a: a[j].to(cfg.dtype), gp)
+
+
 def layer_params(params, cfg: TransformerConfig):
     """(layer index, kind, the layer's parameters in ``cfg.dtype``) in
     order: group by group, the pattern within each."""
-    layers = params["layers"]
     for gi in range(cfg.n_groups):
+        gp = group_params(params, gi)
         for j, kind in enumerate(cfg.layer_pattern):
-            yield (gi * cfg.pattern_period + j, kind,
-                   tree_map(lambda a: a[gi, j].to(cfg.dtype), layers))
+            yield gi * cfg.pattern_period + j, kind, _cast_layer(gp, j, cfg)
+
+
+def train_view(params, grads, cfg: TransformerConfig) -> dict:
+    """``params`` for a backward: every leaf an autograd leaf over the
+    leaf's own storage whose ``.grad`` is the matching leaf of ``grads``
+    (`utils.grad_view`), the layer stacks split into a list of their G
+    groups (one leaf a group, so that a group's backward writes its slice
+    of the stack's gradient and no (G, p, ...) tensor of zeros around
+    it)."""
+    out = {k: grad_view(v, grads[k]) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [grad_view(tree_map(lambda a: a[gi], params["layers"]),
+                               tree_map(lambda a: a[gi], grads["layers"]))
+                     for gi in range(cfg.n_groups)]
+    return out
 
 
 def ffn_apply(lp, x, cfg: TransformerConfig):
@@ -201,8 +241,29 @@ def _attn_apply(lp, h, kind, cos, sin, positions, cfg: TransformerConfig):
 def embed_tokens(params, tokens, cfg: TransformerConfig):
     """The tokens' embedding rows in ``cfg.dtype``: gathered, then cast
     (the reference casts the table, then gathers: the same values without
-    a cast copy of the whole table)."""
-    return params["embed"][tokens].to(cfg.dtype)
+    a cast copy of the whole table).  The gather is ``F.embedding``, whose
+    backward sums a repeated id's rows in parallel segments; an indexing
+    backward sums them one row after another (BERT4Rec's [MASK] id is a
+    fifth of a batch's tokens)."""
+    return F.embedding(tokens, params["embed"]).to(cfg.dtype)
+
+
+def _group_apply(gp, x, aux_acc, cos, sin, positions,
+                 cfg: TransformerConfig):
+    """One pattern group over x: each layer cast to ``cfg.dtype`` here, so
+    that under a checkpoint the cast is recomputed, not kept."""
+    for j, kind in enumerate(cfg.layer_pattern):
+        lp = _cast_layer(gp, j, cfg)
+        h = rms_norm(x, lp["attn_norm"])
+        attn_out, _ = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
+                                  cfg)
+        x = x + attn_out
+        y, aux = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
+        x = x + y
+        if aux is not None:
+            aux_acc = aux_acc + cfg.aux_loss_weight * aux["load_balance"] \
+                + cfg.z_loss_weight * aux["z_loss"]
+    return x, aux_acc
 
 
 def forward(params, tokens, cfg: TransformerConfig, positions=None, *,
@@ -214,18 +275,58 @@ def forward(params, tokens, cfg: TransformerConfig, positions=None, *,
     x = embed_tokens(params, tokens, cfg)
     cos, sin = _rope(cfg, rope, x.device)
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, kind, lp in layer_params(params, cfg):
-        h = rms_norm(x, lp["attn_norm"])
-        attn_out, _ = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
-                                  cfg)
-        x = x + attn_out
-        y, aux = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
-        x = x + y
-        if aux is not None:
-            aux_acc = aux_acc + cfg.aux_loss_weight * aux["load_balance"] \
-                + cfg.z_loss_weight * aux["z_loss"]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for gi in range(cfg.n_groups):
+        args = (group_params(params, gi), x, aux_acc, cos, sin, positions,
+                cfg)
+        x, aux_acc = (checkpoint(_group_apply, *args, use_reentrant=False)
+                      if remat else _group_apply(*args))
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
     return x, aux_acc / cfg.n_layers
+
+
+def _xent_chunk(hc, yc, w):
+    """(sum of the cross-entropy over the labels >= 0, their count) of the
+    hidden rows ``hc`` against the head ``w``: the logits in the compute
+    dtype, the log-sum-exp and the label's logit in float32."""
+    logits = (hc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(1, yc.clamp_min(0)[:, None].long())[:, 0]
+    valid = yc >= 0
+    return torch.where(valid, lse - ll, 0.0).sum(), valid.sum()
+
+
+def lm_loss(params, hidden, labels, cfg: TransformerConfig):
+    """Mean cross-entropy over the labels >= 0, in chunks of
+    ``cfg.xent_chunk`` tokens (each under a checkpoint in a backward, so
+    one chunk's (chunk, V) logits are held at a time), summed in chunk
+    order, as the reference's scan."""
+    b, s, d = hidden.shape
+    h = hidden.reshape(b * s, d)
+    y = labels.reshape(b * s)
+    w = params["lm_head"].to(cfg.dtype)
+    t, ck = b * s, cfg.xent_chunk
+    if ck is None or ck >= t:
+        tot, cnt = _xent_chunk(h, y, w)
+    else:
+        if t % ck:
+            raise ValueError(f"xent_chunk {ck} does not divide {t} tokens")
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+        remat = torch.is_grad_enabled()
+        for i in range(0, t, ck):
+            args = (h[i:i + ck], y[i:i + ck], w)
+            l, c = (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                    if remat else _xent_chunk(*args))
+            tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, *, rope=None):
+    """The training loss: `lm_loss` of the forward plus its MoE aux
+    losses.  ``batch``: ``tokens`` and ``labels`` (B, S)."""
+    hidden, aux = forward(params, batch["tokens"], cfg, rope=rope)
+    return lm_loss(params, hidden, batch["labels"], cfg) + aux
 
 
 # --------------------------------------------------------------------------- #

@@ -1,4 +1,5 @@
 from .optimizers import (  # noqa: F401
-    adamw, sgd, make_optimizer, clip_by_global_norm, warmup_cosine,
+    adamw, sgd, make_optimizer, clip_by_global_norm,
+    clip_by_global_norm_, warmup_cosine,
     partition_optimizer, apply_updates,
 )

@@ -31,6 +31,14 @@ moments and takes dense gradients only.
 ``partition_optimizer`` routes different leaves to different optimizers
 (row-wise SGD for the tables, AdamW for the dense weights: the MLPerf DLRM
 recipe) by the leaf's path, a tuple of dict keys and list indices.
+
+In place, for a model whose parameters, gradients and two moments fill
+one card (a 4B-parameter LM holds 16 bytes a parameter): `adamw`'s
+``update_`` and `clip_by_global_norm_` write each leaf's result over the
+leaf, one leaf (and a large leaf one piece of `PIECE` elements) at a time,
+instead of building new moment, update and clipped-gradient trees.  They
+run the functional forms' arithmetic on each element, op for op (the same
+per-leaf functions), so their results are bit-equal.
 """
 from __future__ import annotations
 
@@ -47,6 +55,13 @@ from ..utils import tree_leaves, tree_map, tree_map_with_path
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params) -> (updates, state)
+    # (grads, state, params) -> None: the state and params updated in place
+    update_: Callable | None = None
+
+
+# elements of a leaf that an in-place update computes at once: its
+# temporaries are a few pieces, not a few copies of the largest leaf
+PIECE = 1 << 24
 
 
 # --------------------------------------------------------------------------- #
@@ -96,21 +111,55 @@ def apply_updates(params, updates):
     return params
 
 
-@torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
+def _global_norm(grads) -> torch.Tensor:
     def sq(g):
         v = _rows(g)[1] if g.is_sparse else g
         return torch.sum(torch.square(v.float()))
-    gn = torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
-    scale = torch.minimum(torch.tensor(1.0, device=gn.device),
-                          max_norm / torch.clamp_min(gn, 1e-9))
+    return torch.sqrt(sum(sq(g) for g in tree_leaves(grads)))
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.minimum(torch.tensor(1.0, device=gn.device),
+                         max_norm / torch.clamp_min(gn, 1e-9))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
+    gn = _global_norm(grads)
+    scale = _clip_scale(gn, max_norm)
 
     def clip(g):
         if g.is_sparse:
             return _sparse_like(g, _mul(scale, _rows(g)[1]))
         return _mul(scale, g)
     return tree_map(clip, grads), gn
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """`clip_by_global_norm` in place over dense float32 gradients (the
+    product with the scale is float32 either way); returns the norm."""
+    leaves = tree_leaves(grads)
+    if any(g.is_sparse or g.dtype != torch.float32 for g in leaves):
+        raise TypeError("clip_by_global_norm_ scales dense float32 "
+                        "gradients in place")
+    gn = _global_norm(grads)
+    scale = _clip_scale(gn, max_norm)
+    for g in leaves:
+        g.mul_(scale)
+    return gn
+
+
+def _pieces(*leaves):
+    """Matching flat pieces of same-shaped contiguous leaves, at most
+    `PIECE` elements each (the whole leaf where one is not contiguous)."""
+    if not all(t.is_contiguous() for t in leaves):
+        yield leaves
+        return
+    flat = [t.view(-1) for t in leaves]
+    for lo in range(0, flat[0].numel(), PIECE):
+        yield tuple(f[lo:lo + PIECE] for f in flat)
 
 
 def warmup_cosine(base_lr: float, warmup: int, total: int,
@@ -129,7 +178,8 @@ def warmup_cosine(base_lr: float, warmup: int, total: int,
 
 def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
     """AdamW with float32 moments; ``lr`` a float or a schedule
-    ``fn(step) -> lr``.  ``step`` counts from 1 at the first update."""
+    ``fn(step) -> lr``.  ``step`` counts from 1 at the first update.
+    ``update_`` is the in-place form."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -137,31 +187,56 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
                 "nu": tree_map(_zeros_f32, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 
-    @torch.no_grad()
-    def update(grads, state, params):
+    def first(m, g):
+        return b1 * m + (1 - b1) * g.float()
+
+    def second(v, g):
+        return b2 * v + (1 - b2) * torch.square(g.float())
+
+    def schedule(state):
+        step = state["step"] + 1
+        return (step, lr_fn(step), 1 - b1 ** step.to(torch.float32),
+                1 - b2 ** step.to(torch.float32))
+
+    # every operand is float32 here, where PyTorch's promotion is JAX's
+    def delta(m, v, p, lr_t, bc1, bc2):
+        u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        if weight_decay:
+            u = u - lr_t * weight_decay * p.float()
+        return u.to(p.dtype)
+
+    def dense_only(grads):
         for g in tree_leaves(grads):
             if g.is_sparse:
                 raise TypeError("adamw keeps dense moments and takes dense "
                                 "gradients; route row gradients to sgd")
-        step = state["step"] + 1
-        lr_t = lr_fn(step)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                      state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                      state["nu"], grads)
-        bc1 = 1 - b1 ** step.to(torch.float32)
-        bc2 = 1 - b2 ** step.to(torch.float32)
 
-        # every operand is float32 here, where PyTorch's promotion is JAX's
-        def upd(m, v, p):
-            u = -(lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps))
-            if weight_decay:
-                u = u - lr_t * weight_decay * p.float()
-            return u.to(p.dtype)
-        updates = tree_map(upd, mu, nu, params)
+    @torch.no_grad()
+    def update(grads, state, params):
+        dense_only(grads)
+        step, lr_t, bc1, bc2 = schedule(state)
+        mu = tree_map(first, state["mu"], grads)
+        nu = tree_map(second, state["nu"], grads)
+        updates = tree_map(lambda m, v, p: delta(m, v, p, lr_t, bc1, bc2),
+                           mu, nu, params)
         return updates, {"mu": mu, "nu": nu, "step": step}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def update_(grads, state, params):
+        dense_only(grads)
+        step, lr_t, bc1, bc2 = schedule(state)
+        def leaf(g, m, v, p):
+            for gs, ms, vs, ps in _pieces(g, m, v, p):
+                m1, v1 = first(ms, gs), second(vs, gs)
+                u = delta(m1, v1, ps, lr_t, bc1, bc2)
+                ms.copy_(m1)
+                vs.copy_(v1)
+                ps.copy_((ps + u).to(ps.dtype))
+        # leaf by leaf, matched by path as `update` matches them
+        tree_map(leaf, grads, state["mu"], state["nu"], params)
+        state["step"].copy_(step)
+
+    return Optimizer(init, update, update_)
 
 
 def sgd(lr=1e-2, momentum: float = 0.0):

@@ -1,6 +1,6 @@
 """Helpers the port's layers share: trees of tensors (nested dicts, lists and
-tuples, as JAX's pytrees), host arrays to and from tensors, and a top-k in
-``jax.lax.top_k``'s order."""
+tuples, as JAX's pytrees) and their autograd views, host arrays to and from
+tensors, and a top-k in ``jax.lax.top_k``'s order."""
 from __future__ import annotations
 
 import numpy as np
@@ -29,6 +29,19 @@ def tree_leaves(tree) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def grad_view(tree, grads):
+    """``tree`` with each leaf replaced by an autograd leaf over the same
+    storage (``detach().requires_grad_()``) whose ``.grad`` is the matching
+    leaf of ``grads``: a backward then adds each leaf's gradient into
+    ``grads`` in place (``grad += g``), and an update of ``tree``'s
+    tensors is seen by the view."""
+    def leaf(p, g):
+        t = p.detach().requires_grad_()
+        t.grad = g
+        return t
+    return tree_map(leaf, tree, grads)
 
 
 def to_tensor(a, device) -> torch.Tensor:

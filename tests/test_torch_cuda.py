@@ -1160,3 +1160,112 @@ def test_cuda_lm_parameters_are_held_in_the_compute_dtype(card):
     b, _ = sd.fn(f32, c2, toks, pos)
     assert torch.equal(a, b)
     assert all(torch.equal(cache[n], c2[n]) for n in cache)
+
+
+# --------------------------------------------------------------------------- #
+# Training: the LMs, BERT4Rec and the GAT                                      #
+# --------------------------------------------------------------------------- #
+TRAIN_CELLS = ([(a, "train_4k", 3e-4) for a in (
+    "nemotron-4-15b", "internlm2-20b", "minicpm3-4b", "llama4-scout-17b-a16e",
+    "qwen3-moe-235b-a22b")]
+               + [("bert4rec", "train_batch", 1e-3)]
+               + [("gat-cora", s, 5e-3) for s in ("full_graph_sm",
+                                                  "minibatch_lg",
+                                                  "ogb_products",
+                                                  "molecule")])
+
+
+def _trained_close(got_tree, want_tree, lr: float, steps: int):
+    """The card's parameters against the CPU's after ``steps`` AdamW (or
+    SGD) steps: at least 999 in 1,000 elements within 2^-16 of the leaf's
+    largest magnitude plus 2^-12 of lr a step, every element within 2 lr a
+    step (AdamW's update ``m / (sqrt(v) + eps)`` amplifies the rounding of
+    a gradient whose moments are small; a near-tied MoE router or a ReLU
+    kink takes the other branch)."""
+    far = total = 0
+    for a, b in zip(tree_leaves(want_tree), tree_leaves(got_tree)):
+        err = (a.float() - b.cpu().float()).abs()
+        assert float(err.max()) <= 2 * lr * steps
+        tol = 2.0 ** -16 * float(a.abs().max()) + 2.0 ** -12 * lr * steps
+        far += int((err > tol).sum())
+        total += err.numel()
+    assert far * 1000 <= total, (far, total)
+
+
+@pytest.mark.parametrize("arch,shape,lr", TRAIN_CELLS)
+def test_cuda_train_steps_of_lms_bert4rec_and_gat_equal_the_cpu(card, arch,
+                                                               shape, lr):
+    """Three training steps from the same state on the CPU and on the card
+    (TF32 off): each loss within 2^-16, then the parameters."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sd = tsteps.build_step(arch, shape, reduced=True)
+        params, state, batch = sd.init_args()
+        host = tree_map(lambda t: t.cpu().clone(), [params, state, batch])
+        for _ in range(3):
+            got = float(sd.fn(params, state, batch)["loss"])
+            want = float(sd.fn(*host)["loss"])
+            assert abs(got - want) <= 2.0 ** -16 * abs(want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert {t.device.type for t in tree_leaves(params)} == {"cuda"}
+    _trained_close(params, host[0], lr, 3)
+
+
+def test_cuda_in_place_adamw_is_bit_equal_to_the_functional(card,
+                                                            monkeypatch):
+    """On the card too: clip_by_global_norm_ and adamw's update_, large
+    leaves in pieces, against the functional forms, bit for bit."""
+    from repro_torch.optim import optimizers as topt
+
+    monkeypatch.setattr(topt, "PIECE", 4096)
+    gen = torch.Generator(device=card).manual_seed(2)
+    p_fun = {"a": torch.randn((3, 2, 5000), generator=gen, device=card),
+             "b": [torch.randn((7,), generator=gen, device=card)]}
+    p_in = tree_map(torch.clone, p_fun)
+    opt = topt.adamw(lr=3e-4, weight_decay=0.1)
+    s_fun, s_in = opt.init(p_fun), opt.init(p_in)
+    for _ in range(3):
+        g = tree_map(lambda t: 5 * torch.randn(t.shape, generator=gen,
+                                               device=card), p_fun)
+        clipped, gn = topt.clip_by_global_norm(g, 1.0)
+        upd, s_fun = opt.update(clipped, s_fun, p_fun)
+        topt.apply_updates(p_fun, upd)
+        assert torch.equal(topt.clip_by_global_norm_(g, 1.0), gn)
+        opt.update_(g, s_in, p_in)
+    for a, b in zip(tree_leaves((p_fun, s_fun)), tree_leaves((p_in, s_in))):
+        assert torch.equal(a, b)
+
+
+def test_cuda_gat_scatter_sum_and_tied_max_equal_the_cpu(card):
+    """edge_aggregate and segment_max (ties at a segment's max, an empty
+    segment) and their gradients on the card against the CPU: the scatter
+    sums' atomics add in another order (float32 within 2^-20 of the
+    largest magnitude); the tied gradient split exactly."""
+    from repro_torch.models import gnn as tg
+
+    gen = torch.Generator().manual_seed(3)
+    alpha = torch.rand((300, 4), generator=gen)
+    h = torch.randn((40, 4, 8), generator=gen)
+    src = torch.randint(0, 40, (300,), generator=gen)
+    dst = torch.randint(1, 40, (300,), generator=gen)
+    e = torch.randint(0, 3, (300, 4), generator=gen).float()  # many ties
+    g = torch.randn((40, 4, 8), generator=gen)
+    out = []
+    for dev in ("cpu", card):
+        a = alpha.to(dev, copy=True).requires_grad_()
+        hh = h.to(dev, copy=True).requires_grad_()
+        ee = e.to(dev, copy=True).requires_grad_()
+        y = tg.edge_aggregate(a, hh, src.to(dev), dst.to(dev), 40)
+        m = tg.segment_max(ee, dst.to(dev), 40)
+        assert bool(torch.isinf(m[0]).all())
+        (torch.sum(y * g.to(dev)) + torch.where(torch.isfinite(m), m, 0.0)
+         .sum()).backward()
+        out.append([t.detach().cpu() for t in (y, a.grad, hh.grad, m,
+                                                ee.grad)])
+    for got, want in zip(out[1][:3], out[0][:3]):
+        assert float((got - want).abs().max()) <= 2.0 ** -20 * max(
+            1.0, float(want.abs().max()))
+    assert torch.equal(out[1][3], out[0][3])          # a max is exact
+    assert torch.equal(out[1][4], out[0][4])

@@ -48,19 +48,16 @@ def _cache_close(got: dict, want: dict):
 
 def test_the_cells_are_the_references():
     assert len(CELLS) == 14
-    jcells = [c for c in jreg.all_cells(include_skipped=True)
-              if c[0] != "gat-cora"]
-    assert list(treg.all_cells(include_skipped=True)) == jcells
-    assert list(treg.all_cells()) == [c for c in jreg.all_cells()
-                                      if c[0] != "gat-cora"]
+    assert list(treg.all_cells(include_skipped=True)) == list(
+        jreg.all_cells(include_skipped=True))
+    assert list(treg.all_cells()) == list(jreg.all_cells())
     for arch in treg.list_archs():
         spec, jspec = treg.get_arch(arch), jreg.get_arch(arch)
         assert (spec.family, spec.source, spec.skip_shapes) == \
             (jspec.family, jspec.source, jspec.skip_shapes)
         assert spec.shapes == jspec.shapes
         assert spec.runnable_shapes() == jspec.runnable_shapes()
-    assert treg.list_archs() == [a for a in jreg.list_archs()
-                                 if a != "gat-cora"]
+    assert treg.list_archs() == jreg.list_archs()
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
@@ -183,13 +180,17 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_kinds_raise():
-    for arch in LM_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tsteps.build_step(arch, "train_4k", reduced=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsteps.build_step("bert4rec", "train_batch", reduced=True)
+    """Every kind of every arch is ported: each runnable cell builds its
+    step (training, serving or retrieval, as the reference names it); a
+    skipped cell raises with the reference's reason and an unknown arch
+    with the registry's list."""
+    for arch, shape, _ in treg.all_cells():
+        jname = jsteps.build_step(arch, shape, reduced=True).name
+        assert tsteps.build_step(arch, shape, reduced=True).name == jname
     with pytest.raises(ValueError, match="skipped: pure full-attention"):
         tsteps.build_step("nemotron-4-15b", "long_500k", reduced=True)
+    with pytest.raises(KeyError, match="unknown arch"):
+        tsteps.build_step("gpt-2", "train_4k", reduced=True)
 
 
 def test_overrides_reach_the_step():

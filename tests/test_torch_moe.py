@@ -34,6 +34,8 @@ CASES = {
     "32 groups, drops": (128, dict(top_k=1, capacity_factor=0.25)),
     "shared expert, top-1": (12, dict(top_k=1, n_shared_experts=1,
                                       renorm_topk=False)),
+    # T = 128: 32 groups of 4 tokens, top-2 renormalized, capacity 1
+    "32 groups, top-2, drops": (128, dict(capacity_factor=0.25)),
 }
 
 
@@ -124,3 +126,45 @@ def test_moe_transformer_matches_reference():
     bfloat16 arithmetic is `test_moe_apply_matches_reference`'s, and JAX
     op by op over the four layers takes half a minute of compiling."""
     check_against_reference("moe", "f32")
+
+
+@pytest.mark.parametrize("case,router", [
+    ("one group, drops", "random"), ("32 groups, top-2, drops", "random"),
+    ("two groups", "zero"), ("shared expert, top-1", "random")])
+def test_moe_gradients_match_reference(case, router):
+    """The gradient of a projection of the output plus the weighted aux
+    losses (as the transformer adds them) with respect to the parameters
+    and the input, against ``jax.value_and_grad``: the router's gradient
+    flows through the top-k's gathered probabilities and their
+    renormalization, a dropped assignment passes none.  Float32, within
+    2^-16 of each leaf's largest magnitude.  (Top-1 renormalized is left
+    out: the renormalization's gradient is 0 up to its rounding, which
+    the two packages round in another order, and the router's gradient is
+    then the aux losses' alone, 1,000 times smaller.)"""
+    (jcfg, jp, jx), (tcfg, tp, tx) = _moe(case, router, "f32")
+    proj = np.random.default_rng(9).normal(size=tx.shape).astype(np.float32)
+
+    def jloss(p, x):
+        y, aux = jm.moe_apply(p, x, jcfg)
+        return (jnp.sum(y * proj) + 0.01 * aux["load_balance"]
+                + 1e-3 * aux["z_loss"])
+
+    want, (wp, wx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
+        jp, jx)
+    leaves = utils.tree_map(lambda t: t.clone().requires_grad_(), tp)
+    x = tx.clone().requires_grad_()
+    y, aux = tm.moe_apply(leaves, x, tcfg)
+    got = (torch.sum(y * torch.from_numpy(proj))
+           + 0.01 * aux["load_balance"] + 1e-3 * aux["z_loss"])
+    got.backward()
+    assert abs(float(got) - float(want)) <= 2.0 ** -20 * abs(float(want))
+    for name, w in list(wp.items()) + [("x", wx)]:
+        if isinstance(w, dict):                # the shared expert
+            for k in w:
+                match(leaves[name][k].grad, w[k])
+        else:
+            match(x.grad if name == "x" else leaves[name].grad, w)
+    if "drops" in case:
+        # a token whose every assignment was dropped gets its gradient from
+        # the router alone (and the shared expert, none here)
+        assert float(aux["dropped_frac"]) > 0

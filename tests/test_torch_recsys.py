@@ -216,8 +216,15 @@ def test_params_from_jax_moves_bfloat16_bits():
 
 @pytest.mark.parametrize("arch,shape", [("bert4rec", "train_batch")])
 def test_unported_steps_raise(arch, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsteps.build_step(arch, shape, reduced=True)
+    """BERT4Rec's training, the last recsys step to be ported, builds its
+    step now; an arch the registry does not know raises."""
+    sd = tsteps.build_step(arch, shape, reduced=True)
+    assert sd.name == f"{arch}:{shape}:train"
+    params, state, batch = sd.init_args(device="cpu")
+    assert set(state) == {"rows", "dense"} and set(batch) == {
+        "seq", "labels", "negatives"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        tsteps.build_step("bert5rec", shape, reduced=True)
 
 
 @pytest.mark.parametrize("arch,shape", [
