@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs eleven phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs twelve phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -150,7 +150,21 @@ or note, and each phase's time:
    losses), a profiled step and qwen3's dropped share; BERT4Rec's
    ``train_batch`` (65,536 sequences) and the four ``gat-cora`` shapes at
    full size (ogb_products: 2,449,029 nodes, 64,308,169 edges), 3 timed
-   steps each after one untimed.
+   steps each after one untimed;
+7. the distributed layer (``repro_torch.distributed``) under one NCCL
+   group at world size 1 (a file store in a temporary directory, as 2d),
+   ``make_host_mesh()`` on the card, with PyTorch's deterministic
+   algorithms on (the MoE's scatter-adds otherwise differ run to run):
+   (a) ``ring_allgather_matmul`` against a float64 product and
+   ``compressed_psum`` in "none" and "int8" mode against the exact sum and
+   the quantization done by hand; (b) the five reduced LMs' ``train_4k``
+   on a (1, 1) mesh (ZeRO-3 and tensor parallelism, every collective a
+   copy), its ``init_args`` shards gathering to the unsharded init, and 3
+   steps bit-equal to the unsharded step (losses, norms, parameters,
+   moments); (c) internlm2-20b at 4 of 48 layers and minicpm3-4b at 8 of
+   62 at full width, the unsharded step then the sharded one (3 timed
+   steps after an untimed one, 2 sequences of 4,096 tokens, peak memory),
+   the sharded state bit-equal to the unsharded one.
 
 Before phase 1 it prints each kernel's registers, static shared memory
 and spills from the build.  Exits non-zero on any failed check, and
@@ -4809,6 +4823,8 @@ def lm_train(torch, chk: Checks, steps, train, tf, arch: str, layers,
     from repro_torch.configs.registry import get_arch
     from repro_torch.utils import tree_leaves
 
+    from repro_torch.utils import tree_leaves, tree_map
+
     cfg = lm_config(steps, arch, "train_4k", layers)
     accum = steps.lm_accum(cfg, False)
     cut = {"n_layers": layers} if layers else None
@@ -4984,6 +5000,207 @@ def phase_training(torch, chk: Checks, card: str) -> dict:
     recs["bert4rec"] = bert4rec_train(torch, chk, train, card)
     recs["gat-cora"] = gnn_train(torch, chk, train, card)
     return recs
+
+
+# phase 7: the distributed layer at world size 1 (NCCL)
+P7_STEPS = 3
+P7_RING = (4096, 2048, 2048)    # M, K, N of the ring matmul
+P7_PSUM = 1 << 24               # elements of the compressed all-reduce
+P7_REDUCED = ("nemotron-4-15b", "internlm2-20b", "minicpm3-4b",
+              "llama4-scout-17b-a16e", "qwen3-moe-235b-a22b")
+# (c): full width at a cut depth (internlm2's 2.7B parameters are 43.5 GB
+# of training state, minicpm3's 0.88B 14 GB)
+P7_FULL = {"internlm2-20b": 4, "minicpm3-4b": 8}
+
+
+def p7_collectives(torch, chk: Checks, mesh, card: str) -> dict:
+    """(a) the ring matmul and the compressed all-reduce on the card."""
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.collective_matmul import (
+        ring_allgather_matmul)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    m, k, n = P7_RING
+    x = torch.randn(m, k, generator=gen, device=DEVICE)
+    w = torch.randn(k, n, generator=gen, device=DEVICE)
+    got = ring_allgather_matmul(x, w, mesh, "model")
+    exact = x.double() @ w.double()
+    # float32 products of K terms: within K * 2^-24 of |x| @ |w|
+    bound = k * 2.0 ** -24 * (x.double().abs() @ w.double().abs())
+    err = (got.double() - exact).abs()
+    ring_ms = timed(torch, lambda: ring_allgather_matmul(x, w, mesh,
+                                                         "model"), 5)
+    mm_ms = timed(torch, lambda: x @ w, 5)
+    chk.ok(got.shape == (m, n) and bool((err <= bound).all()),
+           f"ring_allgather_matmul ({m} x {k}) @ ({k} x {n}) over a 'model' "
+           f"ring of 1: max error {float(err.max()):.3e} against the float64 "
+           f"product (bound K 2^-24 |x||w|), bit-equal to x @ w: "
+           f"{bool(torch.equal(got, x @ w))}; {ring_ms:.3f} ms beside x @ w "
+           f"{mm_ms:.3f} ms (CUDA events) [{card}]")
+    del x, w, got, exact, bound, err
+    g = torch.randn(P7_PSUM, generator=gen, device=DEVICE)
+    none = compression.compressed_psum({"g": g}, None, "none")["g"]
+    q = compression.compressed_psum({"g": g}, None, "int8")["g"]
+    scale = compression._scale(g)
+    by_hand = compression._quantize(g, scale, torch.int32).float() * scale
+    chk.ok(torch.equal(none, g) and torch.equal(q, by_hand)
+           and float((q - g).abs().max()) <= 0.5 * float(scale) * 1.001,
+           f"compressed_psum over a group of 1 ({P7_PSUM:,} elements): "
+           f"'none' the exact sum bit for bit, 'int8' the quantization by "
+           f"hand bit for bit and within half its scale "
+           f"({float(scale):.4e}) of the sum")
+    return {"ring_ms": ring_ms, "matmul_ms": mm_ms}
+
+
+def p7_same(torch, a_tree, b_tree) -> bool:
+    from repro_torch.utils import tree_leaves
+
+    a, b = tree_leaves(a_tree), tree_leaves(b_tree)
+    return len(a) == len(b) and all(torch.equal(x.cpu() if x.device !=
+                                                y.device else x, y)
+                                    for x, y in zip(a, b))
+
+
+def p7_reduced(torch, chk: Checks, steps, parallel, mesh) -> None:
+    """(b) each reduced LM's sharded step on the (1, 1) mesh against the
+    unsharded step on the card, bit for bit."""
+    for arch in P7_REDUCED:
+        sd = steps.build_step(arch, "train_4k", reduced=True, mesh=mesh)
+        plain = steps.build_step(arch, "train_4k", reduced=True)
+        params, state, batch = sd.init_args()
+        p0, s0, b0 = plain.init_args()
+        pspec, ospec = sd.in_shardings[0], sd.in_shardings[1]
+        same_init = p7_same(torch, parallel.gather_tree(params, pspec, mesh),
+                            p0) and p7_same(torch, batch, b0)
+        got, want = [], []
+        for _ in range(P7_STEPS):
+            m = sd.fn(params, state, batch)
+            m0 = plain.fn(p0, s0, b0)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+            want.append((float(m0["loss"]), float(m0["grad_norm"])))
+        same = got == want and p7_same(
+            torch, parallel.gather_tree(params, pspec, mesh), p0)
+        for key in ("mu", "nu"):
+            same &= p7_same(torch, parallel.gather_tree(
+                state[key], ospec[key], mesh), s0[key])
+        chk.ok(same_init and same,
+               f"{sd.name} (reduced) on a (1, 1) mesh: init_args gathered "
+               f"== the unsharded init {same_init}; {P7_STEPS} steps "
+               f"(losses {[round(l, 5) for l, _ in got]}) bit-equal to the "
+               f"unsharded step in losses, norms, parameters and moments: "
+               f"{same}")
+        del params, state, batch, p0, s0, b0
+    torch.cuda.empty_cache()
+
+
+def p7_run(torch, sd):
+    """``sd``'s init and one untimed step, then `P7_STEPS` timed ones: (the
+    state, the losses and norms, the step times, the peak memory)."""
+    torch.cuda.reset_peak_memory_stats()
+    params, state, batch = sd.init_args()
+    metrics, times = [], []
+    for i in range(P7_STEPS + 1):
+        m, ms = sync_ms(torch, lambda: sd.fn(params, state, batch))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if i:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return params, state, metrics, times, peak
+
+
+def p7_full(torch, chk: Checks, steps, parallel, mesh, arch: str,
+            layers: int, card: str) -> dict:
+    """(c) ``arch`` at full width and ``layers`` layers: the unsharded
+    step, its state copied to the host, then the sharded one on the (1, 1)
+    mesh, gathered leaf by leaf against the copy."""
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = lm_config(steps, arch, "train_4k", layers)
+    accum = steps.lm_accum(cfg, False)
+    seq = steps.get_arch(arch).shapes["train_4k"]["seq_len"]
+    kw = dict(cfg_override={"n_layers": layers},
+              shape_override={"global_batch": accum})
+    plain = steps.build_step(arch, "train_4k", **kw)
+    params, state, m0, t0, peak0 = p7_run(torch, plain)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    host = {k: tree_map(lambda t: t.cpu(), v) for k, v in
+            (("params", params), ("mu", state["mu"]), ("nu", state["nu"]))}
+    del params, state
+    torch.cuda.empty_cache()
+    sd = steps.build_step(arch, "train_4k", mesh=mesh, **kw)
+    params, state, m1, t1, peak1 = p7_run(torch, sd)
+    pspec, ospec = sd.in_shardings[0], sd.in_shardings[1]
+    same = m0 == m1
+    for key, tree, spec in (("params", params, pspec),
+                            ("mu", state["mu"], ospec["mu"]),
+                            ("nu", state["nu"], ospec["nu"])):
+        same &= p7_same(torch, parallel.gather_tree(tree, spec, mesh),
+                        host[key])
+    del params, state, host
+    torch.cuda.empty_cache()
+    full = lm_config(steps, arch, "train_4k", None).n_layers
+    ms0, ms1 = float(np.mean(t0)), float(np.mean(t1))
+    rec = {"layers": layers, "params_b": n_params / 1e9, "accum": accum,
+           "plain_step_ms": t0, "sharded_step_ms": t1,
+           "overhead": ms1 / ms0, "plain_peak_gb": peak0,
+           "sharded_peak_gb": peak1, "losses": [l for l, _ in m1],
+           "bit_equal": bool(same)}
+    chk.ok(same and all(np.isfinite([l for l, _ in m1])),
+           f"{sd.name} at {layers} of {full} layers ({n_params / 1e9:.3f}B "
+           f"float32 parameters, {accum} x {seq:,} tokens a step) on a (1, 1) "
+           f"mesh: steps {[round(t, 1) for t in t1]} ms beside the "
+           f"unsharded {[round(t, 1) for t in t0]} ms (x{ms1 / ms0:.3f}, "
+           f"host clock, synchronized), peak {peak1:.2f} GB beside "
+           f"{peak0:.2f} GB, losses {[round(l, 4) for l, _ in m1]}, "
+           f"{P7_STEPS + 1} steps bit-equal to the unsharded ones (losses, "
+           f"norms, parameters, moments): {same} [{card}]")
+    return rec
+
+
+def phase_distributed(torch, chk: Checks, card: str) -> dict:
+    """Phase 7: the distributed layer and the sharded LM training step on
+    one card, under NCCL at world size 1."""
+    import os
+    import tempfile
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+
+    print("phase 7: the distributed layer and the sharded train_4k step, "
+          "NCCL at world size 1, deterministic algorithms")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mesh = mesh_mod.make_host_mesh()
+            chk.ok(dist.get_backend() == "nccl"
+                   and tuple(mesh.shape) == (1, 1)
+                   and mesh.device_type == "cuda",
+                   f"NCCL process group, make_host_mesh {tuple(mesh.shape)} "
+                   f"{mesh.mesh_dim_names} on {mesh.device_type}")
+            rec["collectives"] = p7_collectives(torch, chk, mesh, card)
+            p7_reduced(torch, chk, steps, parallel, mesh)
+            for arch, layers in P7_FULL.items():
+                rec[arch] = p7_full(torch, chk, steps, parallel, mesh,
+                                    arch, layers, card)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+    kinds = sorted({str(w.message).split(".")[0][:120] for w in caught
+                    if "determinis" in str(w.message)})
+    chk.note(f"operations without a deterministic implementation: {kinds}")
+    return rec
 
 
 def ptxas_table(log: str, nvcc: str) -> dict:
@@ -5186,6 +5403,13 @@ def main() -> int:
     training = phase_training(torch, chk, card)
     print("phase 6 record: " + json.dumps(training))
     if not phase_done("phase 6", t):
+        return 1
+    t = time.perf_counter()
+    Checks.note(f"device memory held before phase 7: "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    distributed = phase_distributed(torch, chk, card)
+    print("phase 7 record: " + json.dumps(distributed))
+    if not phase_done("phase 7", t):
         return 1
     for rec in kernels:
         base = {"snn_count": "snn_count_stacked",

@@ -1,0 +1,160 @@
+"""The sharded ``train_4k`` step across the cards of one host.
+
+    torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
+        [--arch llama4-scout-17b-a16e] [--layers 4] [--meshes 2x2 1x4 4x1] \
+        [--batch N] [--steps 3] [--out sharded_lm.json]
+
+    torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
+        --device cpu --reduced          # a rehearsal: gloo, the reduced config
+
+Each rank joins one NCCL group (torchrun's rendezvous on this host) on its
+own card and, for each ``--meshes`` entry (data x model), builds
+``launch.steps.build_step(arch, "train_4k", mesh=...)`` at full width and
+``--layers`` layers with a global batch of ``--batch`` sequences of 4,096
+tokens (by default one sequence a data rank in each of the config's
+microbatches: 8 for an MoE model, 2 dense), makes its
+shards with ``init_args`` (one full leaf at a time), runs one untimed step
+and ``--steps`` timed ones (host clock, every card synchronized and the
+ranks at a barrier before each step).  Rank 0 prints one JSON line per
+mesh: the step times, every card's peak memory, the losses and the step-0
+loss beside ln V, the card's name and power limit; ``--out`` also writes
+the lines there.  At one period of llama4-scout (174 GB of training
+state) the (4, 1) mesh fits an 80 GB card only with
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in the environment
+(75.3 GB at its peak).  ``--device cpu`` runs the same over gloo on the CPU
+(with ``--reduced``: the arch's reduced config, 4 sequences of 32 tokens).
+Imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
+             n_steps: int, device: str, reduced: bool) -> dict:
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = init_device_mesh(device, shape, mesh_dim_names=("data", "model"))
+    cfg = steps.get_arch(arch).make_config("train_4k", reduced)
+    if reduced:
+        sd = steps.build_step(arch, "train_4k", mesh=mesh, reduced=True)
+        batch = 4
+    else:
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        batch = batch or steps.lm_accum(cfg, False) * shape[0]
+        sd = steps.build_step(arch, "train_4k", mesh=mesh,
+                              cfg_override={"n_layers": cfg.n_layers},
+                              shape_override={"global_batch": batch})
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params, state, data = sd.init_args(device=device)
+    sync()
+    init_s = time.perf_counter() - t
+    local = sum(p.numel() for p in tree_leaves(params))
+    losses, norms, times = [], [], []
+    for i in range(n_steps + 1):
+        dist.barrier()
+        sync()
+        t = time.perf_counter()
+        m = sd.fn(params, state, data)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i:
+            times.append(ms)
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9
+                         if cuda else 0.0], device=device)
+    peaks = [torch.zeros_like(peak) for _ in range(dist.get_world_size())]
+    dist.all_gather(peaks, peak)
+    slowest = torch.tensor([max(times)], device=device)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    del params, state, data
+    if cuda:
+        torch.cuda.empty_cache()
+    data_tokens = batch * (
+        32 if reduced else steps.get_arch(arch).shapes["train_4k"]["seq_len"])
+    mean_ms = sum(times) / len(times)
+    return {"arch": arch, "layers": cfg.n_layers, "mesh": list(shape),
+            "global_batch": batch, "tokens_a_step": data_tokens,
+            "accum": steps.lm_accum(cfg, reduced),
+            "local_params_b": local / 1e9, "init_s": init_s,
+            "step_ms": times, "tokens_per_s": data_tokens / (mean_ms / 1e3),
+            "model_tflops_per_card": sd.model_flops / (mean_ms / 1e3) / 1e12
+            / dist.get_world_size(),
+            "peak_gb": [float(p) for p in peaks], "losses": losses,
+            "grad_norms": norms, "ln_v": math.log(cfg.vocab),
+            "slowest_rank_step_ms": float(slowest)}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama4-scout-17b-a16e")
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--meshes", nargs="+", default=["2x2", "1x4", "4x1"])
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--reduced", action="store_true")
+    args = ap.parse_args()
+    local_rank = int(os.environ["LOCAL_RANK"])
+    if args.device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(local_rank)
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        dist.init_process_group("nccl", timeout=timedelta(minutes=5),
+                                device_id=torch.device("cuda", local_rank))
+    else:
+        torch.set_num_threads(1)
+        dist.init_process_group("gloo")
+    try:
+        card = (card_line() if dist.get_rank() == 0 and args.device == "cuda"
+                else args.device)
+        lines = []
+        for m in args.meshes:
+            shape = tuple(int(v) for v in m.split("x"))
+            rec = run_mesh(args.arch, args.layers, shape, args.batch,
+                           args.steps, args.device, args.reduced)
+            rec["card"] = card
+            if dist.get_rank() == 0:
+                print(json.dumps(rec), flush=True)
+                lines.append(rec)
+                if args.out:     # after each mesh: a later one may not fit
+                    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                    Path(args.out).write_text("\n".join(
+                        json.dumps(r) for r in lines) + "\n")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

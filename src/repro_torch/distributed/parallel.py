@@ -1,0 +1,462 @@
+"""The sharded training machinery of the port: what GSPMD does for the
+reference's LM step, over ``torch.distributed`` and a `DeviceMesh` with
+axes ("data", "model") or ("pod", "data", "model").
+
+* **Layout.**  Every leaf of the parameter and optimizer trees is held as
+  this rank's shard of the reference's spec (`launch.steps.lm_param_spec`):
+  each dimension named with mesh axes is cut into equal contiguous blocks,
+  several axes on one dimension row-major (the first the slowest), as JAX
+  lays out a ``NamedSharding``.  `shard_tree` cuts a full tree, `gather_tree`
+  (DTensor's ``full_tensor`` over `sharding.to_placements`) rebuilds it, and
+  `init_shards` makes a model's shards from the same seeded generator as
+  its unsharded init, one full leaf at a time.
+* **ZeRO-3 over the data axes.**  `ParallelContext.gather_weight` casts a
+  layer's shard to the compute dtype and all-gathers it over the data axes
+  to its TP-only layout (`sharding.gathered_spec`); the backward
+  reduce-scatters the gradient in float32 into the shard's gradient.
+  Leaves not split over the data axes (the norms, MLA's ``wq_b`` and
+  ``wkv_b``) get a partial gradient on each data rank, summed once after
+  the backward (`ParallelContext.sum_replicated_grads`).
+* **Tensor parallelism over "model"** (Megatron): a column-parallel
+  product's input passes `copy_to_model` (identity; its backward sums the
+  input's gradient over "model"), a row-parallel product's output is
+  partial and is summed over "model" where the model constrains it to
+  ``act_btd`` (`reduce_from_model`; identity backward).  The embedding
+  rows and the head's columns are split over "model" too: a rank looks up
+  the tokens of its vocabulary range (zero elsewhere, summed at
+  ``act_btd``), and the cross-entropy's log-sum-exp and label logit are
+  reduced over "model" (`ParallelContext.xent_chunk`).  The MoE router is
+  gathered whole (the routing is complete before the softmax and top-k on
+  every model rank; its gradient, the same on each, is cut back to the
+  shard); each model rank runs its own experts' capacity slots and the
+  partial outputs are summed at ``act_btd``.
+* **Data parallelism.**  A data rank holds its rows of every microbatch,
+  the loss divides by the microbatch's global label count, and the MoE
+  aux losses are means over the microbatch's global groups, so that the
+  sum over data ranks of the rank losses is the global loss.
+
+Every op runs its collectives on a mesh whose axes have size 1 too (each
+a copy there), except where the arithmetic would change: the
+cross-entropy and the sums over "model" take the plain path when "model"
+has size 1, so a (1, 1) mesh is bit-equal to the unsharded step.
+"""
+from __future__ import annotations
+
+import math
+import weakref
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .sharding import Spec, current_context, gathered_spec, to_placements
+
+# the port gathers these to their vocabulary-parallel layouts
+_VOCAB_GATHERED = {"embed": Spec("model", None), "lm_head": Spec(None, "model")}
+# the router is used whole on every model rank
+_WHOLE = {"router"}
+
+
+def _groups_of(mesh, axes: tuple):
+    """(this rank's group over ``axes`` of ``mesh``, its size, this rank's
+    position in it, row-major over the axes).  A single axis is the mesh's
+    own group; several are one group whose ranks run row-major over them
+    (made once per mesh; every rank makes every group, in one order)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    size, pos = 1, 0
+    for a in axes:
+        n = mesh.size(names.index(a))
+        size, pos = size * n, pos * n + coord[names.index(a)]
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), size, pos
+    cache = _FLAT_GROUPS.setdefault(mesh, {})
+    if axes not in cache:
+        grid = mesh.mesh
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(grid.ndim) if i not in dims]
+        flat = grid.permute(rest + dims).reshape(-1, size)
+        cache[axes] = dist.new_subgroups_by_enumeration(
+            [row.tolist() for row in flat])[0]
+    return cache[axes], size, pos
+
+
+# a mesh's groups over several axes, made once (as the mesh lives)
+_FLAT_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _block(n: int, parts: int, name: str) -> int:
+    if n % parts:
+        raise ValueError(f"{name}: {n} does not split into {parts} shards")
+    return n // parts
+
+
+def local_slices(spec: Spec, shape, mesh, name: str = "leaf") -> tuple:
+    """This rank's block of a ``shape`` leaf laid out by ``spec``."""
+    out = []
+    for dim, n in enumerate(shape):
+        axes = spec.axes(dim)
+        if not axes:
+            out.append(slice(None))
+            continue
+        _, size, pos = _groups_of(mesh, axes)
+        b = _block(n, size, name)
+        out.append(slice(pos * b, (pos + 1) * b))
+    return tuple(out)
+
+
+def _spec_at(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def shard_tree(full, specs, mesh):
+    """This rank's shards (contiguous copies) of the tensors of ``full``,
+    laid out by the matching `Spec`s of ``specs``."""
+    def one(path, t):
+        spec = _spec_at(specs, path)
+        return t[local_slices(spec, t.shape, mesh, ".".join(map(str, path)))
+                 ].contiguous()
+    return _map_path(one, full)
+
+
+def gather_tree(local, specs, mesh):
+    """The full tensors of a tree of shards (`shard_tree`'s inverse), on
+    every rank: each a DTensor of its spec's placements, ``full_tensor``."""
+    from torch.distributed.tensor import DTensor
+
+    def one(path, t):
+        spec = _spec_at(specs, path)
+        if not any(spec.axes(d) for d in range(t.ndim)):
+            return t.clone()
+        shape = [n * _groups_of(mesh, spec.axes(d))[1] if spec.axes(d) else n
+                 for d, n in enumerate(t.shape)]
+        dt = DTensor.from_local(t.contiguous(), mesh,
+                                to_placements(spec, mesh),
+                                shape=torch.Size(shape),
+                                stride=torch.empty(shape,
+                                                   device="meta").stride())
+        return dt.full_tensor()
+    return _map_path(one, local)
+
+
+def init_shards(make_full, make_meta, spec_fn, mesh):
+    """This rank's shards of the tree ``make_full()`` builds, bit-equal to
+    cutting that tree, holding one full leaf at a time: ``make_meta()``
+    builds the same tree on the ``meta`` device, which gives the order in
+    which `layers.uniform_init` makes the leaves; ``make_full`` then runs
+    with each new leaf cut to its shard (`layers.LEAF_HOOK`) as soon as it
+    is made.  Leaves made otherwise (the norms' ones) are cut afterwards.
+    ``spec_fn(path, leaf)`` is a leaf's spec."""
+    from ..models.layers import LEAF_HOOK
+
+    made: list = []
+    tok = LEAF_HOOK.set(lambda t: made.append(t) or t)
+    try:
+        meta = make_meta()
+    finally:
+        LEAF_HOOK.reset(tok)
+    where = {}
+    _map_path(lambda path, t: where.setdefault(id(t), path), meta)
+    order = [where[id(t)] for t in made]
+    cuts: list = []
+
+    def cut(t):
+        path = order[len(cuts)]
+        spec = spec_fn(path, t)
+        piece = t[local_slices(spec, t.shape, mesh,
+                               ".".join(map(str, path)))].clone()
+        cuts.append(piece)
+        return piece
+
+    tok = LEAF_HOOK.set(cut)
+    try:
+        tree = make_full()
+    finally:
+        LEAF_HOOK.reset(tok)
+    done = {id(t) for t in cuts}
+    return _map_path(
+        lambda path, t: t if id(t) in done else t[local_slices(
+            spec_fn(path, t), t.shape, mesh)].clone(), tree)
+
+
+# --------------------------------------------------------------------------- #
+# Collectives along a tensor dimension                                        #
+# --------------------------------------------------------------------------- #
+def _collective(name: str, old: str):
+    """``torch.distributed``'s ``name`` (torch 2.13 deprecates the ``old``
+    spelling, which earlier versions alone have)."""
+    return getattr(dist, name, None) or getattr(dist, old)
+
+
+def _all_gather(x, dim: int, group, n: int):
+    """``x`` gathered along ``dim`` over ``group``, contiguous (the layout
+    of the unsharded weight, so that a product takes the same GEMM)."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _collective("all_gather_single", "all_gather_into_tensor")(
+        out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(g, dim: int, group, n: int):
+    g = g.movedim(dim, 0).contiguous()
+    out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
+    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, g, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
+    """A shard cast to ``dtype`` and gathered along ``plan``'s dimensions:
+    (dim, group, size, position, kind) in order.  Backward, in the shard's
+    dtype: a ``"sum"`` step reduce-scatters (the data ranks' partial
+    gradients), a ``"same"`` step takes this rank's block (a gradient the
+    same on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, local, dtype, plan):
+        ctx.plan, ctx.dtype = plan, local.dtype
+        x = local if dtype is None else local.to(dtype)
+        for dim, group, n, _, _ in plan:
+            x = _all_gather(x, dim, group, n)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(ctx.dtype)
+        for dim, group, n, pos, kind in reversed(ctx.plan):
+            if kind == "sum":
+                g = _reduce_scatter(g, dim, group, n)
+            else:
+                b = g.shape[dim] // n
+                g = g.narrow(dim, pos * b, b)
+        return g, None, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the gradient over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over "model"; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x):
+    """The input of a column-parallel product (Megatron's f): identity;
+    under a context with "model" larger than 1 its backward sums the
+    gradient over "model"."""
+    ctx = current_context()
+    if ctx is None or ctx.tp_size == 1:
+        return x
+    return _CopyToModel.apply(x, ctx.tp_group)
+
+
+def reduce_from_model(x):
+    """A row-parallel product's partial output summed over "model"
+    (Megatron's g); identity without a context or at "model" size 1."""
+    ctx = current_context()
+    if ctx is None or ctx.tp_size == 1:
+        return x
+    return _ReduceFromModel.apply(x, ctx.tp_group)
+
+
+# --------------------------------------------------------------------------- #
+# The context                                                                  #
+# --------------------------------------------------------------------------- #
+class ParallelContext:
+    """A mesh's groups and this rank's place in them, and what the model's
+    hooks (`sharding.constrain`, `sharding.gather_layer_params`,
+    `copy_to_model`, ...) do under the step's rules.  ``spec_of(name,
+    ndim)`` is the storage spec of a layer leaf named ``name`` (the layer
+    stacks' leading axes dropped)."""
+
+    def __init__(self, mesh, *, multi_pod: bool = False, spec_of=None):
+        want = ("pod", "data", "model") if multi_pod else ("data", "model")
+        if tuple(mesh.mesh_dim_names) != want:
+            raise ValueError(f"the mesh's axes are {mesh.mesh_dim_names}, "
+                             f"the step wants {want}")
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError("the mesh must hold every rank of the group")
+        self.mesh = mesh
+        self.dp_axes = want[:-1]
+        self.dp_group, self.dp_size, self.dp_rank = _groups_of(
+            mesh, self.dp_axes)
+        self.tp_group, self.tp_size, self.tp_rank = _groups_of(
+            mesh, ("model",))
+        self.spec_of = spec_of
+        self.moe_global_groups = None    # set by the step a microbatch
+
+    # ---- the MoE's split (the step checked the divisions) ----
+    def local_experts(self, n_experts: int) -> tuple:
+        el = n_experts // self.tp_size
+        return self.tp_rank * el, el
+
+    def moe_groups(self, t_local: int, dispatch_groups: int) -> tuple:
+        """(this rank's groups, its share of the global mean): the
+        reference's ``gcd(T, dispatch_groups)`` groups over the
+        microbatch's global tokens, split over the data ranks."""
+        g = math.gcd(t_local * self.dp_size, max(dispatch_groups, 1))
+        return g // self.dp_size, 1.0 / self.dp_size
+
+    # ---- the model's hooks ----
+    def constrain(self, x, name, spec):
+        if name == "act_btd":
+            return reduce_from_model(x)
+        return x
+
+    def _plan(self, storage: Spec, gathered: Spec, ndim: int) -> tuple:
+        plan = []
+        for dim in range(ndim):
+            keep = set(gathered.axes(dim))
+            for kind, axes in (("sum", self.dp_axes), ("same", ("model",))):
+                have = tuple(a for a in storage.axes(dim) if a in axes)
+                if have and not keep & set(have):
+                    group, n, pos = _groups_of(self.mesh, have)
+                    plan.append((dim, group, n, pos, kind))
+        return tuple(plan)
+
+    def gather_weight(self, name, local, dtype):
+        """``local`` cast to ``dtype`` and gathered to its compute layout
+        (`sharding.gathered_spec`; the router whole); a leaf without one
+        (a norm) is cast alone."""
+        want = gathered_spec(name, local.ndim)
+        if name in _WHOLE:
+            want = Spec(*(None,) * local.ndim)
+        if want is None:
+            return local if dtype is None else local.to(dtype)
+        plan = self._plan(self.spec_of(name, local.ndim), want, local.ndim)
+        if not plan:
+            return local if dtype is None else local.to(dtype)
+        return _Gather.apply(local, dtype, plan)
+
+    def gather_vocab(self, name, local, dtype=None):
+        """``embed`` or ``lm_head`` gathered over the data axes to its
+        vocabulary-parallel layout."""
+        plan = self._plan(self.spec_of(name, local.ndim),
+                          _VOCAB_GATHERED[name], local.ndim)
+        return _Gather.apply(local, dtype, plan)
+
+    def embed(self, table, tokens):
+        """The rows of this rank's vocabulary range for ``tokens`` (zero for
+        the other tokens; the sum over "model" is the lookup)."""
+        w = self.gather_vocab("embed", table)
+        if self.tp_size == 1:
+            return torch.nn.functional.embedding(tokens, w)
+        v = w.shape[0]
+        ids = tokens - self.tp_rank * v
+        own = (ids >= 0) & (ids < v)
+        rows = torch.nn.functional.embedding(ids.clamp(0, v - 1), w)
+        return torch.where(own[..., None], rows, 0.0)
+
+    def xent_chunk(self, hc, yc, w):
+        """`transformer._xent_chunk` over a head whose columns are this
+        rank's vocabulary range: the log-sum-exp's max and sum and the
+        label's logit reduced over "model"."""
+        logits = (hc @ w).float()
+        v = w.shape[1]
+        m = logits.detach().amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.tp_group)
+        se = reduce_from_model(torch.exp(logits - m[:, None]).sum(dim=-1))
+        lse = torch.log(se) + m
+        ids = yc.clamp_min(0).long() - self.tp_rank * v
+        own = (ids >= 0) & (ids < v)
+        ll = logits.gather(1, ids.clamp(0, v - 1)[:, None])[:, 0]
+        ll = reduce_from_model(torch.where(own, ll, 0.0))
+        valid = yc >= 0
+        return torch.where(valid, lse - ll, 0.0).sum(), valid.sum()
+
+    def data_sum(self, x):
+        """``x`` summed over the data ranks (no gradient)."""
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.dp_group)
+        return x
+
+    # ---- after the backward ----
+    def _replicated_over(self, spec: Spec, ndim: int) -> set:
+        named = {a for d in range(ndim) for a in spec.axes(d)}
+        return {a for a in self.mesh.mesh_dim_names if a not in named}
+
+    @torch.no_grad()
+    def sum_replicated_grads(self, grads, specs):
+        """Sum over the data ranks the gradients of the leaves that are not
+        split over the data axes (each rank holds its tokens' part)."""
+        def one(path, g):
+            spec = _spec_at(specs, path)
+            if set(self.dp_axes) <= self._replicated_over(spec, g.ndim):
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self.dp_group)
+        _map_path(one, grads)
+
+    @torch.no_grad()
+    def global_norm(self, grads, specs) -> torch.Tensor:
+        """The global norm of a tree of gradient shards, each element
+        counted once: a leaf replicated over some axes counts on the ranks
+        at position 0 of them; the squares summed over every rank."""
+        coord = dict(zip(self.mesh.mesh_dim_names,
+                         self.mesh.get_coordinate()))
+        parts = []
+
+        def one(path, g):
+            spec = _spec_at(specs, path)
+            if all(coord[a] == 0
+                   for a in self._replicated_over(spec, g.ndim)):
+                parts.append(torch.sum(torch.square(g.float())))
+        _map_path(one, grads)
+        dev = next(iter(_leaves(grads))).device
+        sq = sum(parts) if parts else torch.zeros((), device=dev)
+        sq = sq.reshape(1).clone()
+        dist.all_reduce(sq, op=dist.ReduceOp.SUM)
+        return torch.sqrt(sq[0])
+
+
+def _leaves(tree):
+    out: list = []
+    _map_path(lambda _, t: out.append(t), tree)
+    return out
+
+
+def data_rows(batch_rows: int, accum: int, dp_size: int, dp_rank: int
+              ) -> np.ndarray:
+    """The global batch rows a data rank holds: its block of each of the
+    ``accum`` microbatches (consecutive rows of the global batch, as the
+    reference reshapes it), microbatch after microbatch."""
+    mb = batch_rows // accum
+    if batch_rows % accum or mb % dp_size:
+        raise ValueError(f"{dp_size} data ranks do not split microbatches "
+                         f"of {mb} sequences ({accum} of a batch of "
+                         f"{batch_rows})")
+    per = mb // dp_size
+    return np.concatenate([np.arange(i * mb + dp_rank * per,
+                                     i * mb + (dp_rank + 1) * per)
+                           for i in range(accum)])

@@ -15,10 +15,17 @@ The counterpart of ``repro.launch.steps`` for its three families:
   capsules and BERT4Rec's user representation against the items; DLRM's
   and Wide & Deep's ranking forward over the candidates).
 
-``StepDef`` keeps the JAX package's ``name``, ``fn``, ``model_flops`` and
-``init_args``; its PartitionSpec, sharding and donation fields have no
-meaning on one card and are left out (a decode step writes its cache in
-place, where the reference donates it).  The batch or the tokens are the
+``StepDef`` has the JAX package's fields: ``arg_specs`` is a tree of
+``ArgSpec(shape, dtype)`` a positional argument (computed on the ``meta``
+device, so a full-width cell allocates nothing), ``in_shardings`` and
+``out_shardings`` trees of `distributed.Spec` (the reference's
+PartitionSpecs leaf for leaf: `lm_param_spec`, `rs_param_spec`, the
+GAT's replicated leaves and each family's batch specs), and
+``donate_argnums`` (a decode step writes its cache in place where the
+reference donates it).  With ``mesh=`` an LM's ``train_4k`` step runs
+sharded (`distributed.parallel`: ZeRO-3 over the data axes, tensor
+parallelism over "model"); every other family and kind on a mesh raises
+`NotImplementedError`.  The batch or the tokens are the
 JAX package's numpy arrays for the same ``default_rng(0)``; the parameters
 are made on the device from a seeded ``torch.Generator``
 (``params_from_jax`` of `models.recsys`, `models.transformer` and
@@ -33,12 +40,14 @@ AdamW runs in place, `optim.adamw`'s ``update_``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import math
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..configs.registry import ArchSpec, get_arch, list_archs  # noqa: F401
+from ..distributed.sharding import Spec
 from ..kernels import registry as _registry
 from ..models import gnn as gnn_mod
 from ..models import recsys as rs
@@ -46,9 +55,16 @@ from ..models import transformer as tf
 from ..models.layers import rope_freqs
 from ..optim import (adamw, apply_updates, clip_by_global_norm_,
                      partition_optimizer, sgd)
-from ..utils import top_k, tree_leaves, tree_map
+from ..optim.optimizers import _clip_scale
+from ..utils import top_k, tree_leaves, tree_map, tree_map_with_path
 
 SEED = 0
+
+
+class ArgSpec(NamedTuple):
+    """A positional argument's leaf: the reference's ShapeDtypeStruct."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass
@@ -57,6 +73,32 @@ class StepDef:
     fn: Callable
     model_flops: float
     init_args: Callable   # (device=None) -> concrete args, on the card by default
+    arg_specs: tuple = ()       # a tree of ArgSpec a positional argument
+    in_shardings: tuple = ()    # the matching trees of Spec
+    out_shardings: Any = None   # or None (no layout asked)
+    donate_argnums: tuple = ()
+
+
+def _path_keys(path) -> list[str]:
+    return [str(k) for k in path]
+
+
+def arg_specs_of(tree):
+    """The `ArgSpec` tree of a tree of tensors (``meta`` ones included)."""
+    return tree_map(lambda t: ArgSpec(tuple(t.shape), t.dtype), tree)
+
+
+def tree_specs(tree, spec_fn):
+    """``spec_fn(path, leaf)`` over a tree of (meta) tensors."""
+    return tree_map_with_path(spec_fn, tree)
+
+
+def _replicated(path, leaf) -> Spec:
+    return Spec(*(None,) * len(leaf.shape))
+
+
+def _dp(multi_pod: bool):
+    return ("pod", "data") if multi_pod else "data"
 
 
 # --------------------------------------------------------------------------- #
@@ -102,6 +144,40 @@ def lm_model_flops(cfg: tf.TransformerConfig, shape: dict) -> float:
     if kind == "train":
         return 6 * n_active * t + 3 * att_fwd
     return 2 * n_active * t + att_fwd  # prefill
+
+
+def lm_param_spec(path, leaf, dp) -> Spec:
+    """The reference's layout of an LM leaf: Megatron TP over "model" and
+    ZeRO-3 over the data axes ``dp`` for the 2D+ matmul weights (the layer
+    stacks' two leading axes replicated)."""
+    keys = _path_keys(path)
+    name = keys[-1]
+    ndim = len(leaf.shape)
+    if name == "step" or ndim == 0:
+        return Spec()
+    prefix = (None, None) if "layers" in keys else ()
+    core = ndim - len(prefix)
+    if name == "embed":
+        return Spec("model", dp)
+    if name == "lm_head":
+        return Spec(dp, "model")
+    if core == 1:   # norms, biases
+        return Spec(*(prefix + (None,)))
+    if name in ("wq", "wk", "wv", "w1", "w3", "router", "wq_b", "wkv_b"):
+        if name in ("wq_b", "wkv_b"):
+            return Spec(*(prefix + (None, "model")))
+        if core == 3:   # MoE expert stacks (E, d, f)
+            return Spec(*(prefix + ("model", dp, None)))
+        return Spec(*(prefix + (dp, "model")))
+    if name in ("wo", "w2"):
+        if core == 3:   # (E, f, d)
+            return Spec(*(prefix + ("model", None, dp)))
+        return Spec(*(prefix + ("model", dp)))
+    if name in ("wq_a", "wkv_a"):
+        return Spec(*(prefix + (dp, None)))
+    if name == "pos":
+        return Spec(None, None)
+    return Spec(*(prefix + (None,) * core))
 
 
 def _lm_tokens(rng, cfg, shape) -> np.ndarray:
@@ -153,7 +229,70 @@ def adamw_step_(opt, grads, opt_state, params) -> torch.Tensor:
     return gn
 
 
+def _lm_leaf_spec(dp):
+    """``(name, ndim) -> Spec`` of an LM leaf as `ParallelContext` asks for
+    it: ``embed`` and ``lm_head`` as they are, a layer's leaf without the
+    stacks' two leading axes."""
+    def spec_of(name, ndim):
+        if name in ("embed", "lm_head"):
+            return lm_param_spec((name,), torch.empty((1,) * ndim,
+                                                      device="meta"), dp)
+        full = lm_param_spec(("layers", name),
+                             torch.empty((1,) * (ndim + 2), device="meta"), dp)
+        return Spec(*tuple(full)[2:])
+    return spec_of
+
+
+def _local_cfg(cfg: tf.TransformerConfig, tp: int) -> tf.TransformerConfig:
+    """``cfg`` with one of ``tp`` model ranks' heads (the MoE keeps its
+    global expert count: every rank routes over all of them)."""
+    over = {"n_heads": cfg.n_heads // tp, "n_kv_heads": cfg.n_kv_heads // tp}
+    if cfg.mla is not None:
+        over["mla"] = dataclasses.replace(cfg.mla,
+                                          n_heads=cfg.mla.n_heads // tp)
+    return dataclasses.replace(cfg, **over)
+
+
+def _check_mesh(mesh, multi_pod: bool):
+    """The mesh's axes; a mesh-like object (``mesh_dim_names`` and
+    ``size(i)``) is enough, so that the checks need no process group."""
+    want = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if tuple(mesh.mesh_dim_names) != want:
+        raise ValueError(f"the mesh's axes are {tuple(mesh.mesh_dim_names)}"
+                         f", the step wants {want}")
+    sizes = dict(zip(want, (mesh.size(i) for i in range(len(want)))))
+    dp = int(np.prod([sizes[a] for a in want[:-1]]))
+    return dp, sizes["model"]
+
+
+def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
+                      dp: int, tp: int) -> None:
+    """What the sharded ``train_4k`` step needs of the mesh (``dp`` data
+    ranks, ``tp`` model ranks): ValueError where it does not hold."""
+    mb = b // accum
+    if b % accum or mb % dp:
+        raise ValueError(f"{dp} data ranks do not divide microbatches of "
+                         f"{mb} sequences")
+    heads = [("heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads),
+             ("vocab", cfg.vocab)]
+    if cfg.mla is not None:
+        heads.append(("MLA heads", cfg.mla.n_heads))
+    for what, n in heads:
+        if n % tp:
+            raise ValueError(f"{what} ({n}) must be divisible by the "
+                             f"'model' axis size {tp}")
+    if cfg.moe is not None:
+        if cfg.moe.n_experts % tp:
+            raise ValueError(f"experts ({cfg.moe.n_experts}) must be "
+                             f"divisible by the 'model' axis size {tp}")
+        g = math.gcd(mb * s, max(cfg.moe.dispatch_groups, 1))
+        if g % dp:
+            raise ValueError(f"{g} MoE groups do not split over {dp} data "
+                             "ranks")
+
+
 def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                  multi_pod: bool = False, mesh=None,
                   shape_override: dict | None = None,
                   cfg_override: dict | None = None) -> StepDef:
     cfg = spec.make_config(shape_name, reduced)
@@ -168,7 +307,17 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
     kind = shape["kind"]
     flops = lm_model_flops(cfg, shape) if not reduced else 0.0
     b, s = shape["global_batch"], shape["seq_len"]
+    dp = _dp(multi_pod)
     tables = {}
+    if mesh is not None and kind != "train":
+        raise NotImplementedError(
+            f"{spec.arch_id}:{shape_name} on a mesh: the port shards the LM "
+            "training step only; the sharded serving steps are queued in "
+            "ROADMAP.md")
+
+    meta = tf.init_params(cfg, device="meta")
+    params_spec = arg_specs_of(meta)
+    pspec = tree_specs(meta, lambda p, l: lm_param_spec(p, l, dp))
 
     def rope(device):
         """The config's RoPE tables on ``device``, made once."""
@@ -186,6 +335,20 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
     if kind == "train":
         opt = make_lm_optimizer()
         accum = lm_accum(cfg, reduced)
+        ospec = tree_specs(opt.init(meta),
+                           lambda p, l: lm_param_spec(p, l, dp))
+        tok = ArgSpec((b, s), torch.int32)
+        shard_kw = dict(arg_specs=(params_spec, arg_specs_of(opt.init(meta)),
+                                   {"tokens": tok, "labels": tok}),
+                        in_shardings=(pspec, ospec,
+                                      {"tokens": Spec(dp, None),
+                                       "labels": Spec(dp, None)}),
+                        out_shardings=(pspec, ospec, None),
+                        donate_argnums=(0, 1))
+        if mesh is not None:
+            return _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt,
+                                     mesh, multi_pod, pspec, flops, rope,
+                                     shard_kw)
 
         def step(params, opt_state, batch):
             loss, grads = lm_grads(params, batch, cfg, accum,
@@ -203,7 +366,7 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return params, opt.init(params), _on(dev, batch)
 
         return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
-                       model_flops=flops, init_args=init_args)
+                       model_flops=flops, init_args=init_args, **shard_kw)
 
     if kind == "prefill":
         @torch.inference_mode()
@@ -217,7 +380,20 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                                                        (b, s))).to(dev)
 
         return StepDef(name=f"{spec.arch_id}:{shape_name}:prefill", fn=step,
-                       model_flops=flops, init_args=init_args)
+                       model_flops=flops, init_args=init_args,
+                       arg_specs=(params_spec, ArgSpec((b, s), torch.int32)),
+                       in_shardings=(pspec, Spec(dp, None)))
+
+    cache = tf.init_cache(cfg, b, s, device="meta")
+    if shape_name == "long_500k":
+        seq = ("pod", "data", "model") if multi_pod else ("data", "model")
+        cspec = {k: Spec(*((None, None, seq) + (None,) * (v.ndim - 3)))
+                 for k, v in cache.items()}
+    else:
+        cspec = {k: Spec(*((None, dp, "model") + (None,) * (v.ndim - 3)))
+                 for k, v in cache.items()}
+    ndp = 32 if multi_pod else 16
+    tok_sharding = Spec(dp) if b % ndp == 0 else Spec(None)
 
     @torch.inference_mode()
     def step(params, cache, tokens, pos):
@@ -231,7 +407,58 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                 torch.from_numpy(_lm_tokens(rng, cfg, (b,))).to(dev), s // 2)
 
     return StepDef(name=f"{spec.arch_id}:{shape_name}:decode", fn=step,
-                   model_flops=flops, init_args=init_args)
+                   model_flops=flops, init_args=init_args,
+                   arg_specs=(params_spec, arg_specs_of(cache),
+                              ArgSpec((b,), torch.int32),
+                              ArgSpec((), torch.int32)),
+                   in_shardings=(pspec, cspec, tok_sharding, Spec()),
+                   out_shardings=(None, cspec), donate_argnums=(1,))
+
+
+def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
+                      multi_pod, pspec, flops, rope, shard_kw) -> StepDef:
+    """``train_4k`` over ``mesh``: the parameters and the AdamW moments as
+    this rank's shards of ``pspec``, the batch as its rows of each
+    microbatch; returns the global loss and gradient norm on every rank."""
+    from ..distributed import parallel
+    from ..distributed.sharding import rules_for_family, sharding_rules
+
+    n_dp, n_tp = _check_mesh(mesh, multi_pod)
+    check_lm_sharding(cfg, b, s, accum, n_dp, n_tp)
+    dp = _dp(multi_pod)
+    ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
+                                   spec_of=_lm_leaf_spec(dp))
+    lcfg = _local_cfg(cfg, n_tp)
+    rules = rules_for_family("lm", multi_pod=multi_pod)
+
+    def step(params, opt_state, batch):
+        with sharding_rules(rules, ctx):
+            loss, grads = lm_grads(params, batch, lcfg, accum,
+                                   rope=rope(batch["tokens"].device))
+        ctx.sum_replicated_grads(grads, pspec)
+        with torch.no_grad():
+            gn = ctx.global_norm(grads, pspec)
+            scale = _clip_scale(gn, 1.0)
+            for g in tree_leaves(grads):
+                g.mul_(scale)
+        opt.update_(grads, opt_state, params)
+        return {"loss": ctx.data_sum(loss), "grad_norm": gn}
+
+    def init_args(device=None):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = parallel.init_shards(
+            lambda: tf.init_params(cfg, generator=gen, device=dev),
+            lambda: tf.init_params(cfg, device="meta"),
+            lambda p, l: lm_param_spec(p, l, dp), mesh)
+        rng = np.random.default_rng(SEED)
+        rows = parallel.data_rows(b, accum, ctx.dp_size, ctx.dp_rank)
+        batch = {"tokens": _lm_tokens(rng, cfg, (b, s))[rows],
+                 "labels": _lm_tokens(rng, cfg, (b, s))[rows]}
+        return params, opt.init(params), _on(dev, batch)
+
+    return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
+                   model_flops=flops, init_args=init_args, **shard_kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -320,7 +547,38 @@ GNN_REGIMES = {"gnn_full": (gnn_mod.loss_full, _gnn_full_batch),
                                _gnn_batched_batch)}
 
 
+def _gnn_batch_specs(shape: dict, dp) -> tuple:
+    """(ArgSpec tree, Spec tree) of a regime's batch: the reference's."""
+    f32, i32 = torch.float32, torch.int32
+    kind, d = shape["kind"], shape["d_feat"]
+    if kind == "gnn_full":
+        n, e = shape["n_nodes"], shape["n_edges"]
+        npad = -(-n // GNN_PAD) * GNN_PAD
+        epad = -(-(e + n) // GNN_PAD) * GNN_PAD
+        return ({"x": ArgSpec((npad, d), f32), "src": ArgSpec((epad,), i32),
+                 "dst": ArgSpec((epad,), i32),
+                 "edge_mask": ArgSpec((epad,), torch.bool),
+                 "labels": ArgSpec((npad,), i32),
+                 "mask": ArgSpec((npad,), torch.bool)},
+                {"x": Spec(None, None), "src": Spec(dp), "dst": Spec(dp),
+                 "edge_mask": Spec(dp), "labels": Spec(None),
+                 "mask": Spec(None)})
+    if kind == "gnn_minibatch":
+        b, (f1, f2) = shape["batch_nodes"], shape["fanout"]
+        return ({"x0": ArgSpec((b, d), f32), "x1": ArgSpec((b, f1, d), f32),
+                 "x2": ArgSpec((b, f1, f2, d), f32),
+                 "labels": ArgSpec((b,), i32)},
+                {"x0": Spec(dp, None), "x1": Spec(dp, None, None),
+                 "x2": Spec(dp, None, None, None), "labels": Spec(dp)})
+    g, n, e = shape["batch"], shape["n_nodes"], shape["n_edges"]
+    return ({"x": ArgSpec((g, n, d), f32), "src": ArgSpec((g, e), i32),
+             "dst": ArgSpec((g, e), i32), "labels": ArgSpec((g,), i32)},
+            {"x": Spec(dp, None, None), "src": Spec(dp, None),
+             "dst": Spec(dp, None), "labels": Spec(dp)})
+
+
 def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                   multi_pod: bool = False,
                    shape_override: dict | None = None) -> StepDef:
     """A GAT training step: the regime's loss and its gradient, the clip at
     a global norm of 1 and AdamW(5e-3), in place.  The batch is drawn from
@@ -351,13 +609,59 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         params = gnn_mod.init_params(cfg, generator=gen, device=dev)
         return params, opt.init(params), _on(dev, make_batch(rng, cfg, shape))
 
+    meta = gnn_mod.init_params(cfg, device="meta")
+    meta_state = opt.init(meta)
+    pspec = tree_specs(meta, _replicated)
+    ospec = tree_specs(meta_state, _replicated)
+    batch_spec, bspec = _gnn_batch_specs(shape, _dp(multi_pod))
     return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
-                   model_flops=flops, init_args=init_args)
+                   model_flops=flops, init_args=init_args,
+                   arg_specs=(arg_specs_of(meta), arg_specs_of(meta_state),
+                              batch_spec),
+                   in_shardings=(pspec, ospec, bspec),
+                   out_shardings=(pspec, ospec, None), donate_argnums=(0, 1))
 
 
 # --------------------------------------------------------------------------- #
 # RecSys family                                                                #
 # --------------------------------------------------------------------------- #
+def rs_param_spec(path, leaf) -> Spec:
+    """The reference's layout of a recsys leaf: the tables' rows over
+    "model", the wide MLP weights column- (or row-) split over "model"."""
+    keys = _path_keys(path)
+    name = keys[-1]
+    if len(leaf.shape) == 0 or name == "step":
+        return Spec()
+    if name in ("table", "items") or (name == "embed"
+                                      and "layers" not in keys):
+        return Spec("model", None)
+    if name == "lm_head":
+        return Spec(None, "model")
+    if name == "w" and len(leaf.shape) == 2 and max(leaf.shape) >= 256:
+        if leaf.shape[1] % 16 == 0 and leaf.shape[1] >= 256:
+            return Spec(None, "model")
+        if leaf.shape[0] % 16 == 0 and leaf.shape[0] >= 256:
+            return Spec("model", None)
+    return Spec(*(None,) * len(leaf.shape))
+
+
+def _rs_batch_sharding(batch: dict, dp) -> dict:
+    out = {}
+    for k, v in batch.items():
+        if k == "negatives":
+            out[k] = Spec(None)
+        elif v.ndim == 1:
+            out[k] = Spec(dp)
+        else:
+            out[k] = Spec(*((dp,) + (None,) * (v.ndim - 1)))
+    return out
+
+
+def _np_arg_specs(batch: dict) -> dict:
+    return {k: ArgSpec(v.shape, getattr(torch, v.dtype.name))
+            for k, v in batch.items()}
+
+
 def _mlp_flops(sizes):
     return sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
@@ -467,6 +771,7 @@ def train_optimizer():
 
 
 def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
+                  multi_pod: bool = False,
                   shape_override: dict | None = None) -> StepDef:
     arch_id = spec.arch_id
     cfg = spec.make_config(shape_name, reduced)
@@ -484,6 +789,11 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         dev = _registry.resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         return dev, _rs_init_model(arch_id, cfg, gen, dev)
+
+    dp = _dp(multi_pod)
+    meta_model = _rs_init_model(arch_id, cfg, None, "meta")
+    meta = meta_model if isinstance(meta_model, dict) else meta_model.tree()
+    pspec = tree_specs(meta, rs_param_spec)
 
     if kind == "rs_train":
         opt = train_optimizer()
@@ -512,8 +822,17 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             params = model if isinstance(model, dict) else model.tree()
             return model, opt.init(params), _on(dev, np_batch)
 
+        meta_state = opt.init(meta)
+        ospec = tree_specs(meta_state, rs_param_spec)
         return StepDef(name=f"{arch_id}:{shape_name}:train", fn=step,
-                       model_flops=flops, init_args=init_args)
+                       model_flops=flops, init_args=init_args,
+                       arg_specs=(arg_specs_of(meta),
+                                  arg_specs_of(meta_state),
+                                  _np_arg_specs(np_batch)),
+                       in_shardings=(pspec, ospec,
+                                     _rs_batch_sharding(np_batch, dp)),
+                       out_shardings=(pspec, ospec, None),
+                       donate_argnums=(0, 1))
 
     if kind == "rs_serve":
         np_batch = _rs_batch(arch_id, cfg, b, rng, kind)
@@ -532,11 +851,25 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return model, _on(dev, np_batch)
 
         return StepDef(name=f"{arch_id}:{shape_name}:serve", fn=step,
-                       model_flops=flops, init_args=init_args)
+                       model_flops=flops, init_args=init_args,
+                       arg_specs=(arg_specs_of(meta), _np_arg_specs(np_batch)),
+                       in_shardings=(pspec, _rs_batch_sharding(np_batch, dp)))
 
     # rs_retrieval: one query scored against n_candidates, top-100 in
     # jax.lax.top_k's order (equal scores by candidate index)
     c = shape["n_candidates"]
+    i32 = torch.int32
+    if arch_id in ("mind", "bert4rec"):
+        qfield = "hist" if arch_id == "mind" else "seq"
+        qlen = cfg.hist_len if arch_id == "mind" else cfg.seq_len
+        q_spec = {qfield: ArgSpec((b, qlen), i32)}
+        qshard = {qfield: Spec(None, None)}
+    else:
+        nf = cfg.n_sparse if arch_id == "dlrm-mlperf" else len(cfg.vocab_sizes)
+        q_spec = {"dense": ArgSpec((1, cfg.n_dense), torch.float32),
+                  "sparse": ArgSpec((1, nf), i32), "cand_ids": ArgSpec((c,), i32)}
+        qshard = {"dense": Spec(None, None), "sparse": Spec(None, None),
+                  "cand_ids": Spec(dp)}
     if arch_id == "bert4rec":
         @torch.inference_mode()
         def step(params, query):
@@ -577,28 +910,40 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return model, _on(dev, q)
 
     return StepDef(name=f"{arch_id}:{shape_name}:retrieval", fn=step,
-                   model_flops=flops, init_args=init_args)
+                   model_flops=flops, init_args=init_args,
+                   arg_specs=(arg_specs_of(meta), q_spec),
+                   in_shardings=(pspec, qshard))
 
 
 # --------------------------------------------------------------------------- #
 # Entry                                                                        #
 # --------------------------------------------------------------------------- #
-def build_step(arch_id: str, shape_name: str, *, reduced: bool = False,
-               shape_override: dict | None = None,
-               cfg_override: dict | None = None) -> StepDef:
+def build_step(arch_id: str, shape_name: str, *, multi_pod: bool = False,
+               reduced: bool = False, shape_override: dict | None = None,
+               cfg_override: dict | None = None, mesh=None) -> StepDef:
     """The step of ``arch_id`` at ``shape_name``: ``reduced`` = the arch's
     small config (LMs: 4 sequences of 32 tokens; the GAT: the reference's
     small graphs; recsys: batch 8 and 128 candidates, as in the JAX
     package); ``shape_override`` replaces entries of the shape,
-    ``cfg_override`` fields of an LM's config."""
+    ``cfg_override`` fields of an LM's config; ``multi_pod`` lays the specs
+    (and a ``mesh``'s data axes) over ("pod", "data").  With a ``mesh``
+    (a `DeviceMesh` over ("data", "model"), or ("pod", "data", "model")
+    with ``multi_pod``) an LM's ``train_4k`` step runs sharded over it;
+    other families and kinds raise `NotImplementedError`."""
     spec = get_arch(arch_id)
     if shape_name in spec.skip_shapes:
         raise ValueError(f"{arch_id}:{shape_name} skipped: "
                          f"{spec.skip_shapes[shape_name]}")
     if spec.family == "lm":
         return build_lm_step(spec, shape_name, reduced=reduced,
+                             multi_pod=multi_pod, mesh=mesh,
                              shape_override=shape_override,
                              cfg_override=cfg_override)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{arch_id}:{shape_name} on a mesh: the port shards the LM "
+            "training step only; the sharded recsys and GAT steps are "
+            "queued in ROADMAP.md")
     builder = {"gnn": build_gnn_step, "recsys": build_rs_step}[spec.family]
-    return builder(spec, shape_name, reduced=reduced,
+    return builder(spec, shape_name, reduced=reduced, multi_pod=multi_pod,
                    shape_override=shape_override)

@@ -24,8 +24,16 @@ the same formula in a piece as in the whole (on the CPU bit for bit; the
 card's GEMM library may order a row's sums by the shapes it is given).
 Under autograd each query chunk and each local window runs under
 ``torch.utils.checkpoint``, as the reference's are ``jax.checkpoint``
-bodies: a backward holds one chunk's scores at a time.  ``constrain``
-(sharding hints) has no meaning on one card and is left out.  Params are plain dicts of tensors, the JAX pytree's layout.
+bodies: a backward holds one chunk's scores at a time.  Params are plain
+dicts of tensors, the JAX pytree's layout.
+
+The sharding hooks sit where the reference's are: ``constrain`` of the
+queries (``act_bthd``) and the scores (``attn_scores``), and, for tensor
+parallelism, `copy_to_model` at the input of each column-parallel product
+(the heads' projections: GQA's input; MLA's normalised latents and the
+shared RoPE key).  Under tensor parallelism the caller passes this rank's
+head counts and its heads' weights, and the output projection's result is
+the rank's partial sum.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.parallel import copy_to_model
+from ..distributed.sharding import constrain, scoped
 from .layers import apply_rope, rms_norm, uniform_init
 
 NEG_INF = -1e30
@@ -92,6 +102,7 @@ def _sdpa(q, k, v, mask, scale):
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
     scores = torch.einsum("bqhd,bshd->bhqs", q, k) * scale
+    scores = constrain(scores, "attn_scores")
     scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshv->bqhv", w, v)
@@ -128,7 +139,7 @@ def _attend_chunk(q, k, v, scale, mask_rows):
     """`_attend` of one query chunk or window: under a checkpoint when a
     backward will follow."""
     if torch.is_grad_enabled():
-        return checkpoint(_attend, q, k, v, scale, mask_rows,
+        return checkpoint(scoped(_attend), q, k, v, scale, mask_rows,
                           use_reentrant=False)
     return _attend(q, k, v, scale, mask_rows)
 
@@ -189,12 +200,14 @@ def gqa_forward(p, x, cos, sin, positions, *, n_heads, n_kv_heads, head_dim,
                 causal=True, chunk_q=None, local_window=None, use_rope=True):
     """x: (B, S, d) -> (out (B, S, d), (k, v) after RoPE)."""
     b, s, _ = x.shape
+    x = copy_to_model(x)
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
     if use_rope:
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
+    q = constrain(q, "act_bthd")
     scale = softmax_scale(head_dim, x.dtype)
     if local_window is not None and local_window < s:
         out = local_chunked_attention(q, k, v, window=local_window,
@@ -256,7 +269,7 @@ class MLADims:
 def _mla_qkv(p, x, cos, sin, positions, md: MLADims):
     b, s, _ = x.shape
     h, dn, dr = md.n_heads, md.qk_nope, md.qk_rope
-    q = rms_norm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = copy_to_model(rms_norm(x @ p["wq_a"], p["q_norm"])) @ p["wq_b"]
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cos, sin)
@@ -273,11 +286,12 @@ def mla_forward(p, x, cos, sin, positions, md: MLADims, *, causal=True,
     b, s, _ = x.shape
     h, dn, dr, dv = md.n_heads, md.qk_nope, md.qk_rope, md.v_head
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cos, sin, positions, md)
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, dn + dv)
+    kv = (copy_to_model(c_kv) @ p["wkv_b"]).reshape(b, s, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     # the shared RoPE part of k broadcast over the heads
-    q = torch.cat([q_nope, q_pe], dim=-1)
-    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    q = constrain(torch.cat([q_nope, q_pe], dim=-1), "act_bthd")
+    k = torch.cat([k_nope, copy_to_model(k_pe)[:, :, None, :].expand(
+        b, s, h, dr)], dim=-1)
     scale = softmax_scale(dn + dr, x.dtype)
     out = full_attention(q, k, v, causal=causal, scale=scale, chunk_q=chunk_q)
     return out.reshape(b, s, h * dv) @ p["wo"], (c_kv, k_pe)

@@ -12,11 +12,19 @@ float32 and rounds once.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import numpy as np
 import torch
 from torch import nn
+
+
+# a function of each new `uniform_init` leaf to what its caller keeps of it
+# (`distributed.parallel.init_shards`: the rank's shard, so that a sharded
+# init holds one full leaf at a time); None keeps the leaf
+LEAF_HOOK: contextvars.ContextVar = contextvars.ContextVar("leaf_hook",
+                                                           default=None)
 
 
 def uniform_init(shape, scale: float | None = None, *, lead: tuple = (),
@@ -30,7 +38,9 @@ def uniform_init(shape, scale: float | None = None, *, lead: tuple = (),
     fan_in = shape[0] if len(shape) > 1 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(tuple(lead) + tuple(shape), dtype=dtype, device=device)
-    return out.uniform_(-s, s, generator=generator)
+    out.uniform_(-s, s, generator=generator)
+    hook = LEAF_HOOK.get()
+    return out if hook is None else hook(out)
 
 
 class MLP(nn.Module):

@@ -14,6 +14,14 @@ order: equal probabilities to the lower expert).
 
 Aux values: the Switch load-balance loss, the router z-loss and the share
 of dropped assignments, each the mean over the groups.
+
+In the sharded step (`distributed.parallel`) the group count is the
+reference's over the microbatch's global tokens, the data ranks each
+holding their share of the groups (an aux value is then the rank's part
+of the global mean), and under tensor parallelism a rank holds the
+experts of its block: it routes every token (the router whole), fills
+and runs its own experts' capacity slots and returns its partial combined
+output, which the caller sums over "model" (``act_btd``).
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ import math
 
 import torch
 
+from ..distributed.parallel import copy_to_model
+from ..distributed.sharding import constrain, current_context
 from ..utils import top_k
 from .layers import ACTIVATIONS, uniform_init
 
@@ -68,16 +78,29 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
 def moe_apply(p, x, cfg: MoEConfig):
     """x: (T, d) -> (y (T, d), aux {load_balance, z_loss, dropped_frac})."""
     t, d = x.shape
-    g = math.gcd(t, max(cfg.dispatch_groups, 1))
-    y, aux = _moe_apply_groups(p, x.reshape(g, t // g, d), cfg)
-    return y.reshape(t, d), {k: v.mean() for k, v in aux.items()}
+    ctx = current_context()
+    if ctx is None:
+        g, share = math.gcd(t, max(cfg.dispatch_groups, 1)), 1.0
+        experts = (0, cfg.n_experts)
+    else:
+        g, share = ctx.moe_groups(t, cfg.dispatch_groups)
+        experts = ctx.local_experts(cfg.n_experts)
+    xg = constrain(x.reshape(g, t // g, d), "moe_gtd")
+    y, aux = _moe_apply_groups(p, xg, cfg, experts)
+    y = constrain(y, "moe_gtd")
+    aux = {k: v.mean() for k, v in aux.items()}
+    if share != 1.0:
+        aux = {k: v * share for k, v in aux.items()}
+    return y.reshape(t, d), aux
 
 
-def _moe_apply_groups(p, x, cfg: MoEConfig):
+def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple):
     """The reference's ``_moe_apply_group`` on each of the G groups of
-    x: (G, t, d) -> (y (G, t, d), aux values (G,))."""
+    x: (G, t, d) -> (y (G, t, d), aux values (G,)).  ``experts`` = (first,
+    count): the experts whose weights ``p`` holds; the output is theirs."""
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    lo, el = experts
     n = t * k
     c = capacity(t, cfg)
     act = ACTIVATIONS[cfg.act]
@@ -104,32 +127,38 @@ def _moe_apply_groups(p, x, cfg: MoEConfig):
     rank = torch.arange(n, device=dev) - starts.gather(1, se)
     kept = rank < c
 
-    # gather dispatch: slot (e, c) takes sorted position starts[e] + c
+    # gather dispatch: slot (e, c) takes sorted position starts[e] + c,
+    # for this rank's experts [lo, lo + el)
+    xb = copy_to_model(x)
     cgrid = torch.arange(c, device=dev)
-    slot_pos = starts[:, :, None] + cgrid                    # (G, E, C)
-    slot_valid = (cgrid < counts[:, :, None]) & (slot_pos < n)
+    slot_pos = starts[:, lo:lo + el, None] + cgrid           # (G, el, C)
+    slot_valid = (cgrid < counts[:, lo:lo + el, None]) & (slot_pos < n)
     slot_tok = st.gather(1, slot_pos.clamp_max(n - 1).reshape(g, -1))
-    buf = x[gi, slot_tok].reshape(g, e, c, d) * \
+    buf = xb[gi, slot_tok].reshape(g, el, c, d) * \
         slot_valid[..., None].to(x.dtype)
+    buf = constrain(buf, "moe_ecd_local")
 
     # ---- expert FFN (gated) ----
     h = act(torch.einsum("gecd,edf->gecf", buf, p["w1"])) * \
         torch.einsum("gecd,edf->gecf", buf, p["w3"])
-    y_buf = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    y_buf = constrain(torch.einsum("gecf,efd->gecd", h, p["w2"]),
+                      "moe_ecd_local")
 
-    # ---- combine: a dropped assignment reads nothing (the reference's
-    # fill of index E), the rest their slot ----
-    y_sorted = y_buf[gi, se.clamp_max(e - 1), torch.where(kept, rank, 0)]
-    y_sorted = torch.where(kept[..., None], y_sorted, 0.0)
+    # ---- combine: a dropped assignment (or another rank's expert) reads
+    # nothing (the reference's fill of index E), the rest their slot ----
+    mine = kept & (se >= lo) & (se < lo + el)
+    y_sorted = y_buf[gi, (se - lo).clamp(0, el - 1),
+                     torch.where(mine, rank, 0)]
+    y_sorted = torch.where(mine[..., None], y_sorted, 0.0)
     inv = torch.empty_like(order).scatter_(
         1, order, torch.arange(n, device=dev).expand(g, n))
     y_flat = y_sorted[gi, inv]                               # (G, n, d)
-    gates = topv.reshape(g, n, 1).to(x.dtype)
+    gates = copy_to_model(topv).reshape(g, n, 1).to(x.dtype)
     y = torch.sum((y_flat * gates).reshape(g, t, k, d), dim=2)
 
     if cfg.n_shared_experts:
         s = p["shared"]
-        y = y + (act(x @ s["w1"]) * (x @ s["w3"])) @ s["w2"]
+        y = y + (act(xb @ s["w1"]) * (xb @ s["w3"])) @ s["w2"]
 
     # ---- aux values ----
     frac = torch.zeros((g, e), dtype=torch.float32, device=dev).scatter_add_(

@@ -34,6 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.parallel import copy_to_model
+from ..distributed.sharding import (constrain, current_context,
+                                    gather_layer_params, scoped)
 from ..kernels import registry as _registry
 from ..utils import (grad_view, to_numpy, to_tensor, tree_leaves, tree_map,
                      tree_map_with_path)
@@ -215,13 +218,16 @@ def train_view(params, grads, cfg: TransformerConfig) -> dict:
 
 
 def ffn_apply(lp, x, cfg: TransformerConfig):
-    """The FFN over x: (..., d) -> (y, MoE aux values or None)."""
+    """The FFN over x: (..., d) -> (y, MoE aux values or None).  Under
+    tensor parallelism y is this rank's partial sum (its FFN columns or
+    experts), which the caller constrains to ``act_btd``."""
     if cfg.moe is not None:
         d = x.shape[-1]
         y, aux = moe_apply(lp, x.reshape(-1, d), cfg.moe)
         return y.reshape(x.shape), aux
     act = ACTIVATIONS[cfg.act]
-    h = x @ lp["w1"]
+    x = copy_to_model(x)
+    h = constrain(x @ lp["w1"], "act_btf")
     h = act(h) * (x @ lp["w3"]) if cfg.gated_ffn else act(h)
     return h @ lp["w2"], None
 
@@ -244,22 +250,30 @@ def embed_tokens(params, tokens, cfg: TransformerConfig):
     a cast copy of the whole table).  The gather is ``F.embedding``, whose
     backward sums a repeated id's rows in parallel segments; an indexing
     backward sums them one row after another (BERT4Rec's [MASK] id is a
-    fifth of a batch's tokens)."""
+    fifth of a batch's tokens).  In the sharded step the rank's rows of
+    its vocabulary range (`ParallelContext.embed`), summed at
+    ``act_btd``."""
+    ctx = current_context()
+    if ctx is not None:
+        return ctx.embed(params["embed"], tokens).to(cfg.dtype)
     return F.embedding(tokens, params["embed"]).to(cfg.dtype)
 
 
 def _group_apply(gp, x, aux_acc, cos, sin, positions,
                  cfg: TransformerConfig):
-    """One pattern group over x: each layer cast to ``cfg.dtype`` here, so
-    that under a checkpoint the cast is recomputed, not kept."""
+    """One pattern group over x: each layer cast to ``cfg.dtype`` here (and
+    in the sharded step gathered, `gather_layer_params`), so that under a
+    checkpoint the cast is recomputed, not kept.  The attention's and the
+    FFN's outputs are constrained to ``act_btd`` (in the sharded step: the
+    sum of the model ranks' partial outputs)."""
     for j, kind in enumerate(cfg.layer_pattern):
-        lp = _cast_layer(gp, j, cfg)
+        lp = gather_layer_params(tree_map(lambda a: a[j], gp), cfg.dtype)
         h = rms_norm(x, lp["attn_norm"])
         attn_out, _ = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
                                   cfg)
-        x = x + attn_out
+        x = x + constrain(attn_out, "act_btd")
         y, aux = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
-        x = x + y
+        x = x + constrain(y, "act_btd")
         if aux is not None:
             aux_acc = aux_acc + cfg.aux_loss_weight * aux["load_balance"] \
                 + cfg.z_loss_weight * aux["z_loss"]
@@ -272,14 +286,15 @@ def forward(params, tokens, cfg: TransformerConfig, positions=None, *,
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(params, tokens, cfg)
+    x = constrain(embed_tokens(params, tokens, cfg), "act_btd")
     cos, sin = _rope(cfg, rope, x.device)
     aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for gi in range(cfg.n_groups):
         args = (group_params(params, gi), x, aux_acc, cos, sin, positions,
                 cfg)
-        x, aux_acc = (checkpoint(_group_apply, *args, use_reentrant=False)
+        x, aux_acc = (checkpoint(scoped(_group_apply), *args,
+                                 use_reentrant=False)
                       if remat else _group_apply(*args))
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
     return x, aux_acc / cfg.n_layers
@@ -289,7 +304,7 @@ def _xent_chunk(hc, yc, w):
     """(sum of the cross-entropy over the labels >= 0, their count) of the
     hidden rows ``hc`` against the head ``w``: the logits in the compute
     dtype, the log-sum-exp and the label's logit in float32."""
-    logits = (hc @ w).float()
+    logits = constrain((hc @ w).float(), "logits_2d")
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(1, yc.clamp_min(0)[:, None].long())[:, 0]
     valid = yc >= 0
@@ -300,14 +315,24 @@ def lm_loss(params, hidden, labels, cfg: TransformerConfig):
     """Mean cross-entropy over the labels >= 0, in chunks of
     ``cfg.xent_chunk`` tokens (each under a checkpoint in a backward, so
     one chunk's (chunk, V) logits are held at a time), summed in chunk
-    order, as the reference's scan."""
+    order, as the reference's scan.  In the sharded step the head's columns
+    are the rank's vocabulary range (`ParallelContext.xent_chunk`) and the
+    mean divides by the label count of every data rank's tokens."""
     b, s, d = hidden.shape
     h = hidden.reshape(b * s, d)
     y = labels.reshape(b * s)
-    w = params["lm_head"].to(cfg.dtype)
+    ctx = current_context()
+    xent = _xent_chunk
+    if ctx is None:
+        w = params["lm_head"].to(cfg.dtype)
+    else:
+        w = ctx.gather_vocab("lm_head", params["lm_head"], cfg.dtype)
+        h = copy_to_model(h)
+        if ctx.tp_size > 1:
+            xent = ctx.xent_chunk
     t, ck = b * s, cfg.xent_chunk
     if ck is None or ck >= t:
-        tot, cnt = _xent_chunk(h, y, w)
+        tot, cnt = xent(h, y, w)
     else:
         if t % ck:
             raise ValueError(f"xent_chunk {ck} does not divide {t} tokens")
@@ -316,9 +341,11 @@ def lm_loss(params, hidden, labels, cfg: TransformerConfig):
         remat = torch.is_grad_enabled()
         for i in range(0, t, ck):
             args = (h[i:i + ck], y[i:i + ck], w)
-            l, c = (checkpoint(_xent_chunk, *args, use_reentrant=False)
-                    if remat else _xent_chunk(*args))
+            l, c = (checkpoint(scoped(xent), *args, use_reentrant=False)
+                    if remat else xent(*args))
             tot, cnt = tot + l, cnt + c
+    if ctx is not None:
+        cnt = ctx.data_sum(cnt)
     return tot / torch.clamp_min(cnt, 1)
 
 

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 import repro.core as jcore
+import repro.distributed as jdist
 import repro_torch.core as tcore
+import repro_torch.distributed as tdist
 from repro_torch.core import knn as tknn
 from repro_torch.core import snn as tsnn
 from repro_torch.core import streaming as tst
@@ -59,6 +61,10 @@ SERVING_MODULES = ("configs/snn_default", "ft/checkpoint", "ft/elastic",
                    "serving/server", "data/pipeline", "launch/serve")
 SHARDED_MODULES = ("core/sharded", "launch/mesh", "launch/snn_cell")
 TRAINING_MODULES = ("optim/optimizers", "launch/train", "utils")
+DISTRIBUTED_MODULES = ("distributed/__init__", "distributed/sharding",
+                       "distributed/compression",
+                       "distributed/collective_matmul",
+                       "distributed/parallel")
 LM_MODULES = ("models/attention", "models/transformer", "models/moe",
               "configs/nemotron_4_15b", "configs/internlm2_20b",
               "configs/minicpm3_4b", "configs/llama4_scout_17b_a16e",
@@ -68,10 +74,11 @@ LM_MODULES = ("models/attention", "models/transformer", "models/moe",
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    # the serving, sharded, training and LM slices' modules are among the
-    # files scanned
+    # the serving, sharded, training, LM and distributed slices' modules
+    # are among the files scanned
     assert {PORT / f"{m}.py" for m in SERVING_MODULES + SHARDED_MODULES
-            + TRAINING_MODULES + LM_MODULES} <= set(files)
+            + TRAINING_MODULES + LM_MODULES
+            + DISTRIBUTED_MODULES} <= set(files)
     return files
 
 
@@ -184,6 +191,7 @@ def test_package_names_have_the_reference_meanings():
                 and not inspect.ismodule(getattr(mod, n))}
 
     assert public(jcore) - public(tcore) == set()
+    assert public(jdist) - public(tdist) == set()
 
 
 @pytest.mark.parametrize("shape", ["serve_p99", "retrieval_cand",
