@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per
 source, all at once, into the ignored ``src/repro_torch/kernels/_build``),
-then runs twelve phases and prints one ``ok``/``FAIL``/``--`` line per check
+then runs thirteen phases and prints one ``ok``/``FAIL``/``--`` line per check
 or note, and each phase's time:
 
 1. each kernel against its plain PyTorch version on the card, on integer
@@ -27,7 +27,9 @@ or note, and each phase's time:
    ``query_counts`` and ``mixed=True``, with the kernels' launch counts, 64
    sampled queries held against a float64 brute force, and the looped
    executor (``packed=False``) bit-identical to the packed one;
-2b. the eps-neighbour graph and DBSCAN on the same index: the plain and
+2b. the eps-neighbour graph and DBSCAN on the first 262,144 of phase 2's
+   rows, indexed on their own (the graph's work grows as n^2, so its depth
+   is cut to keep the whole run well inside its time limit): the plain and
    the symmetric self-join at ``query_chunk=2048`` and 512-row segments
    (eps giving about 30 neighbours a point), DBSCAN labels of both, the
    graph's pairs and clusters equal to the recorded ones, sampled
@@ -39,8 +41,8 @@ or note, and each phase's time:
 2d. (run after 2b) the sharded SNN on the same index, queries, radius and
    eps: ``query_radius_csr_sharded`` over 8 shards, packed twice (classic,
    then fused) and looped, bit-identical to phase 2's rows;
-   ``build_neighbor_graph_sharded`` over the 8 shards bit-identical to
-   phase 2b's plain graph, timed beside it with its live shards a chunk,
+   ``build_neighbor_graph_sharded`` over the 8 shards of phase 2b's rows
+   bit-identical to phase 2b's plain graph, timed beside it with its live shards a chunk,
    and sampled chunks' dhalf bit-identical to the 512-row segments'; NCCL
    at world size 1 (a file store in a temporary directory) with
    ``launch.mesh.make_host_mesh``: the count, percount and top-k functions
@@ -57,8 +59,8 @@ or note, and each phase's time:
 2c. the front-ends over the engine on the same index and queries:
    ``query_knn`` at k = 100 (its expansion rounds and launches) against a
    float64 brute force top-100 on 64 queries, a per-query k and k > n;
-   ``join_counts`` against the CSR counts, ``degree_histogram`` of all 1M
-   points against phase 2b's graph, ``reverse_neighbors`` against the
+   ``join_counts`` against the CSR counts, ``degree_histogram`` of phase 2b's
+   points against its graph, ``reverse_neighbors`` against the
    forward CSR's transpose; the host Algorithm 2 ``query_radius_batch`` and
    ``query_radius_fixed`` (K = 1024, through the filter) against the CSR
    rows; DBSCAN's host backend ``snn`` against ``snn-csr`` on a 20,000-row
@@ -122,9 +124,10 @@ or note, and each phase's time:
    the bfloat16-rounded parameters;
 5. LM serving through ``launch.steps.build_step`` with the parameters
    seeded on the card in bfloat16: (c) the 14 reduced serving cells on the
-   card against the CPU; for nemotron-4-15b, internlm2-20b and minicpm3-4b
-   at full depth and llama4-scout-17b-a16e and qwen3-moe-235b-a22b at 4
-   layers (one card's 80 GB), ``prefill_32k`` at batch 1 (ms, tokens/s,
+   card against the CPU; for nemotron-4-15b and internlm2-20b at 8
+   layers, minicpm3-4b at 16 (the run's time limit) and
+   llama4-scout-17b-a16e and qwen3-moe-235b-a22b at 4 layers (one card's
+   80 GB), ``prefill_32k`` at batch 1 (ms, tokens/s,
    model FLOP/s against the bf16 dense peak, peak memory), (d) 16 greedy
    tokens for 4 prompts of 256, (a) each of those decode steps against the
    forward's logits (bfloat16; float32 compute with a capacity that drops
@@ -141,7 +144,8 @@ or note, and each phase's time:
    training state counted; (c) the 10 reduced training cells (the five
    LMs' ``train_4k``, BERT4Rec's ``train_batch``, the four ``gat-cora``
    shapes) on the card against the CPU, three steps; minicpm3-4b's
-   ``train_4k`` at full width and depth (62 layers) and
+   ``train_4k`` at full width and 16 of 62 layers (the run's time limit)
+   and
    qwen3-moe-235b-a22b's at 1 of 94 layers, each microbatch one sequence
    of 4,096 tokens, 2 and 8 microbatches a step: the first step by hand
    with the in-place AdamW of sampled leaves held bit for bit against the
@@ -164,11 +168,30 @@ or note, and each phase's time:
    moments); (c) internlm2-20b at 4 of 48 layers and minicpm3-4b at 8 of
    62 at full width, the unsharded step then the sharded one (3 timed
    steps after an untimed one, 2 sequences of 4,096 tokens, peak memory),
-   the sharded state bit-equal to the unsharded one.
+   the sharded state bit-equal to the unsharded one;
+8. the engine's host lane and the dry-run: (a) on the SIFT-1M stand-in
+   (phase 2's data, index, queries and radius, made again) with the
+   index's arrays on the host, ``oracle=True``: the compacted executor
+   with the index's extra components, the pruned one (``compacted=False``)
+   and the dense one under ``memory_budget_mb=512``, which its 4 GB filter
+   sends to the looped host path; each against the card's CSR (pairs may
+   differ only inside the float32 band) and a float64 brute force on 64
+   queries, timed on the host clock with the CPU named; (b)
+   ``snn_csr_compacted_stacked`` on CUDA tensors against the stacked
+   kernels on the same pack (256 queries), with a ``ccap`` and an
+   ``nnz_cap`` too small detected and rerun; (c) ``launch.dryrun`` at a
+   (1, 1) mesh against the same sharded ``train_4k`` step on the card
+   (internlm2-20b at 4 of 48 layers, minicpm3-4b at 8 of 62): its flops
+   within 1% of FlopCounterMode's count there, its peak within 15% of
+   ``max_memory_allocated``, the measured step beside the roofline's
+   terms; then its estimates at (16, 16) and (2, 16, 16) for
+   internlm2-20b ``train_4k`` and ``snn-service`` ``svc_10m``; (d) the
+   card's bf16 and FP32 matmul peaks and a 4 GiB copy, each beside the
+   data sheet's constant.
 
 Before phase 1 it prints each kernel's registers, static shared memory
-and spills from the build.  Exits non-zero on any failed check, and
-without a CUDA device.  The last lines are the kernel table as JSON, the
+and spills from the build.  Exits non-zero on any failed check, without
+a CUDA device, and when copied alone without the repository beside it.  The last lines are the kernel table as JSON, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -177,11 +200,13 @@ import bisect
 import dataclasses
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -198,6 +223,9 @@ GRAPH_NEIGHBOURS = 30
 MIN_SAMPLES = 5
 QUERY_CHUNK, SEGMENT_ROWS = 2048, 512
 N_GRAPH_ROWS, N_GRAPH_ORACLE, N_LOOPED_CHUNKS = 256, 64, 8
+# the graph's points: the first GRAPH_N rows of phase 2's data, an index of
+# their own (128 query chunks of 512 segments each)
+GRAPH_N = 262_144
 # rows in which the plain and the symmetric graph may differ, each checked
 # against the float64 brute force
 MAX_DIFF_ROWS = 1024
@@ -211,10 +239,11 @@ FIXED_K = 1024
 DBSCAN_ROWS = 20_000
 APPEND_ROWS, N_APPENDS = 8192, 8
 STREAM_CHECK_Q = 256
-# the graph and its DBSCAN labelling as this script's earlier runs on the
-# H100 found them (PERF.md section 5): pairs, clusters, noise points, points
-# in the largest cluster; an exact pass gives them again
-GRAPH_RECORD = (32_788_237, 97, 248_527, 751_084)
+# the graph of the GRAPH_N rows and its DBSCAN labelling as this script's
+# earlier runs on the H100 found them (PERF.md, section 6): pairs,
+# clusters, noise points, points in the largest cluster; an exact pass
+# gives them again
+GRAPH_RECORD = (8_204_206, 37, 57_145, 204_845)
 # NVIDIA's data sheet for the H100 SXM at its 700 W limit: FP32 outside the
 # tensor cores (FLOP/s) and device memory (bytes/s)
 FP32_PEAK = 67e12
@@ -706,9 +735,13 @@ def oracle_rows(index, xs64, hn64, q: np.ndarray, radius: float):
     return dhalf64, thresh64, tol
 
 
-def compare_with_oracle(index, res, rows, xs64, hn64, q, radius):
-    """(band pairs, equal pairs, pairs outside the band that differ)."""
-    dhalf64, thresh64, tol = oracle_rows(index, xs64, hn64, q[rows], radius)
+def compare_with_oracle(index, res, rows, xs64, hn64, q, radius,
+                        oracle=None):
+    """(band pairs, equal pairs, pairs outside the band that differ);
+    ``oracle`` is `oracle_rows`' output for ``q[rows]``, made here when
+    not given."""
+    dhalf64, thresh64, tol = oracle or oracle_rows(index, xs64, hn64,
+                                                   q[rows], radius)
     inv = np.empty_like(index.order)
     inv[index.order] = np.arange(index.order.size)
     band = equal = bad = 0
@@ -857,12 +890,25 @@ def graph_rows(g, rows: np.ndarray):
     return counts, idx
 
 
+def graph_data(snn, x, clock) -> SimpleNamespace:
+    """The graph's points: the first GRAPH_N of phase 2's rows, their index
+    on the card and its rows in float64 with their half norms."""
+    x = x[:GRAPH_N]
+    index = clock(f"build_index of the graph's {GRAPH_N} rows",
+                  lambda: snn.build_index(x, device=DEVICE))
+    xs64 = index.xs.cpu().numpy().astype(np.float64)
+    hn64 = 0.5 * np.einsum("ij,ij->i", xs64, xs64)
+    return SimpleNamespace(index=index, x=x, xs64=xs64, hn64=hn64)
+
+
 def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
-                dbscan, ops_mod, index, x, xs64, hn64, clock):
+                dbscan, ops_mod, x, clock):
+    print(f"phase 2b: eps-neighbour graph and DBSCAN, n={GRAPH_N} d={DIM} "
+          f"(the first {GRAPH_N} of phase 2's rows, indexed on their own), "
+          f"query_chunk={QUERY_CHUNK}, {SEGMENT_ROWS}-row segments")
+    gd = graph_data(snn, x, clock)
+    index, x, xs64, hn64 = gd.index, gd.x, gd.xs64, gd.hn64
     n = index.n
-    print(f"phase 2b: eps-neighbour graph and DBSCAN, n={n} d={DIM} "
-          f"(same index), query_chunk={QUERY_CHUNK}, {SEGMENT_ROWS}-row "
-          "segments")
     rng = np.random.default_rng(SEED + 3)
     sample = rng.choice(n, 64, replace=False)
     eps = calibrate_radius(torch, index, x[sample], GRAPH_NEIGHBOURS)
@@ -1016,7 +1062,7 @@ def phase_graph(torch, chk: Checks, K, ref, snn, engine, join, graph,
            and np.array_equal(looped[1], g_idx),
            "looped rows bit-identical to the packed graph's rows")
     del segments
-    return launches, looped_launches, eps, graph_shape, plain, t_plain
+    return launches, looped_launches, eps, graph_shape, plain, t_plain, gd
 
 
 
@@ -1390,7 +1436,7 @@ def service_cell(torch, chk: Checks, K, ref, snn, sharded, snn_cell, mesh,
 
 
 def phase_sharded(torch, chk: Checks, K, ref, snn, engine, join, graph, index,
-                  x, q, radius, eps, csr, plain, t_plain, xs64, hn64, clock):
+                  q, radius, eps, csr, gd, plain, t_plain, xs64, hn64, clock):
     """Phase 2d: the sharded SNN.  Returns {path: {kernel: launches}}."""
     import os
     import tempfile
@@ -1407,8 +1453,8 @@ def phase_sharded(torch, chk: Checks, K, ref, snn, engine, join, graph, index,
     paths = {"sharded_csr": sharded_csr(torch, chk, K, engine, sharded,
                                         index, q, radius, csr, card, clock)}
     paths["sharded_graph"] = sharded_graph(torch, chk, K, snn, engine, join,
-                                           graph, sharded, index, x, eps,
-                                           plain, t_plain, card)
+                                           graph, sharded, gd.index, gd.x,
+                                           eps, plain, t_plain, card)
     # one rank, its store in a temporary directory and its bootstrap on the
     # loopback interface: nothing leaves the machine
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -1507,7 +1553,9 @@ def sets_vs_oracle(res, rows, keep, band):
 def phase_knn(torch, chk: Checks, K, snn, knn, index, q, xs64, hn64, clock):
     """query_knn at k = 100 for the main path's queries, against a float64
     brute force on 64 of them; a per-query k and k > n."""
-    knn.query_knn(index, q, KNN_K, device=DEVICE)       # warm
+    # warm on the oracle's few queries: cuBLAS and the engine's first
+    # plans; the whole batch takes 20-30 s, nearly all the host refine
+    knn.query_knn(index, q[:N_ORACLE], KNN_K, device=DEVICE)
     K.reset_launch_counts()
     knn.KNN_STATS.reset()
     ids, dist = clock(f"query_knn k={KNN_K} (warm)",
@@ -1562,8 +1610,8 @@ def phase_knn(torch, chk: Checks, K, snn, knn, index, q, xs64, hn64, clock):
     return launches
 
 
-def phase_counts(torch, chk: Checks, K, snn, join, index, x, q, radius, eps,
-                 degrees, csr, clock):
+def phase_counts(torch, chk: Checks, K, snn, join, index, x, q, radius, gd,
+                 eps, degrees, csr, clock):
     """join_counts, degree_histogram and reverse_neighbors on the card."""
     out = {}
     K.reset_launch_counts()
@@ -1575,9 +1623,10 @@ def phase_counts(torch, chk: Checks, K, snn, join, index, x, q, radius, eps,
            and out["join_counts"]["snn_compact_stacked"] == 0,
            "join_counts == diff(query_radius_csr indptr), no compact launch")
     K.reset_launch_counts()
-    hist, deg = clock(f"degree_histogram of all {index.n} points at the "
-                      "graph's eps",
-                      lambda: join.degree_histogram(x, eps, index=index,
+    hist, deg = clock(f"degree_histogram of phase 2b's {gd.index.n} points "
+                      "at the graph's eps",
+                      lambda: join.degree_histogram(gd.x, eps,
+                                                    index=gd.index,
                                                     device=DEVICE))
     out["degree_histogram"] = launch_counts(K)
     chk.ok(np.array_equal(deg, degrees)
@@ -1854,8 +1903,8 @@ def plan_kernels(torch, chk: Checks, K, ref, ops_mod, engine, snn, stream,
 
 
 def phase_front_ends(torch, chk: Checks, K, ref, ops_mod, snn, engine, join,
-                     dbscan, index, x, q, radius, eps, degrees, xs64, hn64,
-                     clock):
+                     dbscan, index, x, q, radius, gd, eps, degrees, xs64,
+                     hn64, clock):
     """Phase 2c: the front-ends over the engine on the main path's data.
     Returns each path's kernel launches, {path: {kernel: launches}}."""
     print(f"phase 2c: kNN, count-only joins, host Algorithm 2, "
@@ -1868,7 +1917,7 @@ def phase_front_ends(torch, chk: Checks, K, ref, ops_mod, snn, engine, join,
     paths["query_knn"] = phase_knn(torch, chk, K, snn, knn, index, q, xs64,
                                    hn64, clock)
     paths.update(phase_counts(torch, chk, K, snn, join, index, x, q, radius,
-                              eps, degrees, csr, clock))
+                              gd, eps, degrees, csr, clock))
     paths.update(phase_host(torch, chk, K, snn, index, q, radius, csr, xs64,
                             hn64, clock))
     phase_dbscan_host(torch, chk, snn, dbscan, x, clock)
@@ -2304,7 +2353,7 @@ def filter_checks(torch, chk: Checks, ref, f, ops, csr, pairs: int,
 
 
 def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
-                       index, x, q, radius, eps, xs64, hn64, looped, ptxas):
+                       index, q, radius, xs64, hn64, gd, eps, looped, ptxas):
     """The three single-segment kernels: count and compact at both shapes
     the looped executor gives them, and the filter through its public op."""
     print("phase 3 (single-segment kernels)")
@@ -2312,10 +2361,11 @@ def phase_times_single(torch, chk: Checks, K, ref, ops_mod, snn, engine,
     main = single_shape(torch, chk, K, ref, ops_mod, snn, engine, index, q,
                         radius, 0, n, xs64, hn64,
                         "query_radius_csr(packed=False) shape", 10, 3)
-    mid = (n // QUERY_CHUNK // 2) * QUERY_CHUNK
-    g = single_shape(torch, chk, K, ref, ops_mod, snn, engine, index,
-                     x[index.order[mid:mid + QUERY_CHUNK]], eps, mid,
-                     SEGMENT_ROWS, xs64, hn64,
+    gi = gd.index
+    mid = (gi.n // QUERY_CHUNK // 2) * QUERY_CHUNK
+    g = single_shape(torch, chk, K, ref, ops_mod, snn, engine, gi,
+                     gd.x[gi.order[mid:mid + QUERY_CHUNK]], eps, mid,
+                     SEGMENT_ROWS, gd.xs64, gd.hn64,
                      "graph segment shape (the chunk's own segment)", 200, 20)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = {k: g[k]["geometry"]["blocks"] for k in ("count", "compact")}
@@ -4210,12 +4260,15 @@ def phase_recsys_train(torch, chk: Checks, K, ref, clock):
 BF16_PEAK = 989e12
 # arch: (layers kept, None = all; decode_32k batch), in the order they run.
 # One card's 80 GB cuts the MoE models to one pattern period of 4 layers
-# (4.4 and 5.0 GB of bfloat16 weights a layer) and the decode batches to
-# what the caches leave room for (4.3 GB of cache a nemotron sequence).
+# (4.4 and 5.0 GB of bfloat16 weights a layer).  The dense models keep 8,
+# 8 and 16 layers: a 32k prefill takes 0.7-0.9 s a layer, and at full depth
+# the three took 110 s of the run's time limit.  The decode batches are
+# what the caches left room for at full depth (4.3 GB of cache a nemotron
+# sequence), kept so that a step reads the same cache a layer.
 LM_RUNS = {
-    "nemotron-4-15b": (None, 8),
-    "internlm2-20b": (None, 4),
-    "minicpm3-4b": (None, 32),
+    "nemotron-4-15b": (8, 8),
+    "internlm2-20b": (8, 4),
+    "minicpm3-4b": (16, 32),
     "llama4-scout-17b-a16e": (4, 8),
     "qwen3-moe-235b-a22b": (4, 32),
 }
@@ -4430,21 +4483,25 @@ def lm_prefill(torch, chk: Checks, steps, tf, arch: str, layers, card: str):
                f"{bound}), top-1 agree {top1:.3f} (bound {share})")
         del got, want, rows
         if arch == "minicpm3-4b":
-            rec.update(bf16_vs_f32(torch, chk, steps, params, arch))
+            rec.update(bf16_vs_f32(torch, chk, steps, params, arch,
+                                   layers))
     del params
     torch.cuda.empty_cache()
     return rec
 
 
-def bf16_vs_f32(torch, chk: Checks, steps, params, arch: str) -> dict:
+def bf16_vs_f32(torch, chk: Checks, steps, params, arch: str,
+                layers) -> dict:
     """(b): the bfloat16 prefill step's logits against the same weights
     run at ``cfg_override={"dtype": float32}``; and the bfloat16 step with
     cuBLAS's reduced-precision bfloat16 reductions off, against it on (the
     default, which the package leaves alone)."""
     shape = {"global_batch": B_BATCH, "seq_len": B_TOKENS}
-    bf = steps.build_step(arch, "prefill_32k", shape_override=shape)
+    cut = {"n_layers": layers} if layers else {}
+    bf = steps.build_step(arch, "prefill_32k", shape_override=shape,
+                          cfg_override=cut or None)
     f32 = steps.build_step(arch, "prefill_32k", shape_override=shape,
-                           cfg_override={"dtype": torch.float32})
+                           cfg_override={**cut, "dtype": torch.float32})
     vocab = steps.get_arch(arch).make_config("prefill_32k", False).vocab
     tokens = torch.from_numpy(np.random.default_rng(SEED + 51).integers(
         0, vocab, (B_BATCH, B_TOKENS)).astype(np.int32)).to(DEVICE)
@@ -4638,10 +4695,11 @@ def phase_lm(torch, chk: Checks, card: str) -> dict:
 # one 4,096-token sequence a microbatch and the reference's accumulation
 # (`steps.lm_accum`: 2 dense, 8 MoE): a global batch of 2 and 8 sequences,
 # not 256.  Float32 parameters, gradients and AdamW moments take 16 bytes a
-# parameter: minicpm3-4b's 4.262B are 68.2 GB, qwen3-moe's first layer
+# parameter: minicpm3-4b's 4.262B at all 62 layers are 68.2 GB and fit, but
+# a step there takes 6.8 s, so it keeps 16 layers; qwen3-moe's first layer
 # (with its embedding and head) 3.733B, 59.7 GB; a second layer would not
 # fit on one card (PERF.md section 4).
-LM_TRAIN_RUNS = {"minicpm3-4b": None, "qwen3-moe-235b-a22b": 1}
+LM_TRAIN_RUNS = {"minicpm3-4b": 16, "qwen3-moe-235b-a22b": 1}
 # timed steps of each phase-6 run (after one step that is not timed)
 P6_STEPS = 3
 # (c) every reduced training cell on the card against the CPU: the losses
@@ -5203,6 +5261,446 @@ def phase_distributed(torch, chk: Checks, card: str) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# phase 8                                                                      #
+# --------------------------------------------------------------------------- #
+P8_BUDGET_MB = 512
+P8_SVC_Q = 256                 # (b): queries of the compacted op's batch
+P8_PEAK_N = 8192               # (d): the peaks' matmul side
+P8_COPY_BYTES = 4 << 30        # (d): the device-to-device copy
+
+
+def host_cpu() -> str:
+    """The host CPU's model (lscpu's, else /proc/cpuinfo's) and the threads
+    torch uses on it."""
+    import platform
+
+    import torch
+
+    model = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             check=True).stdout
+        for line in out.splitlines():
+            if line.strip().startswith("Model name:"):
+                model = line.split(":", 1)[1].strip()
+                break
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    if not model or model.lower() == "unknown":
+        # the model name may be hidden in a virtual machine: name the
+        # vendor, family and model numbers instead
+        fields = {}
+        try:
+            for line in Path("/proc/cpuinfo").read_text().splitlines():
+                k, _, v = line.partition(":")
+                fields.setdefault(k.strip().lower(), v.strip())
+        except OSError:
+            pass
+        name = fields.get("model name", "")
+        model = name if name and name.lower() != "unknown" else " ".join(
+            f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+            if fields.get(k))
+    model = f"{model or 'unnamed'} ({platform.machine()})"
+    return f"{model}, {os.cpu_count()} cores, {torch.get_num_threads()} " \
+        "torch threads"
+
+
+def csr_band_agree(index, a, b, xs64, hn64, q, radius) -> tuple:
+    """(rows equal, pairs differing, pairs outside the float32 band): two
+    CSR results over the same queries may differ only in pairs inside the
+    rounding band, and their common pairs keep the same order."""
+    if np.array_equal(a.indptr, b.indptr) \
+            and np.array_equal(a.indices, b.indices):
+        return a.m, 0, 0
+    qi, ids, same_rows = [], [], 0
+    for i in range(a.m):
+        ra = a.indices[a.indptr[i]:a.indptr[i + 1]]
+        rb = b.indices[b.indptr[i]:b.indptr[i + 1]]
+        if np.array_equal(ra, rb):
+            same_rows += 1
+            continue
+        diff = np.setxor1d(ra, rb)
+        if not np.array_equal(ra[~np.isin(ra, diff)], rb[~np.isin(rb, diff)]):
+            return same_rows, -1, -1
+        qi += [i] * diff.size
+        ids += diff.tolist()
+    inband, _ = pair_band(index, xs64, hn64, q, radius, np.asarray(qi),
+                          np.asarray(ids, np.int64))
+    return same_rows, len(ids), 0 if inband else len(ids)
+
+
+def host_lane(torch, chk: Checks, snn, engine, index, q, radius, card_csr,
+              xs64, hn64, cpu: str, card: str) -> dict:
+    """(a) the engine's host lane (``oracle=True``) on the index's arrays on
+    the host: compacted, pruned, and the dense executor past its budget."""
+    from repro_torch.kernels import ops as ops_mod
+
+    rec = {}
+    rows = np.random.default_rng(SEED + 2).choice(q.shape[0],
+                                                  min(N_ORACLE, q.shape[0]),
+                                                  replace=False)
+    t = time.perf_counter()
+    pack = index.pack(512, "cpu")
+    chk.note(f"the index's plan on the host: {time.perf_counter() - t:.2f} s "
+             f"(set-up)")
+    looped = []
+    real_run_csr = engine.run_csr
+
+    def spy(*a, **k):
+        looped.append(k.get("memory_budget_mb"))
+        return real_run_csr(*a, **k)
+
+    def dense():
+        xq, aq, r, th, qsq = snn.prepare_query_predicates(index, q, radius)
+        qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r, th, tq=128,
+                                                  bucket=True)
+        with mock.patch.object(engine, "run_csr", spy):
+            out = engine.run_csr_packed(pack, qp, aqp, rp, thp, m,
+                                        oracle=True,
+                                        memory_budget_mb=P8_BUDGET_MB)
+        indptr, counts, ids, dh = out
+        return snn.csr_finalize(index, indptr, ids, dh, xq, qsq, counts, True)
+
+    oracle = oracle_rows(index, xs64, hn64, q[rows], radius)
+    runs = (("compacted", lambda: snn.query_radius_csr(
+                index, q, radius, device="cpu", oracle=True)),
+            ("pruned", lambda: snn.query_radius_csr(
+                index, q, radius, device="cpu", oracle=True,
+                compacted=False)),
+            (f"dense, memory_budget_mb={P8_BUDGET_MB}", dense))
+    for name, fn in runs:
+        engine.DISPATCH_STATS.reset()
+        t = time.perf_counter()
+        res = fn()
+        s = time.perf_counter() - t
+        stats = engine.DISPATCH_STATS.snapshot()
+        same, differ, outside = csr_band_agree(index, res, card_csr, xs64,
+                                               hn64, q, radius)
+        band, equal, bad = compare_with_oracle(index, res, rows, xs64, hn64,
+                                               q, radius, oracle)
+        rec[name] = {"s": s, "nnz": int(res.nnz), "rows_equal": same,
+                     "pairs_differing": differ,
+                     "launches": stats["kernel_launches"],
+                     "host_transfers": stats["host_transfers"]}
+        chk.ok(differ >= 0 and outside == 0 and bad == 0,
+               f"host lane {name}: {s:.2f} s (host clock) [{cpu}; {card}], "
+               f"{res.nnz} pairs, {stats['kernel_launches']} launches; "
+               f"{same} of {q.shape[0]} rows equal to the card's CSR, "
+               f"{differ} pairs differing, all inside the float32 band; "
+               f"{len(rows)} sampled rows vs float64: {equal} equal, {band} "
+               f"in the band, {bad} outside")
+    need = N_QUERIES * pack.n_pad * 4 / 2**20
+    chk.ok(looped == [P8_BUDGET_MB],
+           f"the dense executor's filter ({need:.0f} MB) passes "
+           f"memory_budget_mb={P8_BUDGET_MB}: it took the looped host path "
+           f"({len(looped)} call), whose pass-1 filter is not cached "
+           f"({rec[runs[2][0]]['launches']} filter launches)")
+    return rec
+
+
+def compacted_on_card(torch, chk: Checks, K, ref, ops_mod, snn, engine,
+                      index, q, radius, xs64, hn64) -> dict:
+    """(b) `snn_csr_compacted_stacked` on CUDA tensors against the stacked
+    kernels on the same pack and queries; a ``ccap`` or ``nnz_cap`` set
+    too small is detected and rerun."""
+    from repro_torch.kernels import registry
+
+    qb = q[:P8_SVC_Q]
+    pack = index.pack(512, DEVICE)
+    xs, al, hn, ids = pack.stacked()
+    px = pack.stacked_projs()
+    xq, aq, r, th, _ = snn.prepare_query_predicates(index, qb, radius)
+    qp, aqp, rp, thp, m = ops_mod.pad_queries(xq, aq, r, th, tq=128)
+    pq = ops_mod.pad_components(snn.query_extra_projections(index, xq),
+                                qp.shape[0])
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+           for a in (qp, aqp, rp, thp, pq)]
+    args = dev[:4] + [xs, al, hn, dev[4], px]
+    per, part = registry.snn_count_stacked(*args, bn=pack.block,
+                                           with_partials=True)
+    _, indptr_k, offsets = ref.stacked_prefix(per)
+    total = int(indptr_k[-1])
+    fi_k, _ = registry.snn_compact_stacked(
+        *args[:4], offsets, *args[4:], nnz=ops_mod.csr_capacity(total),
+        bn=pack.block, partials=part)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    probe = ops_mod.snn_csr_compacted_stacked(*args, ptile=16, ccap=128,
+                                              nnz_cap=128)
+    torch.cuda.synchronize()
+    cand_max, total_probe = int(probe[4]), int(probe[3])
+    ccap = ops_mod.csr_capacity(cand_max)
+    tries = [(128, 128, cand_max > 128 or total_probe + 1 > 128)]
+    small = ops_mod.snn_csr_compacted_stacked(
+        *args, ptile=16, ccap=ccap, nnz_cap=ops_mod.csr_capacity(total) // 4)
+    tries.append((ccap, ops_mod.csr_capacity(total) // 4,
+                  int(small[3]) + 1 > ops_mod.csr_capacity(total) // 4))
+    out = ops_mod.snn_csr_compacted_stacked(
+        *args, ptile=16, ccap=ccap, nnz_cap=ops_mod.csr_capacity(total))
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t
+    indptr_c = out[0].cpu().numpy()[:m + 1].astype(np.int64)
+    tot_c = int(indptr_c[-1])
+    fi_c = out[1][:tot_c].cpu().numpy()
+    flat_ids = ids.reshape(-1)
+    a = SimpleNamespace(indptr=indptr_c, indices=flat_ids[fi_c], m=m)
+    ik = indptr_k.cpu().numpy()[:m + 1].astype(np.int64)
+    b = SimpleNamespace(indptr=ik, indices=flat_ids[
+        fi_k[:int(ik[-1])].cpu().numpy()], m=m)
+    same, differ, outside = csr_band_agree(index, a, b, xs64, hn64, qb,
+                                           radius)
+    chk.ok(all(bad for _, _, bad in tries) and int(out[4]) <= ccap
+           and tot_c + 1 <= ops_mod.csr_capacity(total),
+           f"snn_csr_compacted_stacked on the card: ccap=128 and nnz_cap="
+           f"{tries[1][1]} detected as too small (cand_max {cand_max}, total "
+           f"{int(small[3])}), rerun at ccap={ccap}, nnz_cap="
+           f"{ops_mod.csr_capacity(total)}; {(s * 1e3):.1f} ms for the three "
+           f"(host clock, synchronized)")
+    chk.ok(differ >= 0 and outside == 0,
+           f"snn_csr_compacted_stacked == the stacked kernels on the same "
+           f"pack ({m} queries, {xs.shape[1]:,} rows): {same} of {m} rows "
+           f"equal, {differ} pairs differing, all inside the float32 band "
+           f"({tot_c} and {int(ik[-1])} pairs)")
+    return {"cand_max": cand_max, "ccap": ccap, "pairs": tot_c,
+            "kernel_pairs": int(ik[-1]), "s": s}
+
+
+def card_step(torch, steps, arch: str, layers: int) -> dict:
+    """The sharded ``train_4k`` step of ``arch`` at ``layers`` layers on a
+    (1, 1) mesh on the card (NCCL at world size 1): one untimed step, one
+    under FlopCounterMode, one timed; flops, peak memory and step time."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cfg = lm_config(steps, arch, "train_4k", layers)
+    kw = dict(cfg_override={"n_layers": layers},
+              shape_override={"global_batch": steps.lm_accum(cfg, False)})
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            sd = steps.build_step(arch, "train_4k",
+                                  mesh=mesh_mod.make_host_mesh(), **kw)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, state, batch = sd.init_args()
+            sd.fn(params, state, batch)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                sd.fn(params, state, batch)
+            _, ms = sync_ms(torch, lambda: sd.fn(params, state, batch))
+            peak = torch.cuda.max_memory_allocated()
+            del params, state, batch
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"flops": float(counter.get_total_flops()), "peak_bytes": peak,
+            "step_ms": ms, "kw": kw}
+
+
+P8_PRODUCTION = (("internlm2-20b", "train_4k"), ("snn-service", "svc_10m"))
+
+
+def production_dryruns(out_dir: str):
+    """Start the dry-run of each `P8_PRODUCTION` cell at (16, 16) and
+    (2, 16, 16) in one process of its own on the CPU (a fake process group
+    each, records under ``out_dir``): it traces on one core while (a)
+    runs.  Returns the process and its log's path."""
+    code = ("import sys; from repro_torch.launch import dryrun\n"
+            f"for arch, shape in {P8_PRODUCTION!r}:\n"
+            "    for mp in (False, True):\n"
+            "        dryrun.run_cell(arch, shape, multi_pod=mp, "
+            f"out_dir={out_dir!r})\n")
+    log = Path(out_dir) / "dryrun.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                                stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return proc, log
+
+
+def dryrun_vs_card(torch, chk: Checks, card: str) -> dict:
+    """(c) the dry-run at a (1, 1) mesh against the same step on the
+    card."""
+    from repro_torch.launch import dryrun, steps
+
+    out = {}
+    for arch, layers in P7_FULL.items():
+        got = card_step(torch, steps, arch, layers)
+        rec = dryrun.run_cell(arch, "train_4k", mesh_shape=(1, 1),
+                              fit_lm=False, verbose=False, **got["kw"])
+        rel = abs(rec["flops_per_device"] - got["flops"]) / got["flops"]
+        mem = abs(rec["peak_memory_bytes"] - got["peak_bytes"]) \
+            / got["peak_bytes"]
+        ratio = got["step_ms"] / (1e3 * rec["roofline_step_time_s"])
+        out[arch] = {"layers": layers, "card_flops": got["flops"],
+                     "dryrun_flops": rec["flops_per_device"],
+                     "card_peak_bytes": got["peak_bytes"],
+                     "dryrun_peak_bytes": rec["peak_memory_bytes"],
+                     "step_ms": got["step_ms"],
+                     "roofline_ms": 1e3 * rec["roofline_step_time_s"],
+                     "t_compute_ms": 1e3 * rec["t_compute_s"],
+                     "t_memory_ms": 1e3 * rec["t_memory_s"],
+                     "t_collective_ms": 1e3 * rec["t_collective_s"],
+                     "bottleneck": rec["bottleneck"]}
+        chk.ok(rel <= 0.01 and mem <= 0.15,
+               f"dry-run of {arch} train_4k at {layers} layers, (1, 1): "
+               f"{rec['flops_per_device']:.4e} flops beside "
+               f"FlopCounterMode's {got['flops']:.4e} on the card (rel "
+               f"{rel:.2e}), peak {rec['peak_memory_bytes'] / 1e9:.2f} GB "
+               f"beside max_memory_allocated {got['peak_bytes'] / 1e9:.2f} "
+               f"GB (rel {mem:.3f})")
+        chk.note(f"{arch}: step {got['step_ms']:.1f} ms measured (host "
+                 f"clock, synchronized) against the roofline's "
+                 f"{1e3 * rec['roofline_step_time_s']:.1f} ms (x{ratio:.2f}): "
+                 f"compute {1e3 * rec['t_compute_s']:.1f} ms, memory "
+                 f"{1e3 * rec['t_memory_s']:.1f} ms (every op's bytes, "
+                 f"unfused), collective {1e3 * rec['t_collective_s']:.3f} ms,"
+                 f" bottleneck {rec['bottleneck']} [{card}]")
+    return out
+
+
+def production_estimates(chk: Checks, proc, log: Path, card: str) -> dict:
+    """(c) the production meshes' records of `production_dryruns`."""
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed after 300 s"
+    out = {}
+    chk.ok(rc == 0, f"the production dry-runs' process exited {rc} "
+           f"(its log: {log.read_text()[-400:]!r})" if rc else
+           "the production dry-runs' process exited 0")
+    for arch, shape in P8_PRODUCTION:
+        for mp in (False, True):
+            suffix = "multi" if mp else "single"
+            name = (f"{arch}__{shape}__{suffix}"
+                    + ("__snn" if arch == "snn-service" else "") + ".json")
+            path = log.parent / name
+            if not path.exists():
+                chk.ok(False, f"dry-run record {name} written")
+                continue
+            rec = json.loads(path.read_text())
+            key = f"{arch}:{shape}:{'x'.join(map(str, rec['mesh']))}"
+            out[key] = {k: rec.get(k) for k in (
+                "flops_per_device", "hbm_bytes_per_device",
+                "collective_bytes_per_device", "collective_breakdown",
+                "peak_memory_bytes", "t_compute_s", "t_memory_s",
+                "t_collective_s", "bottleneck", "roofline_step_time_s",
+                "mfu_at_roofline", "window_fraction", "compile_s",
+                "trace_s", "skipped")}
+            if "skipped" in rec:
+                chk.ok(False, f"dry-run {key}: skipped, {rec['skipped']}")
+                continue
+            chk.ok(bool(rec["bottleneck"]),
+                   f"dry-run {key}: estimates from the data sheet's "
+                   f"constants, compute {1e3 * rec['t_compute_s']:.2f} ms, "
+                   f"memory {1e3 * rec['t_memory_s']:.2f} ms, collective "
+                   f"{1e3 * rec['t_collective_s']:.2f} ms, bottleneck "
+                   f"{rec['bottleneck']}, peak "
+                   f"{rec['peak_memory_bytes'] / 1e9:.2f} GB a rank, "
+                   f"MFU at the roofline {rec['mfu_at_roofline']:.3f} (not "
+                   f"measured; printed beside {card})")
+    return out
+
+
+def card_peaks(torch, chk: Checks, card: str) -> dict:
+    """(d) the card's peaks, measured: bf16 and FP32 (no TF32) matmuls of
+    side `P8_PEAK_N`, and a 4 GiB device-to-device copy."""
+    from repro_torch.launch import hlo_analysis as hlo
+
+    n = P8_PEAK_N
+    out = {}
+    for name, dtype, sheet in (("bf16", torch.bfloat16, hlo.PEAK_FLOPS),
+                               ("fp32", torch.float32,
+                                hlo.PEAK_FLOPS_FP32)):
+        a = torch.randn(n, n, device=DEVICE, dtype=dtype)
+        b = torch.randn(n, n, device=DEVICE, dtype=dtype)
+        ms = timed(torch, lambda: torch.matmul(a, b), reps=10, warmup=3)
+        rate = 2.0 * n ** 3 / (ms / 1e3)
+        out[name] = {"ms": ms, "flops_per_s": rate, "sheet": sheet}
+        chk.ok(rate > 0.2 * sheet,
+               f"{name} {n}^3 torch.matmul: {ms:.3f} ms, {rate / 1e12:.1f} "
+               f"TFLOP/s beside the data sheet's {sheet / 1e12:.0f} "
+               f"({rate / sheet:.2f}) [{card}]")
+        del a, b
+    src = torch.empty(P8_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    ms = timed(torch, lambda: dst.copy_(src), reps=10, warmup=2)
+    rate = 2.0 * P8_COPY_BYTES / (ms / 1e3)
+    out["copy"] = {"ms": ms, "bytes_per_s": rate, "sheet": hlo.HBM_BW}
+    chk.ok(rate > 0.2 * hlo.HBM_BW,
+           f"4 GiB device-to-device copy: {ms:.3f} ms, {rate / 1e12:.2f} "
+           f"TB/s read and written beside the data sheet's "
+           f"{hlo.HBM_BW / 1e12:.2f} ({rate / hlo.HBM_BW:.2f}) [{card}]")
+    del src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_host_and_dryrun(torch, chk: Checks, K, ref, ops_mod, snn, engine,
+                          card: str) -> dict:
+    """Phase 8: the engine's host lane and the candidate-compacted op on
+    the SIFT-1M stand-in, the dry-run against the card, the card's
+    peaks."""
+    import tempfile
+
+    cpu = host_cpu()
+    print(f"phase 8: the host lane and the dry-run (host: {cpu})")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, log = production_dryruns(tmp)
+        try:
+            rec = host_and_card(torch, chk, K, ref, ops_mod, snn, engine,
+                                cpu, card)
+            t = time.perf_counter()
+            rec["dryrun"].update(production_estimates(chk, proc, log, card))
+            chk.note(f"(c) production records waited for "
+                     f"{time.perf_counter() - t:.1f} s")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rec
+
+
+def host_and_card(torch, chk: Checks, K, ref, ops_mod, snn, engine,
+                  cpu: str, card: str) -> dict:
+    """Phase 8's (a), (b), (c) at (1, 1) and (d), in that order."""
+    x = sift_standin(N_ROWS, DIM, SEED)
+    q = sift_standin(N_QUERIES, DIM, SEED + 1)
+    index = snn.build_index(x, device=DEVICE)
+    radius = calibrate_radius(torch, index, q)
+    card_csr = snn.query_radius_csr(index, q, radius, device=DEVICE)
+    xs64 = index.xs.cpu().numpy().astype(np.float64)
+    hn64 = 0.5 * np.einsum("ij,ij->i", xs64, xs64)
+    rec = {"radius": radius, "host": cpu}
+    t = time.perf_counter()
+    rec["host_lane"] = host_lane(torch, chk, snn, engine, index, q, radius,
+                                 card_csr, xs64, hn64, cpu, card)
+    chk.note(f"(a) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    rec["compacted_stacked"] = compacted_on_card(
+        torch, chk, K, ref, ops_mod, snn, engine, index, q, radius, xs64,
+        hn64)
+    chk.note(f"(b) took {time.perf_counter() - t:.1f} s")
+    del index, x, xs64, hn64, card_csr
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec["dryrun"] = dryrun_vs_card(torch, chk, card)
+    chk.note(f"(c) took {time.perf_counter() - t:.1f} s")
+    rec["peaks"] = card_peaks(torch, chk, card)
+    return rec
+
+
 def ptxas_table(log: str, nvcc: str) -> dict:
     """{kernel: {"registers", "smem_bytes" (static), "spill_stores",
     "spill_loads"}} from nvcc's ``-Xptxas -v`` output, the names demangled
@@ -5254,6 +5752,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        # the script copied alone, without the port beside it
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name};"
+              " run it from a checkout of the repository", file=sys.stderr)
+        return 1
     # full float32 in every PyTorch product: the kernels' comparisons and
     # the recsys models' MLPs, whose float64 check refuses TF32 (the
     # package leaves these switches to its caller)
@@ -5312,14 +5815,14 @@ def main() -> int:
     if not phase_done("phase 2", t):
         return 1
     t = time.perf_counter()
-    g_launches, looped_graph, eps, g_shape, plain, t_plain = phase_graph(
-        torch, chk, K, ref, snn, engine, join, graph, dbscan, ops_mod, index,
-        x, xs64, hn64, clock)
+    g_launches, looped_graph, eps, g_shape, plain, t_plain, gd = phase_graph(
+        torch, chk, K, ref, snn, engine, join, graph, dbscan, ops_mod, x,
+        clock)
     if not phase_done("phase 2b", t):
         return 1
     t = time.perf_counter()
     front = phase_sharded(torch, chk, K, ref, snn, engine, join, graph,
-                          index, x, q, radius, eps, csr, plain, t_plain,
+                          index, q, radius, eps, csr, gd, plain, t_plain,
                           xs64, hn64, clock)
     degrees = np.diff(plain.indptr)
     del plain, csr
@@ -5328,8 +5831,8 @@ def main() -> int:
         return 1
     t = time.perf_counter()
     front.update(phase_front_ends(torch, chk, K, ref, ops_mod, snn, engine,
-                                  join, dbscan, index, x, q, radius, eps,
-                                  degrees, xs64, hn64, clock))
+                                  join, dbscan, index, x, q, radius, gd,
+                                  eps, degrees, xs64, hn64, clock))
     del degrees
     if not phase_done("phase 2c", t):
         return 1
@@ -5342,8 +5845,9 @@ def main() -> int:
         rec.update(launches=sum(by_path.values()), launches_by_path=by_path,
                    graph_shape=g_shape[rec["name"]])
     kernels += phase_times_single(torch, chk, K, ref, ops_mod, snn, engine,
-                                  index, x, q, radius, eps, xs64, hn64,
+                                  index, q, radius, xs64, hn64, gd, eps,
                                   (looped_main, looped_graph), ptxas)
+    del gd
     for rec in kernels:
         for path, counts in front.items():
             if counts.get(rec["name"]):
@@ -5410,6 +5914,12 @@ def main() -> int:
     distributed = phase_distributed(torch, chk, card)
     print("phase 7 record: " + json.dumps(distributed))
     if not phase_done("phase 7", t):
+        return 1
+    t = time.perf_counter()
+    host = phase_host_and_dryrun(torch, chk, K, ref, ops_mod, snn, engine,
+                                 card)
+    print("phase 8 record: " + json.dumps(host))
+    if not phase_done("phase 8", t):
         return 1
     for rec in kernels:
         base = {"snn_count": "snn_count_stacked",

@@ -124,7 +124,9 @@ def mirror_merge(indptr, cols, dists, chunk: int):
 # --------------------------------------------------------------------------- #
 def chunked_join(index, segments, xq, aq, r, th, *, query_chunk: int,
                  segs_per_chunk: int, query_tile: int = 128,
-                 packed: bool = True, mixed: bool = False):
+                 packed: bool = True, memory_budget_mb=None,
+                 mixed: bool = False, compacted: bool | None = None,
+                 oracle: bool = False):
     """Run alpha-sorted query chunks through the engine over ``segments``.
 
     ``xq``/``aq``/``r``/``th`` are the float32 predicate inputs of
@@ -139,6 +141,10 @@ def chunked_join(index, segments, xq, aq, r, th, *, query_chunk: int,
     tile the sorted order, ``query_chunk`` a multiple of the segment size),
     which is only meaningful when the queries ARE the database.  Returns
     chunk-major (= ascending sorted row) ``(counts, flat_ids, flat_dh)``.
+    ``oracle=True`` takes the engine's host lane (`engine.run_csr_packed`;
+    CPU plans only, it raises on the card's), where ``compacted`` and
+    ``memory_budget_mb`` select and bound its executors; off the lane both
+    are ignored.
     """
     m = xq.shape[0]
     aq64 = np.asarray(aq, np.float64)
@@ -162,7 +168,8 @@ def chunked_join(index, segments, xq, aq, r, th, *, query_chunk: int,
         if packed:
             _, cnt, ids, dh = _engine.run_csr_packed(
                 pack, qp, aqp, rp, thp, c1 - c0, query_tile=query_tile,
-                first_seg=k0, pq=pqp, mixed=mixed)
+                first_seg=k0, memory_budget_mb=memory_budget_mb, pq=pqp,
+                mixed=mixed, compacted=compacted, oracle=oracle)
         else:
             # the schedule: alpha-adjacent queries span a narrow window, so
             # most segments fail this interval test and never launch
@@ -176,8 +183,10 @@ def chunked_join(index, segments, xq, aq, r, th, *, query_chunk: int,
                         if _engine._window_may_hit(
                             s, aq64[c0:c1], r64[c0:c1],
                             pq64_full[:, c0:c1], qn64)]
-            _, cnt, ids, dh = _engine.run_csr(live, qp, aqp, rp, thp, c1 - c0,
-                                              pq=pqp, mixed=mixed)
+            _, cnt, ids, dh = _engine.run_csr(
+                live, qp, aqp, rp, thp, c1 - c0, query_tile=query_tile,
+                memory_budget_mb=memory_budget_mb, pq=pqp, mixed=mixed,
+                oracle=oracle)
         counts[c0:c1] = cnt
         ids_parts.append(ids)
         dh_parts.append(dh)
@@ -221,7 +230,9 @@ def resolve_chunk(n: int, query_chunk: int | None, memory_budget_mb,
 def sorted_join_csr(index, segments, q_sorted, radius, *, symmetric: bool,
                     query_chunk: int, segs_per_chunk: int, query_tile: int,
                     return_distance: bool, native: bool, dest: np.ndarray,
-                    packed: bool = True, mixed: bool = False):
+                    packed: bool = True, memory_budget_mb=None,
+                    mixed: bool = False, compacted: bool | None = None,
+                    oracle: bool = False):
     """Shared tail of the self-join and bichromatic builders.
 
     ``q_sorted`` are raw query points in ascending-alpha order and ``dest``
@@ -234,7 +245,9 @@ def sorted_join_csr(index, segments, q_sorted, radius, *, symmetric: bool,
     counts, flat_ids, flat_dh = chunked_join(
         index, segments, xq, aq, r, th, query_chunk=query_chunk,
         segs_per_chunk=segs_per_chunk if symmetric else 0,
-        query_tile=query_tile, packed=packed, mixed=mixed)
+        query_tile=query_tile, packed=packed,
+        memory_budget_mb=memory_budget_mb, mixed=mixed, compacted=compacted,
+        oracle=oracle)
     indptr = indptr_from_counts(counts)
     fin = _snn.csr_finalize(index, indptr, flat_ids, flat_dh, xq, qsq, counts,
                             return_distance, native)
@@ -290,31 +303,42 @@ def _empty_csr(m: int, return_distance: bool) -> _snn.CSRNeighbors:
 def single_query(index, q, radius, return_distance: bool = True, *,
                  pack=None, block: int = 512, query_tile: int = 128,
                  native: bool = True, packed: bool = True,
-                 mixed: bool = False, bucket: bool = True,
-                 fused: bool = True, device=None) -> _snn.CSRNeighbors:
+                 memory_budget_mb=None, mixed: bool = False,
+                 bucket: bool = True, compacted: bool | None = None,
+                 fused: bool = True, oracle: bool = False,
+                 device=None) -> _snn.CSRNeighbors:
     """A point-query batch through the engine over ``pack`` (default: the
     index's cached plan on ``device``): the packed executor, or with
     ``packed=False`` the looped one over the plan's segments, with
-    bit-identical results."""
+    bit-identical results.  ``oracle=True`` takes the engine's host lane (`engine.run_csr_packed`;
+    CPU plans only, it raises on the card's), where ``compacted`` and
+    ``memory_budget_mb`` select and bound its executors; off the lane both
+    are ignored."""
     if pack is None:
         index, pack = _resolve_pack(index, block, device)
     if not packed:
         return _engine.query_csr(
             index, pack.segments, q, radius, return_distance,
-            query_tile=query_tile, native=native, mixed=mixed, bucket=bucket)
+            query_tile=query_tile, native=native,
+            memory_budget_mb=memory_budget_mb, mixed=mixed, bucket=bucket,
+            oracle=oracle)
     return _engine.query_csr_packed(
         index, pack, q, radius, return_distance, query_tile=query_tile,
-        native=native, mixed=mixed, bucket=bucket, fused=fused)
+        native=native, memory_budget_mb=memory_budget_mb, mixed=mixed,
+        bucket=bucket, compacted=compacted, fused=fused, oracle=oracle)
 
 
-def count_pass(pack, xq, aq, qsq, r, *, query_tile: int = 128, pq=None,
-               mixed: bool = False, bucket: bool = True) -> np.ndarray:
+def count_pass(pack, xq, aq, qsq, r, *, query_tile: int = 128,
+               memory_budget_mb=None, pq=None, mixed: bool = False,
+               bucket: bool = True, compacted: bool | None = None,
+               oracle: bool = False) -> np.ndarray:
     """One engine count launch for prepared queries under Euclidean ``r``.
 
     The pass-1-only join primitive (`engine.run_counts_packed`): no compact
     pass, no flat outputs.  The kNN expansion loop re-enters it with a
     shrinking active subset each round; bucketed padding keeps that at
-    O(log m) launch shapes instead of one a round.
+    O(log m) launch shapes instead of one a round.  ``oracle``,
+    ``compacted`` and ``memory_budget_mb`` as in `single_query`.
     """
     thresh = ((r * r - qsq) / 2.0).astype(np.float32)
     qp, aqp, rp, thp, m = _ops.pad_queries(xq, aq, r.astype(np.float32),
@@ -322,20 +346,27 @@ def count_pass(pack, xq, aq, qsq, r, *, query_tile: int = 128, pq=None,
                                            bucket=bucket)
     pqp = None if pq is None else _ops.pad_components(pq, qp.shape[0])
     return _engine.run_counts_packed(pack, qp, aqp, rp, thp, m,
-                                     query_tile=query_tile, pq=pqp,
-                                     mixed=mixed)
+                                     query_tile=query_tile,
+                                     memory_budget_mb=memory_budget_mb,
+                                     pq=pqp, mixed=mixed,
+                                     compacted=compacted, oracle=oracle)
 
 
 def query_counts(index, q, radius, *, block: int = 512,
-                 query_tile: int = 128, mixed: bool = False,
-                 bucket: bool = True, device=None) -> np.ndarray:
+                 query_tile: int = 128, memory_budget_mb=None,
+                 mixed: bool = False, bucket: bool = True,
+                 compacted: bool | None = None, oracle: bool = False,
+                 device=None) -> np.ndarray:
     """Exact neighbour counts per query: pass 1 only, no CSR.
 
     The same predicate pipeline as `snn.query_radius_csr`, so the counts
     equal ``np.diff(csr.indptr)`` of the full query exactly.  ``index`` is
     an `snn.SNNIndex` or a `streaming.StreamingSNNIndex` (base + deltas
     through its plan); ``radius`` is a scalar or per-query (m,) vector in
-    the native metric.
+    the native metric.  ``oracle=True`` takes the engine's host lane (`engine.run_csr_packed`;
+    CPU plans only, it raises on the card's), where ``compacted`` and
+    ``memory_budget_mb`` select and bound its executors; off the lane both
+    are ignored.
     """
     owner, pack = _resolve_pack(index, block, device)
     xq, aq, r32, th, qsq = _snn.prepare_query_predicates(owner, q, radius)
@@ -344,8 +375,10 @@ def query_counts(index, q, radius, *, block: int = 512,
     pq = _snn.query_extra_projections(owner, xq)
     pqp = None if pq is None else _ops.pad_components(pq, qp.shape[0])
     return _engine.run_counts_packed(pack, qp, aqp, rp, thp, m,
-                                     query_tile=query_tile, pq=pqp,
-                                     mixed=mixed)
+                                     query_tile=query_tile,
+                                     memory_budget_mb=memory_budget_mb,
+                                     pq=pqp, mixed=mixed,
+                                     compacted=compacted, oracle=oracle)
 
 
 # --------------------------------------------------------------------------- #
@@ -368,6 +401,8 @@ def join(
     n_iter: int = 64,
     packed: bool = True,
     mixed: bool = False,
+    compacted: bool | None = None,
+    oracle: bool = False,
     device=None,
 ) -> _snn.CSRNeighbors:
     """Exact bichromatic eps-join: row i lists every b within radius of a[i].
@@ -383,8 +418,9 @@ def join(
     (the inner-product threshold for mips, where a is the query side);
     ``b_index`` is a prebuilt `snn.SNNIndex` over exactly ``b``;
     ``memory_budget_mb``, when given, sizes the query chunks in place of
-    ``query_chunk`` (`resolve_chunk`); the other knobs are
-    `build_neighbor_graph`'s.  Column ids are original B row ids,
+    ``query_chunk`` (`resolve_chunk`) and bounds the host lane's filters
+    (``oracle=True``, with ``compacted``: `chunked_join`); the other knobs
+    are `build_neighbor_graph`'s.  Column ids are original B row ids,
     ascending in B's sorted order within each row.
     """
     dev = _registry.resolve_device(device)
@@ -411,7 +447,8 @@ def join(
         index, segments, a[qord], r_sorted, symmetric=False, query_chunk=cs,
         segs_per_chunk=0, query_tile=query_tile,
         return_distance=return_distance, native=native, dest=qord,
-        packed=packed, mixed=mixed)
+        packed=packed, memory_budget_mb=memory_budget_mb, mixed=mixed,
+        compacted=compacted, oracle=oracle)
 
 
 def _metricsafe_scores(index, a: np.ndarray) -> np.ndarray:
@@ -437,6 +474,8 @@ def join_counts(
     query_tile: int = 128,
     n_iter: int = 64,
     mixed: bool = False,
+    compacted: bool | None = None,
+    oracle: bool = False,
     device=None,
 ) -> np.ndarray:
     """Count-only bichromatic join: ``|ball(a[i], r_i) ∩ B|`` per A row.
@@ -446,7 +485,7 @@ def join_counts(
     (default: the card), but every chunk runs `engine.run_counts_packed`
     and nothing is compacted.  Counts equal ``np.diff(join(...).indptr)``
     exactly (identical predicates).  ``memory_budget_mb`` sizes the chunks
-    as in `join`.
+    as in `join`; ``oracle``/``compacted`` as in `join`.
     """
     dev = _registry.resolve_device(device)
     a = _as_rows(a)
@@ -477,8 +516,9 @@ def join_counts(
         pqp = (None if pq_full is None
                else _ops.pad_components(pq_full[:, c0:c1], qp.shape[0]))
         counts_sorted[c0:c1] = _engine.run_counts_packed(
-            pack, qp, aqp, rp, thp, c1 - c0, query_tile=query_tile, pq=pqp,
-            mixed=mixed)
+            pack, qp, aqp, rp, thp, c1 - c0, query_tile=query_tile,
+            memory_budget_mb=memory_budget_mb, pq=pqp, mixed=mixed,
+            compacted=compacted, oracle=oracle)
     out = np.empty(m, np.int64)
     out[qord] = counts_sorted
     return out

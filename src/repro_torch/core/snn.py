@@ -498,6 +498,9 @@ def query_radius_csr(
     mixed: bool = False,
     bucket: bool = True,
     fused: bool = True,
+    compacted: bool | None = None,
+    memory_budget_mb: float | None = None,
+    oracle: bool = False,
     device=None,
 ) -> CSRNeighbors:
     """Exact radius query with CSR output (two passes, no (m, n) array).
@@ -513,6 +516,14 @@ def query_radius_csr(
     ``fused`` lets a repeated batch shape run both passes without a host
     sync.  None of them changes the result.
 
+    ``oracle=True`` runs the engine's host lane instead (the reference's
+    CPU executors; needs ``device="cpu"``, and raises on the card's plan):
+    one dense filter, or with the index's extra components the filter on
+    gathered candidate rows, one batched launch (``compacted`` None or
+    True) or one a query tile (``compacted=False``); ``memory_budget_mb``
+    bounds its dense filters (`engine.run_csr_packed`).  Off the lane both
+    are ignored.
+
     Runs on ``device`` (default: the CUDA device; raises without one unless
     ``device="cpu"``), through the index's cached plan on that device.
     """
@@ -520,8 +531,9 @@ def query_radius_csr(
 
     return _single_query(index, q, radius, return_distance, block=block,
                          query_tile=query_tile, native=native, packed=packed,
-                         mixed=mixed, bucket=bucket, fused=fused,
-                         device=device)
+                         memory_budget_mb=memory_budget_mb, mixed=mixed,
+                         bucket=bucket, compacted=compacted, fused=fused,
+                         oracle=oracle, device=device)
 
 
 def csr_finalize(index: SNNIndex, indptr, indices, fd, xq, qsq, counts,

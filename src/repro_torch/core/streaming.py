@@ -481,29 +481,42 @@ class StreamingSNNIndex:
                          packed: bool = True,
                          mixed: bool = False,
                          bucket: bool = True,
-                         fused: bool = True) -> _snn.CSRNeighbors:
+                         fused: bool = True,
+                         compacted: bool | None = None,
+                         memory_budget_mb: float | None = None,
+                         oracle: bool = False) -> _snn.CSRNeighbors:
         """Exact CSR results over base + deltas through the engine.
 
         Row contents are segment-major (base first, then the deltas in
         append order), ascending in sorted position within each segment.
         ``packed=True`` runs the snapshot's plan (one stacked launch a
         pass over every segment); ``packed=False`` the looped executor over
-        the same segments, bit-identically.
+        the same segments, bit-identically.  ``oracle=True`` (an index on
+        the CPU) takes the engine's host lane, with ``compacted`` and
+        ``memory_budget_mb`` (`core.join.single_query`).
         """
         parts, _, plan = self._snapshot()
         return _join_single_query(parts[0], q, radius, return_distance,
                                   pack=plan, query_tile=query_tile,
-                                  native=native, packed=packed, mixed=mixed,
-                                  bucket=bucket, fused=fused)
+                                  native=native, packed=packed,
+                                  memory_budget_mb=memory_budget_mb,
+                                  mixed=mixed, bucket=bucket,
+                                  compacted=compacted, fused=fused,
+                                  oracle=oracle)
 
     def query_counts_device(self, q: np.ndarray, radius, *,
-                            query_tile: int = 128, mixed: bool = False,
-                            bucket: bool = True) -> np.ndarray:
+                            query_tile: int = 128,
+                            memory_budget_mb: float | None = None,
+                            mixed: bool = False, bucket: bool = True,
+                            compacted: bool | None = None,
+                            oracle: bool = False) -> np.ndarray:
         """Exact per-query neighbour counts over base + deltas, pass 1 only
         (`core.join.query_counts` on this snapshot's plan); they equal
         ``np.diff(query_radius_csr(...).indptr)``."""
         return _join_query_counts(self, q, radius, query_tile=query_tile,
-                                  mixed=mixed, bucket=bucket)
+                                  memory_budget_mb=memory_budget_mb,
+                                  mixed=mixed, bucket=bucket,
+                                  compacted=compacted, oracle=oracle)
 
     def query_knn(self, q: np.ndarray, k, return_distance: bool = True, *,
                   native: bool = True, query_tile: int = 128,

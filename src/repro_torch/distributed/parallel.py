@@ -30,6 +30,11 @@ axes ("data", "model") or ("pod", "data", "model").
   every model rank; its gradient, the same on each, is cut back to the
   shard); each model rank runs its own experts' capacity slots and the
   partial outputs are summed at ``act_btd``.
+* **Fewer KV heads than model ranks** (GQA, "model" a multiple of the
+  KV heads): consecutive model ranks share a KV head, gathered whole over
+  their run and its gradient reduce-scattered back
+  (`ParallelContext.replicate_kv`), as Megatron replicates KV heads; the
+  storage layout stays the reference's even column split.
 * **Data parallelism.**  A data rank holds its rows of every microbatch,
   the loss divides by the microbatch's global label count, and the MoE
   aux losses are means over the microbatch's global groups, so that the
@@ -55,6 +60,8 @@ from .sharding import Spec, current_context, gathered_spec, to_placements
 _VOCAB_GATHERED = {"embed": Spec("model", None), "lm_head": Spec(None, "model")}
 # the router is used whole on every model rank
 _WHOLE = {"router"}
+# a GQA layer's KV projections, whole heads a model rank (`replicate_kv`)
+_KV = {"wk", "wv"}
 
 
 def _groups_of(mesh, axes: tuple):
@@ -317,6 +324,26 @@ class ParallelContext:
             mesh, ("model",))
         self.spec_of = spec_of
         self.moe_global_groups = None    # set by the step a microbatch
+        self.kv_rep, self.kv_group, self.kv_pos = 1, None, 0
+
+    def replicate_kv(self, n_kv_heads: int) -> None:
+        """Megatron's GQA layout where "model" is wider than the KV heads
+        (``tp`` a multiple of ``n_kv_heads``): each run of ``tp /
+        n_kv_heads`` consecutive model ranks shares one KV head, whose
+        ``wk``/``wv`` columns it holds in equal blocks (the reference's
+        spec cuts the columns evenly over "model").  The layer's gather
+        all-gathers the head over that run, and its backward
+        reduce-scatters the run's summed gradient back into the blocks.
+        Every rank makes every run's group, in one order."""
+        rep = self.tp_size // n_kv_heads
+        if rep <= 1:
+            return
+        grid = self.mesh.mesh
+        rows = grid.reshape(-1, grid.shape[-1])
+        runs = [row[h * rep:(h + 1) * rep].tolist()
+                for row in rows for h in range(n_kv_heads)]
+        self.kv_group = dist.new_subgroups_by_enumeration(runs)[0]
+        self.kv_rep, self.kv_pos = rep, self.tp_rank % rep
 
     # ---- the MoE's split (the step checked the divisions) ----
     def local_experts(self, n_experts: int) -> tuple:
@@ -357,6 +384,9 @@ class ParallelContext:
         if want is None:
             return local if dtype is None else local.to(dtype)
         plan = self._plan(self.spec_of(name, local.ndim), want, local.ndim)
+        if self.kv_rep > 1 and name in _KV:
+            plan += ((local.ndim - 1, self.kv_group, self.kv_rep,
+                      self.kv_pos, "sum"),)
         if not plan:
             return local if dtype is None else local.to(dtype)
         return _Gather.apply(local, dtype, plan)

@@ -15,7 +15,10 @@ to the device once per batch.
 `snn_filter`, `snn_count` and `snn_compact` are the public single-segment
 ops over padded operands, and `embedding_bag` the recsys table lookup, all
 dispatched by `kernels.registry` (the CUDA kernels for CUDA tensors, the
-plain versions for CPU tensors).
+plain versions for CPU tensors).  `snn_filter_tiles`, `snn_count_tiles` and
+`snn_csr_compacted_stacked`, the candidate-compacted ops of the engine's
+host lane, are torch operations on their tensors' device (XLA on every
+lane in the reference).
 """
 from __future__ import annotations
 
@@ -122,6 +125,38 @@ def snn_compact(q, aq, r, thresh, offsets, xs, alphas, half_norms, pq=None,
     """
     return _registry.snn_compact(q, aq, r, thresh, offsets, xs, alphas,
                                  half_norms, pq, px, nnz=nnz, bn=bn)
+
+
+def snn_filter_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None):
+    """Candidate-compacted tile filter: (T, p, C) masked half distances.
+
+    ``qt`` (T, p, d) query tiles against ``xt`` (T, C, d) gathered candidate
+    rows; padding candidate slots must carry alpha = half_norm = +BIG.  A
+    kept entry is the dense `snn_filter`'s value for the same pair up to
+    the float32 rounding of a differently shaped product.
+    """
+    return _registry.snn_filter_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt,
+                                      pxt)
+
+
+def snn_count_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None, *,
+                    mixed: bool = False):
+    """Candidate-compacted tile counts: (T, p) int32 survivors per query."""
+    return _registry.snn_count_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt,
+                                     pxt, mixed=mixed)
+
+
+def snn_csr_compacted_stacked(q, aq, r, thresh, xs, alphas, half_norms,
+                              pq=None, px=None, *, ptile: int, ccap: int,
+                              nnz_cap: int):
+    """Single-dispatch candidate-compacted CSR over a segment stack.
+
+    Speculative static capacities ``ccap``/``nnz_cap``; see
+    `kernels.ref.snn_csr_compacted_stacked_ref` for the overflow contract.
+    """
+    return _registry.snn_csr_compacted_stacked(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, ptile=ptile,
+        ccap=ccap, nnz_cap=nnz_cap)
 
 
 def embedding_bag(ids, table, *, mode: str = "sum"):

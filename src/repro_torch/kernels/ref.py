@@ -274,3 +274,199 @@ def bag_range_keys(ids, n_rows: int, rows_per_range: int):
     int64."""
     rows = ids.to(torch.int64).clamp(0, n_rows - 1)
     return torch.div(rows, rows_per_range, rounding_mode="floor")
+
+
+# --------------------------------------------------------------------------- #
+# Filter-derived passes and the candidate-compacted tile evaluation            #
+# --------------------------------------------------------------------------- #
+# The host lane's executors (`core.engine`, ``oracle=True``) evaluate one
+# masked filter and derive both passes from it, or evaluate the same
+# predicate on gathered candidate rows only.  The reference runs these as
+# XLA on every lane; here they are torch operations on the tensors' own
+# device.  A gathered candidate keeps the dense decision because the keep
+# expressions are the same elementwise float32 formulas as `snn_filter_ref`
+# and `box_mask`, evaluated on the same operand values.
+
+
+def stacked_counts_from_filter(dh, *, n_seg: int):
+    """(m, S*n_pad) masked filter -> per-(segment, query) counts (S, m)."""
+    m = dh.shape[0]
+    keep = (dh < BIG).reshape(m, n_seg, -1)
+    return keep.sum(dim=2, dtype=torch.int32).T.contiguous()
+
+
+def snn_compact_stacked_from_filter(dh, offsets, *, n_seg: int, nnz: int):
+    """Pass-2 scatter from an already evaluated stacked filter.
+
+    ``dh`` is the (m, S*n_pad) `snn_filter_ref` output over the flattened
+    stack, ``offsets`` `stacked_prefix`'s (S, m).  Returns pack-flat (idx,
+    dhalf) under `snn_compact_stacked_ref`'s conventions: survivor j of
+    segment s for query i lands in ``offsets[s, i] + j``; slots at or past
+    the trailing trash slot are dropped, and the trash slot ends -1 / +BIG.
+    """
+    m, cols_n = dh.shape
+    dev = dh.device
+    keep3 = (dh < BIG).reshape(m, n_seg, -1)
+    within = torch.cumsum(keep3, dim=2, dtype=torch.int64) - 1
+    trash = nnz - 1
+    pos = torch.where(keep3, offsets.T[:, :, None].to(torch.int64) + within,
+                      torch.full_like(within, trash)).reshape(-1)
+    cols = torch.arange(cols_n, dtype=torch.int32,
+                        device=dev).expand(m, cols_n).reshape(-1)
+    ok = (pos >= 0) & (pos < nnz)
+    out_idx = torch.full((nnz,), -1, dtype=torch.int32, device=dev)
+    out_dh = torch.full((nnz,), BIG, dtype=torch.float32, device=dev)
+    out_idx[pos[ok]] = cols[ok]
+    out_dh[pos[ok]] = dh.reshape(-1)[ok]
+    out_idx[trash] = -1
+    out_dh[trash] = BIG
+    return out_idx, out_dh
+
+
+def _box_mask_tiles(pqt, pxt, rt, tht, hnt):
+    """`box_mask` over candidate tiles: (ke, T, p) x (ke, T, C) -> (T, p, C),
+    the same float32 expression tree element for element."""
+    xn = torch.sqrt(torch.clamp_min(2.0 * hnt, 0.0))              # (T, C)
+    qn = torch.sqrt(torch.clamp_min(rt * rt - 2.0 * tht, 0.0))    # (T, p)
+    lim = rt[:, :, None] + BOX_EPS * (xn[:, None, :] + qn[:, :, None]
+                                      + torch.abs(rt)[:, :, None])
+    ok = torch.abs(pxt[0][:, None, :] - pqt[0][:, :, None]) <= lim
+    for c in range(1, pqt.shape[0]):
+        ok = ok & (torch.abs(pxt[c][:, None, :] - pqt[c][:, :, None]) <= lim)
+    return ok
+
+
+def _tiles_body(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None):
+    """(keep, dhalf) over query tiles x gathered candidate tiles.
+
+    ``qt`` (T, p, d) query tiles against ``xt`` (T, C, d) gathered
+    candidate rows, one batched product (``torch.bmm``) that reduces each
+    pair's d-length vectors as the dense ``q @ xs.T`` does; per-tile
+    vectors follow.
+    """
+    dhalf = hnt[:, None, :] - torch.bmm(qt, xt.transpose(1, 2))
+    keep = (torch.abs(alt[:, None, :] - aqt[:, :, None]) <= rt[:, :, None]) \
+        & (dhalf <= tht[:, :, None])
+    if pqt is not None:
+        keep = keep & _box_mask_tiles(pqt, pxt, rt, tht, hnt)
+    return keep, dhalf
+
+
+def snn_filter_tiles_ref(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None):
+    """Masked half distances over candidate tiles: (T, p, C), +BIG where
+    the pair is not kept.  Padding candidate slots carry alpha = half_norm
+    = +BIG, so no predicate keeps them."""
+    keep, dhalf = _tiles_body(qt, aqt, rt, tht, xt, alt, hnt, pqt, pxt)
+    return torch.where(keep, dhalf, torch.full_like(dhalf, BIG))
+
+
+def snn_count_tiles_ref(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None,
+                        *, mixed: bool = False):
+    """Per-query survivor counts (T, p) int32 over candidate tiles;
+    ``mixed`` takes the products in bfloat16 under the margin certificate
+    (`mixed_keep_ref`), whose counts equal the float32 counts."""
+    if not mixed:
+        keep, _ = _tiles_body(qt, aqt, rt, tht, xt, alt, hnt, pqt, pxt)
+        return keep.sum(dim=2, dtype=torch.int32)
+    geom = torch.abs(alt[:, None, :] - aqt[:, :, None]) <= rt[:, :, None]
+    if pqt is not None:
+        geom = geom & _box_mask_tiles(pqt, pxt, rt, tht, hnt)
+    q16 = qt.to(torch.bfloat16).to(torch.float32)
+    x16 = xt.to(torch.bfloat16).to(torch.float32)
+    dh16 = hnt[:, None, :] - torch.bmm(q16, x16.transpose(1, 2))
+    xn = torch.sqrt(torch.clamp_min(2.0 * hnt, 0.0))
+    qn = torch.sqrt(torch.clamp_min(rt * rt - 2.0 * tht, 0.0))
+    margin = MIX_EPS * xn[:, None, :] * qn[:, :, None]
+    thc = tht[:, :, None]
+    definite = geom & (dh16 <= thc - margin)
+    band = geom & (dh16 > thc - margin) & (dh16 <= thc + margin)
+    _, dh32 = _tiles_body(qt, aqt, rt, tht, xt, alt, hnt)
+    keep = definite | (band & (dh32 <= thc))
+    return keep.sum(dim=2, dtype=torch.int32)
+
+
+def snn_csr_compacted_stacked_ref(q, aq, r, thresh, xs, alphas, half_norms,
+                                  pq=None, px=None, *, ptile: int, ccap: int,
+                                  nnz_cap: int):
+    """Candidate-compacted two-pass CSR over a segment stack, on the
+    tensors' device with no host sync.
+
+    Chains (1) the window and box predicate on the resident projections,
+    unioned over each ``ptile``-query tile; (2) an exclusive scan that
+    compacts the surviving pack-flat rows into dense (T, ccap) candidate
+    tiles; (3) the float32 contraction on the gathered rows only
+    (`_tiles_body`); (4) per-query counts, the CSR prefix and the flat
+    scatter.
+
+    Returns ``(indptr (m_pad+1,) i32, idx (nnz_cap,) i32 pack-flat, dhalf
+    (nnz_cap,) f32, total () i32, cand_max () i32)``.  ``ccap`` and
+    ``nnz_cap`` are speculative capacities: when ``cand_max > ccap`` or
+    ``total + 1 > nnz_cap`` the compact outputs are invalid (the writes
+    past a capacity are dropped, never made out of bounds) and the caller
+    reruns a path of the right size.
+    """
+    S, n_pad, d = xs.shape
+    N = S * n_pad
+    dev = xs.device
+    xf = xs.reshape(N, d)
+    alf = alphas.reshape(N)
+    hnf = half_norms.reshape(N)
+    pxf = None if px is None else px.permute(1, 0, 2).reshape(px.shape[1], N)
+    m_pad = q.shape[0]
+    T = m_pad // ptile
+    qt = q.reshape(T, ptile, d)
+    aqt, rt, tht = (a.reshape(T, ptile) for a in (aq, r, thresh))
+    pqt = None if pq is None else pq.reshape(pq.shape[0], T, ptile)
+
+    # (1) the cheap predicate, unioned over the tile's queries
+    sel = torch.abs(alf[None, None, :] - aqt[:, :, None]) <= rt[:, :, None]
+    if pqt is not None:
+        xn = torch.sqrt(torch.clamp_min(2.0 * hnf, 0.0))
+        qn = torch.sqrt(torch.clamp_min(rt * rt - 2.0 * tht, 0.0))
+        lim = rt[:, :, None] + BOX_EPS * (xn[None, None, :] + qn[:, :, None]
+                                          + torch.abs(rt)[:, :, None])
+        for c in range(pqt.shape[0]):
+            sel = sel & (torch.abs(pxf[c][None, None, :]
+                                   - pqt[c][:, :, None]) <= lim)
+    candmask = sel.any(dim=1)                                 # (T, N)
+
+    # (2) exclusive-scan compaction into dense candidate tiles
+    cpos = torch.cumsum(candmask, dim=1, dtype=torch.int32)
+    cand_max = cpos[:, -1].max() if N else torch.zeros((), dtype=torch.int32,
+                                                       device=dev)
+    cpos = cpos - 1
+    tt, cc = torch.nonzero(candmask & (cpos < ccap), as_tuple=True)
+    cand = torch.full((T, ccap), N, dtype=torch.int32, device=dev)
+    cand[tt, cpos[tt, cc].to(torch.int64)] = cc.to(torch.int32)
+
+    # (3) gather and the float32 evaluation on the candidates only
+    valid = cand < N
+    candc = torch.clamp_max(cand, N - 1).to(torch.int64)
+    big = torch.full((), BIG, dtype=torch.float32, device=dev)
+    xt = xf[candc]
+    alt = torch.where(valid, alf[candc], big)
+    hnt = torch.where(valid, hnf[candc], big)
+    pxt = None
+    if pxf is not None:
+        pxt = torch.where(valid[None, :, :], pxf[:, candc], big)
+    keep, dhalf = _tiles_body(qt, aqt, rt, tht, xt, alt, hnt, pqt, pxt)
+
+    # (4) counts, the CSR prefix and the flat scatter
+    counts = keep.sum(dim=2, dtype=torch.int32).reshape(m_pad)
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    total = indptr[-1]
+    within = torch.cumsum(keep, dim=2, dtype=torch.int64) - 1
+    trash = nnz_cap - 1
+    base = indptr[:-1].reshape(T, ptile).to(torch.int64)
+    pos = torch.where(keep, base[:, :, None] + within,
+                      torch.full_like(within, trash)).reshape(-1)
+    ok = pos < nnz_cap
+    flat_cols = cand[:, None, :].expand(keep.shape).reshape(-1)
+    out_idx = torch.full((nnz_cap,), -1, dtype=torch.int32, device=dev)
+    out_dh = torch.full((nnz_cap,), BIG, dtype=torch.float32, device=dev)
+    out_idx[pos[ok]] = flat_cols[ok]
+    out_dh[pos[ok]] = dhalf.reshape(-1)[ok]
+    out_idx[trash] = -1
+    out_dh[trash] = BIG
+    return indptr, out_idx, out_dh, total, cand_max.to(torch.int32)

@@ -31,6 +31,18 @@ The entry points, each with the launch it makes on the card:
   memory; other shapes one thread a 16-byte (or one-element) column chunk
   of a bag (`kernels.snn_query.bag_path`).
 
+Three more entry points have no kernel, because the reference runs them
+as XLA on every lane: `snn_filter_tiles`, `snn_count_tiles` and
+`snn_csr_compacted_stacked`, the candidate-compacted evaluation of the
+engine's host lane (a batched product over gathered candidate rows).  They
+are torch operations on whatever device their tensors are on.
+
+Meta and fake tensors (``FakeTensorMode``, as `launch.dryrun` traces a
+step) go to the plain versions, which then only compute shapes: a trace
+counts the work without doing it.  A fake tensor reports the device it
+stands for, so the dry-run makes its fake tensors on the CPU.  CUDA
+tensors still go only to the kernels.
+
 Every call also records a (op, shapes, static arguments) launch signature;
 the first sighting of a signature bumps ``engine.DISPATCH_STATS.
 jit_compiles``, the measure of how many distinct launch shapes a stream of
@@ -95,9 +107,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _on_card(xs) -> bool:
-    """True for CUDA tensors (the kernels), False for CPU tensors (the plain
-    versions); any other device raises."""
-    if xs.device.type not in ("cuda", "cpu"):
+    """True for CUDA tensors (the kernels), False for CPU and meta tensors
+    (the plain versions); any other device raises."""
+    if xs.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel for tensors on {xs.device}")
     return xs.device.type == "cuda"
 
@@ -184,6 +196,36 @@ def snn_filter_stacked(q, aq, r, thresh, xs, alphas, half_norms, pq=None,
     return snn_filter(q, aq, r, thresh, xs.reshape(S * n_pad, d),
                       alphas.reshape(-1), half_norms.reshape(-1), pq,
                       None if px2 is None else px2.contiguous(), bn=bn)
+
+
+def snn_filter_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None):
+    """(T, p, C) masked half distances of ``qt`` (T, p, d) query tiles
+    against ``xt`` (T, C, d) gathered candidate rows, on their device."""
+    note_launch_signature("snn_filter_tiles", _sig(qt, xt, pqt))
+    return _ref.snn_filter_tiles_ref(qt, aqt, rt, tht, xt, alt, hnt, pqt,
+                                     pxt)
+
+
+def snn_count_tiles(qt, aqt, rt, tht, xt, alt, hnt, pqt=None, pxt=None, *,
+                    mixed: bool = False):
+    """(T, p) int32 survivor counts over gathered candidate tiles."""
+    note_launch_signature("snn_count_tiles", _sig(qt, xt, pqt, mixed=mixed))
+    return _ref.snn_count_tiles_ref(qt, aqt, rt, tht, xt, alt, hnt, pqt, pxt,
+                                    mixed=mixed)
+
+
+def snn_csr_compacted_stacked(q, aq, r, thresh, xs, alphas, half_norms,
+                              pq=None, px=None, *, ptile: int, ccap: int,
+                              nnz_cap: int):
+    """Candidate-compacted CSR over a segment stack, on its device with no
+    host sync: (indptr, idx, dhalf, total, cand_max), speculative in
+    ``ccap``/``nnz_cap`` (`ref.snn_csr_compacted_stacked_ref`)."""
+    note_launch_signature("snn_csr_compacted_stacked",
+                          _sig(q, xs, pq, ptile=ptile, ccap=ccap,
+                               nnz_cap=nnz_cap))
+    return _ref.snn_csr_compacted_stacked_ref(
+        q, aq, r, thresh, xs, alphas, half_norms, pq, px, ptile=ptile,
+        ccap=ccap, nnz_cap=nnz_cap)
 
 
 def embedding_bag(ids, table):

@@ -245,8 +245,11 @@ def _lm_leaf_spec(dp):
 
 def _local_cfg(cfg: tf.TransformerConfig, tp: int) -> tf.TransformerConfig:
     """``cfg`` with one of ``tp`` model ranks' heads (the MoE keeps its
-    global expert count: every rank routes over all of them)."""
-    over = {"n_heads": cfg.n_heads // tp, "n_kv_heads": cfg.n_kv_heads // tp}
+    global expert count: every rank routes over all of them); with fewer
+    KV heads than ranks, one whole KV head a rank (`ParallelContext.
+    replicate_kv`)."""
+    over = {"n_heads": cfg.n_heads // tp,
+            "n_kv_heads": max(cfg.n_kv_heads // tp, 1)}
     if cfg.mla is not None:
         over["mla"] = dataclasses.replace(cfg.mla,
                                           n_heads=cfg.mla.n_heads // tp)
@@ -273,8 +276,11 @@ def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
     if b % accum or mb % dp:
         raise ValueError(f"{dp} data ranks do not divide microbatches of "
                          f"{mb} sequences")
-    heads = [("heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads),
-             ("vocab", cfg.vocab)]
+    heads = [("heads", cfg.n_heads), ("vocab", cfg.vocab)]
+    # fewer KV heads than model ranks: whole heads replicated over runs of
+    # tp / n_kv ranks (GQA only; MLA's latent KV is not split by heads)
+    if cfg.mla is not None or tp % cfg.n_kv_heads:
+        heads.append(("kv heads", cfg.n_kv_heads))
     if cfg.mla is not None:
         heads.append(("MLA heads", cfg.mla.n_heads))
     for what, n in heads:
@@ -428,6 +434,8 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
     dp = _dp(multi_pod)
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
+    if cfg.mla is None:
+        ctx.replicate_kv(cfg.n_kv_heads)
     lcfg = _local_cfg(cfg, n_tp)
     rules = rules_for_family("lm", multi_pod=multi_pod)
 

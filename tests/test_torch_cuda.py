@@ -1269,3 +1269,62 @@ def test_cuda_gat_scatter_sum_and_tied_max_equal_the_cpu(card):
             1.0, float(want.abs().max()))
     assert torch.equal(out[1][3], out[0][3])          # a max is exact
     assert torch.equal(out[1][4], out[0][4])
+
+
+# --------------------------------------------------------------------------- #
+# The engine's host lane and the candidate-compacted op on the card            #
+# --------------------------------------------------------------------------- #
+def test_oracle_on_a_card_pack_raises(card):
+    rng = np.random.default_rng(2)
+    idx = tsnn.build_index(rng.normal(size=(500, 6)).astype(np.float32))
+    q = rng.normal(size=(8, 6)).astype(np.float32)
+    with pytest.raises(ValueError, match="oracle=True"):
+        tsnn.query_radius_csr(idx, q, 1.0, oracle=True)
+    with pytest.raises(ValueError, match="oracle=True"):
+        tjoin.query_counts(idx, q, 1.0, oracle=True)
+    # the default route stays the card's stacked kernels; the host lane
+    # takes the same index through a plan on the CPU
+    want = tsnn.query_radius_csr(idx, q, 1.0)
+    got = tsnn.query_radius_csr(idx, q, 1.0, device="cpu", oracle=True)
+    np.testing.assert_array_equal(got.indptr, want.indptr)
+    np.testing.assert_array_equal(got.indices, want.indices)
+
+
+def _compacted_lattice(seed: int, S: int = 3, n: int = 200,
+                       n_pad: int = 256, m: int = 64, d: int = 8):
+    """A (S, n_pad, d) stack of integer lattice rows, sorted by alpha =
+    coordinate 0 in each segment (+BIG padding rows), the extra
+    projections coordinates 1 and 2, and m lattice queries with integer
+    squared radii: every product and threshold exact in float32."""
+    rng = np.random.default_rng(seed)
+    big = np.float32(tref.BIG)
+    xs = np.zeros((S, n_pad, d), np.float32)
+    al = np.full((S, n_pad), big, np.float32)
+    hn = np.full((S, n_pad), big, np.float32)
+    px = np.full((S, 2, n_pad), big, np.float32)
+    for k in range(S):
+        x = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+        x = x[np.argsort(x[:, 0], kind="stable")]
+        xs[k, :n], al[k, :n] = x, x[:, 0]
+        hn[k, :n] = 0.5 * (x * x).sum(1)
+        px[k, :, :n] = x[:, 1:3].T
+    q = rng.integers(-4, 5, size=(m, d)).astype(np.float32)
+    r = np.sqrt(rng.choice([16.0, 25.0, 36.0], size=m)).astype(np.float32)
+    th = (0.5 * (r * r - (q * q).sum(1))).astype(np.float32)
+    ops = (q, q[:, 0].copy(), r, th, xs, al, hn, q[:, 1:3].T.copy(), px)
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in ops]
+
+
+def test_compacted_stacked_on_the_card_equals_the_cpu(card):
+    args = _compacted_lattice(9)
+    total = int(tref.snn_count_stacked_ref(*args, bn=128).sum())
+    for cc, nc in ((1024, 8192), (8, 8192), (1024, 64)):
+        # (8: the candidate overflow; 64: the flat overflow)
+        cpu = tops.snn_csr_compacted_stacked(*args, ptile=16, ccap=cc,
+                                             nnz_cap=nc)
+        on_card = tops.snn_csr_compacted_stacked(
+            *[a.to(card) for a in args], ptile=16, ccap=cc, nnz_cap=nc)
+        assert on_card[1].device.type == "cuda"
+        for c, g in zip(cpu, on_card):
+            np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())
+        assert (int(cpu[3]) == total) == (int(cpu[4]) <= cc)

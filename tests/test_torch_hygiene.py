@@ -65,6 +65,7 @@ DISTRIBUTED_MODULES = ("distributed/__init__", "distributed/sharding",
                        "distributed/compression",
                        "distributed/collective_matmul",
                        "distributed/parallel")
+DRYRUN_MODULES = ("launch/hlo_analysis", "launch/dryrun")
 LM_MODULES = ("models/attention", "models/transformer", "models/moe",
               "configs/nemotron_4_15b", "configs/internlm2_20b",
               "configs/minicpm3_4b", "configs/llama4_scout_17b_a16e",
@@ -74,11 +75,11 @@ LM_MODULES = ("models/attention", "models/transformer", "models/moe",
 def _port_files():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    # the serving, sharded, training, LM and distributed slices' modules
-    # are among the files scanned
+    # the serving, sharded, training, LM, distributed and dry-run slices'
+    # modules are among the files scanned
     assert {PORT / f"{m}.py" for m in SERVING_MODULES + SHARDED_MODULES
-            + TRAINING_MODULES + LM_MODULES
-            + DISTRIBUTED_MODULES} <= set(files)
+            + TRAINING_MODULES + LM_MODULES + DISTRIBUTED_MODULES
+            + DRYRUN_MODULES} <= set(files)
     return files
 
 
@@ -289,3 +290,24 @@ def test_registry_takes_its_own_card_under_every_name(monkeypatch, tmp_path):
             SNNServer(registry=reg, device=other)
         with pytest.raises(ValueError, match="tenants live on"):
             reg.restore("t", device=other)
+
+
+def _defined(path: Path) -> set:
+    """Public names a module defines at its top level (functions, classes,
+    constants), read from its source: importing the reference's dry-run
+    would set XLA_FLAGS for the whole process."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("mod", ["hlo_analysis", "dryrun"])
+def test_the_reference_names_have_counterparts(mod):
+    ref = _defined(ROOT / "src" / "repro" / "launch" / f"{mod}.py")
+    port = _defined(PORT / "launch" / f"{mod}.py")
+    assert ref and ref - port == set()

@@ -14,6 +14,8 @@ directory), beside the JAX step and the port's unsharded step run here:
 * minicpm3-4b (MLA) and qwen3-moe (MoE, groups over the data ranks) on
   (2, 2);
 * qwen3-moe on a (pod, data, model) = (2, 2, 2) mesh (``multi_pod``);
+* internlm2-20b on (1, 4): its 2 KV heads over 4 model ranks, each KV
+  head replicated over a run of two;
 * minicpm3-4b at 2 microbatches of 4 sequences (``reduced=False`` with the
   reduced widths, as `test_torch_lm_accum`) on (2, 2);
 * internlm2-20b and qwen3-moe on a (1, 1) mesh of one rank, which must be
@@ -66,7 +68,9 @@ LAUNCHES = {
         dict(name="qwen3_moe_2x2", arch="qwen3-moe-235b-a22b", mesh=[2, 2],
              multi_pod=False),
         dict(name="minicpm3_accum_2x2", arch="minicpm3-4b", mesh=[2, 2],
-             multi_pod=False, accum=True)],
+             multi_pod=False, accum=True),
+        dict(name="internlm2_kv_1x4", arch="internlm2-20b", mesh=[1, 4],
+             multi_pod=False)],
     1: [dict(name="internlm2_1x1", arch="internlm2-20b", mesh=[1, 1],
              multi_pod=False),
         dict(name="qwen3_moe_1x1", arch="qwen3-moe-235b-a22b", mesh=[1, 1],
@@ -230,10 +234,12 @@ def test_mesh_checks_raise_before_any_collective():
     with pytest.raises(ValueError, match="microbatches of 4"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
                           mesh=_mesh(8, 1))
-    # the reduced internlm2 has 2 kv heads: "model" of 4 does not divide
+    # 3 kv heads neither divide "model" of 2 nor are divided by it (the
+    # reduced internlm2's 2 kv heads over 4 model ranks are replicated)
     with pytest.raises(ValueError, match="kv heads"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
-                          mesh=_mesh(1, 4))
+                          cfg_override={"n_heads": 6, "n_kv_heads": 3},
+                          mesh=_mesh(1, 2))
     # 4 data ranks divide a microbatch of 4 sequences but not 2 MoE groups
     over = _torch_over("qwen3-moe-235b-a22b")
     over["moe"] = dataclasses.replace(over["moe"], dispatch_groups=2)
