@@ -168,7 +168,13 @@ or note, and each phase's time:
    moments); (c) internlm2-20b at 4 of 48 layers and minicpm3-4b at 8 of
    62 at full width, the unsharded step then the sharded one (3 timed
    steps after an untimed one, 2 sequences of 4,096 tokens, peak memory),
-   the sharded state bit-equal to the unsharded one;
+   the sharded state bit-equal to the unsharded one; (d) the sharded
+   serving steps on the (1, 1) mesh: the five reduced LMs' ``prefill_32k``
+   and ``decode_32k`` and llama4's ``long_500k``, and nemotron-4-15b at 8
+   of 32 layers and full width (``prefill_32k`` at batch 1,
+   ``decode_32k`` at batch 8), each ``init_args`` gathering to the
+   unsharded init and its logits and cache bit-equal to the unsharded
+   step's, the full-width ones timed beside it with their peak memory;
 8. the engine's host lane and the dry-run: (a) on the SIFT-1M stand-in
    (phase 2's data, index, queries and radius, made again) with the
    index's arrays on the host, ``oracle=True``: the compacted executor
@@ -5069,6 +5075,14 @@ P7_REDUCED = ("nemotron-4-15b", "internlm2-20b", "minicpm3-4b",
 # (c): full width at a cut depth (internlm2's 2.7B parameters are 43.5 GB
 # of training state, minicpm3's 0.88B 14 GB)
 P7_FULL = {"internlm2-20b": 4, "minicpm3-4b": 8}
+# (d): the serving cells on the (1, 1) mesh (each arch's prefill_32k and
+# these), and one at full width: arch, layers, prefill and decode batch
+P7_SERVE = (("nemotron-4-15b", ("decode_32k",)),
+            ("internlm2-20b", ("decode_32k",)),
+            ("minicpm3-4b", ("decode_32k",)),
+            ("llama4-scout-17b-a16e", ("decode_32k", "long_500k")),
+            ("qwen3-moe-235b-a22b", ("decode_32k",)))
+P7_SERVE_FULL = ("nemotron-4-15b", 8, 1, 8)
 
 
 def p7_collectives(torch, chk: Checks, mesh, card: str) -> dict:
@@ -5215,6 +5229,78 @@ def p7_full(torch, chk: Checks, steps, parallel, mesh, arch: str,
     return rec
 
 
+def p7_serve_reduced(torch, chk: Checks, steps, parallel, mesh) -> None:
+    """(d) each reduced LM's serving steps on the (1, 1) mesh against the
+    unsharded ones on the card, bit for bit."""
+    for arch, shapes in P7_SERVE:
+        for shape in ("prefill_32k",) + shapes:
+            sd = steps.build_step(arch, shape, reduced=True, mesh=mesh)
+            plain = steps.build_step(arch, shape, reduced=True)
+            args, want_args = sd.init_args(), plain.init_args()
+            same_init = p7_same(torch, parallel.gather_tree(
+                args[0], sd.in_shardings[0], mesh), want_args[0]) and \
+                p7_same(torch, args[1:3], want_args[1:3]) and \
+                args[3:] == want_args[3:]       # (tokens[, cache], pos)
+            got, want = sd.fn(*args), plain.fn(*want_args)
+            chk.ok(same_init and p7_same(torch, got, want),
+                   f"{sd.name} (reduced) on a (1, 1) mesh: init_args "
+                   f"gathered == the unsharded init {same_init}; logits "
+                   f"{tuple(got[0].shape)} and cache bit-equal to the "
+                   f"unsharded step: {p7_same(torch, got, want)}")
+            del args, want_args, got, want
+    torch.cuda.empty_cache()
+
+
+def p7_serve_full(torch, chk: Checks, steps, parallel, mesh,
+                  card: str) -> dict:
+    """(d) `P7_SERVE_FULL`'s prefill and decode at full width and a cut
+    depth: the unsharded step, then the sharded one on the (1, 1) mesh
+    (each warmed up, then one prefill, or 3 decode steps by CUDA events,
+    the peak memory of each), logits and caches bit-equal."""
+    arch, layers, pb, db = P7_SERVE_FULL
+    rec = {"layers": layers}
+    for shape, batch in (("prefill_32k", pb), ("decode_32k", db)):
+        kw = dict(cfg_override={"n_layers": layers},
+                  shape_override={"global_batch": batch})
+        sds = {"plain": steps.build_step(arch, shape, **kw),
+               "sharded": steps.build_step(arch, shape, mesh=mesh, **kw)}
+        args = {k: sd.init_args() for k, sd in sds.items()}
+        same_init = p7_same(torch, parallel.gather_tree(
+            args["sharded"][0], sds["sharded"].in_shardings[0], mesh),
+            args["plain"][0])
+        outs, ms, peak = {}, {}, {}
+        for k, sd in sds.items():
+            a = args[k]
+            if shape == "prefill_32k":
+                sd.fn(a[0], a[1][:, :2048])           # cuBLAS warm-up
+                torch.cuda.reset_peak_memory_stats()
+                outs[k], ms[k] = sync_ms(torch, lambda: sd.fn(*a))
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                outs[k] = sd.fn(*a)
+                ms[k] = timed(torch, lambda: sd.fn(*a), 3, 0)
+            peak[k] = torch.cuda.max_memory_allocated() / 1e9
+        same = p7_same(torch, outs["sharded"], outs["plain"])
+        tag = shape.split("_")[0]
+        rec.update({f"{tag}_batch": batch, f"{tag}_plain_ms": ms["plain"],
+                    f"{tag}_sharded_ms": ms["sharded"],
+                    f"{tag}_plain_peak_gb": peak["plain"],
+                    f"{tag}_sharded_peak_gb": peak["sharded"],
+                    f"{tag}_bit_equal": bool(same and same_init)})
+        how = ("one call, host clock, synchronized" if tag == "prefill"
+               else "a step, CUDA events, 3 steps")
+        chk.ok(same and same_init,
+               f"{sds['sharded'].name} at {layers} layers, full width, batch "
+               f"{batch}, on a (1, 1) mesh: init_args gathered == the "
+               f"unsharded init {same_init}; logits and cache bit-equal to "
+               f"the unsharded step {same}; {ms['sharded']:.2f} ms beside "
+               f"{ms['plain']:.2f} ({how}), peak {peak['sharded']:.2f} GB "
+               f"beside {peak['plain']:.2f} GB [{card}]")
+        del sds, args, outs
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_distributed(torch, chk: Checks, card: str) -> dict:
     """Phase 7: the distributed layer and the sharded LM training step on
     one card, under NCCL at world size 1."""
@@ -5228,8 +5314,9 @@ def phase_distributed(torch, chk: Checks, card: str) -> dict:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
 
-    print("phase 7: the distributed layer and the sharded train_4k step, "
-          "NCCL at world size 1, deterministic algorithms")
+    print("phase 7: the distributed layer, the sharded train_4k step and "
+          "the sharded serving steps, NCCL at world size 1, deterministic "
+          "algorithms")
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     rec = {}
@@ -5252,6 +5339,11 @@ def phase_distributed(torch, chk: Checks, card: str) -> dict:
             for arch, layers in P7_FULL.items():
                 rec[arch] = p7_full(torch, chk, steps, parallel, mesh,
                                     arch, layers, card)
+            t = time.perf_counter()
+            p7_serve_reduced(torch, chk, steps, parallel, mesh)
+            rec["serving"] = p7_serve_full(torch, chk, steps, parallel,
+                                           mesh, card)
+            rec["serving"]["seconds"] = time.perf_counter() - t
         finally:
             torch.use_deterministic_algorithms(False)
             dist.destroy_process_group()

@@ -39,11 +39,28 @@ axes ("data", "model") or ("pod", "data", "model").
   the loss divides by the microbatch's global label count, and the MoE
   aux losses are means over the microbatch's global groups, so that the
   sum over data ranks of the rank losses is the global loss.
+* **Serving** (`ParallelContext.serve_layout`): the KV cache is the
+  reference's ``kv_cache``/``mla_cache`` layout, (L, B / dp, S / tp, ...)
+  (batch over the data axes, sequence over "model"), or for
+  ``long_500k`` (L, B, S / (dp tp), ...) with the batch replicated and
+  the sequence over the data axes and "model" row-major: the *sequence
+  group*.  A decode step gathers the new token's per-head queries and
+  KV entries over "model" (`gather_heads`), the rank holding ``pos``
+  writes the entry, every rank scores all heads over its block, and the
+  partial softmaxes are combined over the sequence group
+  (`seq_attend`: the float32 row max all-reduced, then the exp-sums and
+  the unnormalised outputs summed); the rank's heads go on into ``wo``.
+  Prefill computes its heads over the whole prompt and moves its cache
+  into the decode layout (`cache_block`: an all-to-all over "model" for
+  GQA's heads; MLA's latent cache is whole on every model rank), and the
+  vocabulary-parallel head's logits are gathered whole
+  (`gather_logits`).
 
 Every op runs its collectives on a mesh whose axes have size 1 too (each
 a copy there), except where the arithmetic would change: the
-cross-entropy and the sums over "model" take the plain path when "model"
-has size 1, so a (1, 1) mesh is bit-equal to the unsharded step.
+cross-entropy, the sums over "model" and the serving layout's ops take
+the plain path when their group has size 1, so a (1, 1) mesh is
+bit-equal to the unsharded step.
 """
 from __future__ import annotations
 
@@ -325,6 +342,20 @@ class ParallelContext:
         self.spec_of = spec_of
         self.moe_global_groups = None    # set by the step a microbatch
         self.kv_rep, self.kv_group, self.kv_pos = 1, None, 0
+        # the serving cache's sequence axes (`serve_layout`)
+        self.seq_group, self.seq_size, self.seq_pos = (
+            self.tp_group, self.tp_size, self.tp_rank)
+        self.tokens_replicated = False
+
+    def serve_layout(self, long: bool) -> None:
+        """The serving steps' layout: the cache's sequence over "model"
+        and the tokens' rows over the data axes, or with ``long``
+        (``long_500k``) the sequence over the data axes and "model"
+        (row-major) and the tokens replicated on every rank."""
+        if long:
+            self.seq_group, self.seq_size, self.seq_pos = _groups_of(
+                self.mesh, self.dp_axes + ("model",))
+        self.tokens_replicated = long
 
     def replicate_kv(self, n_kv_heads: int) -> None:
         """Megatron's GQA layout where "model" is wider than the KV heads
@@ -353,7 +384,11 @@ class ParallelContext:
     def moe_groups(self, t_local: int, dispatch_groups: int) -> tuple:
         """(this rank's groups, its share of the global mean): the
         reference's ``gcd(T, dispatch_groups)`` groups over the
-        microbatch's global tokens, split over the data ranks."""
+        microbatch's global tokens, split over the data ranks; tokens
+        replicated over the data ranks (``long_500k``) are all the global
+        tokens, and every rank runs all their groups."""
+        if self.tokens_replicated:
+            return math.gcd(t_local, max(dispatch_groups, 1)), 1.0
         g = math.gcd(t_local * self.dp_size, max(dispatch_groups, 1))
         return g // self.dp_size, 1.0 / self.dp_size
 
@@ -432,6 +467,68 @@ class ParallelContext:
         x = x.detach().clone()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.dp_group)
         return x
+
+    # ---- serving (no gradient) ----
+    def gather_logits(self, x):
+        """The head's (B_local, V / tp) logits gathered over "model" to
+        every vocabulary column and over the data ranks to every row: the
+        whole (B, V) on every rank."""
+        if self.tp_size > 1:
+            x = _all_gather(x, x.ndim - 1, self.tp_group, self.tp_size)
+        if self.dp_size > 1 and not self.tokens_replicated:
+            x = _all_gather(x, 0, self.dp_group, self.dp_size)
+        return x
+
+    def gather_heads(self, x):
+        """A decode step's per-head tensor (B, heads of this rank, ...)
+        gathered over "model" to every head, in head order."""
+        if self.tp_size == 1:
+            return x
+        return _all_gather(x, 1, self.tp_group, self.tp_size)
+
+    def gather_kv_heads(self, x):
+        """The new token's (B, KV heads of this rank, D) over "model" to
+        (B, Hkv, D): under `replicate_kv` a run of ranks holds one head,
+        of which one copy is kept."""
+        x = self.gather_heads(x)
+        return x[:, ::self.kv_rep] if self.kv_rep > 1 else x
+
+    def seq_attend(self, scores, values):
+        """Softmax attention over the sequence group: ``scores`` (...,
+        S_local) this rank's masked scores (masked ones the finite
+        ``NEG_INF``), ``values(w)`` the product of weights (..., S_local)
+        with the rank's values, (..., Dv).  The float32 row max is
+        all-reduced first, so each rank's exponentials are relative to the
+        global max (a block with no valid position weighs exp(-1e30 - M)
+        = 0); the exp-sums and unnormalised outputs are then summed over
+        the group and divided, in float32."""
+        s = scores.float()
+        m = s.amax(dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=self.seq_group)
+        e = torch.exp(s - m)
+        part = torch.cat([values(e.to(scores.dtype)).float(),
+                          e.sum(dim=-1, keepdim=True)], dim=-1)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self.seq_group)
+        return (part[..., :-1] / part[..., -1:]).to(scores.dtype)
+
+    def cache_block(self, t):
+        """A prefill layer's cache entry, (B, S, this rank's KV heads, D)
+        for GQA or (B, S, r) for MLA's latents, as this rank's block of
+        the decode layout: (B, S / tp, Hkv, D) through an all-to-all over
+        "model" (sequence block j of this rank's heads to rank j; under
+        `replicate_kv` one copy of each head kept), or MLA's block of the
+        latents, which every model rank holds whole."""
+        if self.tp_size == 1:
+            return t
+        b, s, n = t.shape[0], t.shape[1], self.tp_size
+        blk = _block(s, n, "the prefill's sequence")
+        if t.ndim == 3:
+            return t[:, self.tp_rank * blk:(self.tp_rank + 1) * blk]
+        send = t.reshape(b, n, blk, *t.shape[2:]).movedim(1, 0).contiguous()
+        got = torch.empty_like(send)
+        dist.all_to_all_single(got, send, group=self.tp_group)
+        got = got.movedim(0, 2).reshape(b, blk, -1, t.shape[-1])
+        return got[:, :, ::self.kv_rep] if self.kv_rep > 1 else got
 
     # ---- after the backward ----
     def _replicated_over(self, spec: Spec, ndim: int) -> set:

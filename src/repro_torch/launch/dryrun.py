@@ -19,10 +19,12 @@ Usage:
   python -m repro_torch.launch.dryrun --arch snn-service --shape svc_10m
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out experiments/dryrun]
 
-The cells the port runs on a mesh are the five LMs' ``train_4k`` and the
-paper's own ``snn-service``; every other cell (the LM serving steps, the
-recsys and GAT steps, and a step whose heads do not split over "model")
-is written as a ``{"skipped": "<why>"}`` record, not dropped.
+The cells the port runs on a mesh are the five LMs' ``train_4k``,
+``prefill_32k``, ``decode_32k`` and ``long_500k`` and the paper's own
+``snn-service``; every other cell (the recsys and GAT steps, and a step
+whose heads do not split over "model": llama4-scout's and minicpm3-4b's
+40 over 16) is written as a ``{"skipped": "<why>"}`` record, not
+dropped.
 """
 from __future__ import annotations
 
@@ -124,14 +126,17 @@ def _trace_lm(arch_id, shape_name, mesh, multi_pod, shape_override,
 def _fit_lm_costs(arch_id, shape_name, mesh, multi_pod, shape_override,
                   cfg, cfg_override=None):
     """Per-step (flops, bytes, collectives, peak bytes) at the real depth,
-    from traces at L = p and 2p layers (p the config's pattern period),
+    from traces at L = 2p and 3p layers (p the config's pattern period),
     extrapolated linearly: everything in a transformer step is affine in
-    L.  The reference fits because XLA's cost analysis counts a loop body
-    once; here it keeps a trace of a deep model's full depth, which takes
-    a second a layer, out of every cell."""
+    L from its second period on (a serving step's peak is not from its
+    first: its last layer's transients come on top of the layers before
+    it only once there are some).  The reference fits because XLA's cost
+    analysis counts a loop body once; here it keeps a trace of a deep
+    model's full depth, which takes a second a layer, out of every
+    cell."""
     p = cfg.pattern_period
     vals = {}
-    for mult in (1, 2):
+    for mult in (2, 3):
         over = dict(cfg_override or {}, n_layers=p * mult)
         _, tr, _ = _trace_lm(arch_id, shape_name, mesh, multi_pod,
                              shape_override, over)
@@ -142,14 +147,14 @@ def _fit_lm_costs(arch_id, shape_name, mesh, multi_pod, shape_override,
 
     def extrap(a, b):
         per_layer = (b - a) / p
-        return max(b + per_layer * (L - 2 * p), 0.0)
+        return max(b + per_layer * (L - 3 * p), 0.0)
 
-    flops = extrap(vals[1]["flops"], vals[2]["flops"])
-    bts = extrap(vals[1]["bytes"], vals[2]["bytes"])
-    peak = extrap(vals[1]["peak"], vals[2]["peak"])
-    kinds = set(vals[1]["coll"]) | set(vals[2]["coll"])
-    coll = {k: int(extrap(vals[1]["coll"].get(k, 0),
-                          vals[2]["coll"].get(k, 0))) for k in kinds}
+    flops = extrap(vals[2]["flops"], vals[3]["flops"])
+    bts = extrap(vals[2]["bytes"], vals[3]["bytes"])
+    peak = extrap(vals[2]["peak"], vals[3]["peak"])
+    kinds = set(vals[2]["coll"]) | set(vals[3]["coll"])
+    coll = {k: int(extrap(vals[2]["coll"].get(k, 0),
+                          vals[3]["coll"].get(k, 0))) for k in kinds}
     return flops, bts, coll, peak
 
 
@@ -227,7 +232,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     and return its record: the reference's keys, the H100's roofline
     terms, or ``{"skipped": ...}`` where the port does not run the step on
     a mesh.  ``cfg_override`` replaces fields of an LM's config (as
-    `launch.steps.build_step`); LM cells are fitted from L = p and 2p
+    `launch.steps.build_step`); LM cells are fitted from L = 2p and 3p
     (`_fit_lm_costs`) unless ``fit_lm=False``, which traces the whole
     depth."""
     if arch_id == "snn-service":
@@ -330,7 +335,7 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--tag", default="")
     ap.add_argument("--no-fit", action="store_true",
-                    help="trace the whole depth instead of L=p and 2p")
+                    help="trace the whole depth instead of L=2p and 3p")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--only-family", default=None)
     args = ap.parse_args(argv)

@@ -24,12 +24,14 @@ GAT's replicated leaves and each family's batch specs), and
 ``donate_argnums`` (a decode step writes its cache in place where the
 reference donates it).  With ``mesh=`` an LM's ``train_4k`` step runs
 sharded (`distributed.parallel`: ZeRO-3 over the data axes, tensor
-parallelism over "model"); every other family and kind on a mesh raises
-`NotImplementedError`.  The batch or the tokens are the
-JAX package's numpy arrays for the same ``default_rng(0)``; the parameters
-are made on the device from a seeded ``torch.Generator``
-(``params_from_jax`` of `models.recsys`, `models.transformer` and
-`models.gnn` carries the JAX package's own instead).  An LM's serving
+parallelism over "model"), and so do its serving kinds (the cache in the
+reference's ``kv_cache``/``mla_cache`` layout, `lm_cache_spec`); the
+recsys and GAT steps on a mesh raise `NotImplementedError`.  The batch
+or the tokens are the JAX package's numpy arrays for the same
+``default_rng(0)``; the parameters are made on the device from a seeded
+``torch.Generator`` (``params_from_jax`` of `models.recsys`,
+`models.transformer` and `models.gnn` carries the JAX package's own
+instead).  An LM's serving
 steps hold its parameters in its compute dtype (bfloat16 at full width),
 which they compute in anyway; its training step holds them in float32
 (``cfg.param_dtype``), as the reference.  A training step updates the
@@ -276,6 +278,31 @@ def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
     if b % accum or mb % dp:
         raise ValueError(f"{dp} data ranks do not divide microbatches of "
                          f"{mb} sequences")
+    _check_heads(cfg, tp)
+    _check_moe_groups(cfg, mb * s, dp)
+
+
+def check_lm_serving(cfg: tf.TransformerConfig, kind: str, b: int, s: int,
+                     dp: int, tp: int, long: bool) -> None:
+    """What a sharded serving step needs of the mesh: the heads, experts
+    and vocabulary over "model", the batch over the data ranks (not for
+    ``long``, whose batch is replicated), the sequence (the prompt, or the
+    cache's length) over its sequence group ("model", or with ``long`` the
+    data axes and "model"), and the MoE groups over the data ranks.
+    ValueError where it does not hold."""
+    if not long and b % dp:
+        raise ValueError(f"{dp} data ranks do not divide a batch of {b} "
+                         "sequences")
+    _check_heads(cfg, tp)
+    parts = dp * tp if long else tp
+    if s % parts:
+        raise ValueError(f"a sequence of {s} does not split into {parts} "
+                         "cache blocks")
+    if not long:
+        _check_moe_groups(cfg, b * s if kind == "prefill" else b, dp)
+
+
+def _check_heads(cfg: tf.TransformerConfig, tp: int) -> None:
     heads = [("heads", cfg.n_heads), ("vocab", cfg.vocab)]
     # fewer KV heads than model ranks: whole heads replicated over runs of
     # tp / n_kv ranks (GQA only; MLA's latent KV is not split by heads)
@@ -287,11 +314,17 @@ def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
         if n % tp:
             raise ValueError(f"{what} ({n}) must be divisible by the "
                              f"'model' axis size {tp}")
+    if cfg.moe is not None and cfg.moe.n_experts % tp:
+        raise ValueError(f"experts ({cfg.moe.n_experts}) must be "
+                         f"divisible by the 'model' axis size {tp}")
+
+
+def _check_moe_groups(cfg: tf.TransformerConfig, tokens: int,
+                      dp: int) -> None:
+    """The reference's ``gcd(T, dispatch_groups)`` MoE groups over the
+    ``tokens`` of a microbatch must split over the ``dp`` data ranks."""
     if cfg.moe is not None:
-        if cfg.moe.n_experts % tp:
-            raise ValueError(f"experts ({cfg.moe.n_experts}) must be "
-                             f"divisible by the 'model' axis size {tp}")
-        g = math.gcd(mb * s, max(cfg.moe.dispatch_groups, 1))
+        g = math.gcd(tokens, max(cfg.moe.dispatch_groups, 1))
         if g % dp:
             raise ValueError(f"{g} MoE groups do not split over {dp} data "
                              "ranks")
@@ -315,11 +348,6 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
     b, s = shape["global_batch"], shape["seq_len"]
     dp = _dp(multi_pod)
     tables = {}
-    if mesh is not None and kind != "train":
-        raise NotImplementedError(
-            f"{spec.arch_id}:{shape_name} on a mesh: the port shards the LM "
-            "training step only; the sharded serving steps are queued in "
-            "ROADMAP.md")
 
     meta = tf.init_params(cfg, device="meta")
     params_spec = arg_specs_of(meta)
@@ -375,6 +403,12 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                        model_flops=flops, init_args=init_args, **shard_kw)
 
     if kind == "prefill":
+        shard_kw = dict(arg_specs=(params_spec, ArgSpec((b, s), torch.int32)),
+                        in_shardings=(pspec, Spec(dp, None)))
+        if mesh is not None:
+            return _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh,
+                                     multi_pod, flops, rope, shard_kw)
+
         @torch.inference_mode()
         def step(params, tokens):
             return tf.prefill(params, tokens, cfg, rope=rope(tokens.device))
@@ -386,20 +420,20 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                                                        (b, s))).to(dev)
 
         return StepDef(name=f"{spec.arch_id}:{shape_name}:prefill", fn=step,
-                       model_flops=flops, init_args=init_args,
-                       arg_specs=(params_spec, ArgSpec((b, s), torch.int32)),
-                       in_shardings=(pspec, Spec(dp, None)))
+                       model_flops=flops, init_args=init_args, **shard_kw)
 
     cache = tf.init_cache(cfg, b, s, device="meta")
-    if shape_name == "long_500k":
-        seq = ("pod", "data", "model") if multi_pod else ("data", "model")
-        cspec = {k: Spec(*((None, None, seq) + (None,) * (v.ndim - 3)))
-                 for k, v in cache.items()}
-    else:
-        cspec = {k: Spec(*((None, dp, "model") + (None,) * (v.ndim - 3)))
-                 for k, v in cache.items()}
+    cspec = lm_cache_spec(cache, shape_name, multi_pod)
     ndp = 32 if multi_pod else 16
     tok_sharding = Spec(dp) if b % ndp == 0 else Spec(None)
+    shard_kw = dict(arg_specs=(params_spec, arg_specs_of(cache),
+                               ArgSpec((b,), torch.int32),
+                               ArgSpec((), torch.int32)),
+                    in_shardings=(pspec, cspec, tok_sharding, Spec()),
+                    out_shardings=(None, cspec), donate_argnums=(1,))
+    if mesh is not None:
+        return _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh,
+                                 multi_pod, flops, rope, shard_kw)
 
     @torch.inference_mode()
     def step(params, cache, tokens, pos):
@@ -413,12 +447,21 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                 torch.from_numpy(_lm_tokens(rng, cfg, (b,))).to(dev), s // 2)
 
     return StepDef(name=f"{spec.arch_id}:{shape_name}:decode", fn=step,
-                   model_flops=flops, init_args=init_args,
-                   arg_specs=(params_spec, arg_specs_of(cache),
-                              ArgSpec((b,), torch.int32),
-                              ArgSpec((), torch.int32)),
-                   in_shardings=(pspec, cspec, tok_sharding, Spec()),
-                   out_shardings=(None, cspec), donate_argnums=(1,))
+                   model_flops=flops, init_args=init_args, **shard_kw)
+
+
+def lm_cache_spec(cache, shape_name: str, multi_pod: bool = False) -> dict:
+    """The reference's layout of a KV cache tree (leaves (L, B, S, ...)):
+    ``long_500k``'s sequence over every mesh axis (batch replicated), any
+    other cell's batch over the data axes and sequence over "model" (the
+    rules' ``kv_cache``/``mla_cache``; the sharded prefill's cache too)."""
+    if shape_name == "long_500k":
+        seq = ("pod", "data", "model") if multi_pod else ("data", "model")
+        return {k: Spec(*((None, None, seq) + (None,) * (len(v.shape) - 3)))
+                for k, v in cache.items()}
+    return {k: Spec(*((None, _dp(multi_pod), "model")
+                      + (None,) * (len(v.shape) - 3)))
+            for k, v in cache.items()}
 
 
 def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
@@ -466,6 +509,76 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
         return params, opt.init(params), _on(dev, batch)
 
     return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
+                   model_flops=flops, init_args=init_args, **shard_kw)
+
+
+def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
+                      flops, rope, shard_kw) -> StepDef:
+    """``prefill`` or ``decode`` over ``mesh``: the bfloat16 (compute
+    dtype) parameters as this rank's shards of `lm_param_spec`, gathered
+    over the data axes at use, the heads, the vocabulary and the experts
+    over "model" (`_sharded_lm_train`'s layout); a prefill takes the
+    rank's token rows and returns the whole (B, V) logits and the rank's
+    block of the cache in the decode layout; a decode step takes the
+    rank's rows and cache block (`lm_cache_spec`; ``long_500k``: every row
+    and a block of the sequence over the data axes and "model") and
+    returns the whole logits, writing its block in place.  The StepDef's
+    specs stay the reference's (its token spec tests the batch against
+    the production data size); the rows a rank holds follow ``mesh``."""
+    from ..distributed import parallel
+    from ..distributed.sharding import rules_for_family, sharding_rules
+
+    n_dp, n_tp = _check_mesh(mesh, multi_pod)
+    long = shape_name == "long_500k"
+    check_lm_serving(cfg, kind, b, s, n_dp, n_tp, long)
+    dp = _dp(multi_pod)
+    ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
+                                   spec_of=_lm_leaf_spec(dp))
+    ctx.serve_layout(long)
+    if cfg.mla is None:
+        ctx.replicate_kv(cfg.n_kv_heads)
+    lcfg = _local_cfg(cfg, n_tp)
+    rules = rules_for_family("lm", multi_pod=multi_pod)
+    rows = (np.arange(b) if long else
+            parallel.data_rows(b, 1, ctx.dp_size, ctx.dp_rank))
+
+    def params_and_rng(device):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = parallel.init_shards(
+            lambda: tf.init_params(cfg, dtype=cfg.dtype, generator=gen,
+                                   device=dev),
+            lambda: tf.init_params(cfg, dtype=cfg.dtype, device="meta"),
+            lambda p, l: lm_param_spec(p, l, dp), mesh)
+        return dev, params, np.random.default_rng(SEED)
+
+    if kind == "prefill":
+        @torch.inference_mode()
+        def step(params, tokens):
+            with sharding_rules(rules, ctx):
+                return tf.prefill(params, tokens, lcfg,
+                                  rope=rope(tokens.device))
+
+        def init_args(device=None):
+            dev, params, rng = params_and_rng(device)
+            tokens = _lm_tokens(rng, cfg, (b, s))[rows]
+            return params, torch.from_numpy(tokens).to(dev)
+    else:
+        @torch.inference_mode()
+        def step(params, cache, tokens, pos):
+            with sharding_rules(rules, ctx):
+                return tf.decode_step(params, cache, tokens, pos, lcfg,
+                                      rope=rope(tokens.device))
+
+        def init_args(device=None):
+            dev, params, rng = params_and_rng(device)
+            tokens = _lm_tokens(rng, cfg, (b,))[rows]
+            cache = tf.init_cache(cfg, len(rows), s // ctx.seq_size,
+                                  device=dev)
+            return (params, cache, torch.from_numpy(tokens).to(dev),
+                    s // 2)
+
+    return StepDef(name=f"{spec.arch_id}:{shape_name}:{kind}", fn=step,
                    model_flops=flops, init_args=init_args, **shard_kw)
 
 
@@ -936,8 +1049,8 @@ def build_step(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     ``cfg_override`` fields of an LM's config; ``multi_pod`` lays the specs
     (and a ``mesh``'s data axes) over ("pod", "data").  With a ``mesh``
     (a `DeviceMesh` over ("data", "model"), or ("pod", "data", "model")
-    with ``multi_pod``) an LM's ``train_4k`` step runs sharded over it;
-    other families and kinds raise `NotImplementedError`."""
+    with ``multi_pod``) an LM's steps run sharded over it; the other
+    families raise `NotImplementedError`."""
     spec = get_arch(arch_id)
     if shape_name in spec.skip_shapes:
         raise ValueError(f"{arch_id}:{shape_name} skipped: "
@@ -950,8 +1063,8 @@ def build_step(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     if mesh is not None:
         raise NotImplementedError(
             f"{arch_id}:{shape_name} on a mesh: the port shards the LM "
-            "training step only; the sharded recsys and GAT steps are "
-            "queued in ROADMAP.md")
+            "steps only; the sharded recsys and GAT steps are queued in "
+            "ROADMAP.md")
     builder = {"gnn": build_gnn_step, "recsys": build_rs_step}[spec.family]
     return builder(spec, shape_name, reduced=reduced, multi_pod=multi_pod,
                    shape_override=shape_override)

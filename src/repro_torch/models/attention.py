@@ -34,6 +34,16 @@ parallelism, `copy_to_model` at the input of each column-parallel product
 shared RoPE key).  Under tensor parallelism the caller passes this rank's
 head counts and its heads' weights, and the output projection's result is
 the rank's partial sum.
+
+A decode step under a context whose cache is cut along the sequence
+(`distributed.parallel.ParallelContext.serve_layout`) holds this rank's
+block of the cache: the new token's queries and KV entries are gathered
+over "model" (every head), the rank whose block holds ``pos`` writes the
+entry at ``pos - offset``, the masks are over global positions, every
+head is scored over the block, the partial softmaxes are combined over
+the sequence group (`ParallelContext.seq_attend`), and the rank's own
+heads go on into ``wo``.  Without a context, or at a sequence group of
+one rank, the unsharded code runs.
 """
 from __future__ import annotations
 
@@ -44,7 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed.parallel import copy_to_model
-from ..distributed.sharding import constrain, scoped
+from ..distributed.sharding import constrain, current_context, scoped
 from .layers import apply_rope, rms_norm, uniform_init
 
 NEG_INF = -1e30
@@ -233,6 +243,11 @@ def gqa_decode(p, x, cache_k, cache_v, pos: int, cos, sin, *, n_heads,
     if use_rope:
         q = apply_rope(q, posb, cos, sin)
         k = apply_rope(k, posb, cos, sin)
+    ctx = current_context()
+    if ctx is not None and ctx.seq_size > 1:
+        out = _gqa_decode_block(ctx, q[:, 0], k[:, 0], v[:, 0], cache_k,
+                                cache_v, pos, local_window)
+        return out @ p["wo"], cache_k, cache_v
     cache_k[:, pos] = k[:, 0]
     cache_v[:, pos] = v[:, 0]
     kpos = torch.arange(cache_k.shape[1], device=x.device)
@@ -251,6 +266,43 @@ def gqa_decode(p, x, cache_k, cache_v, pos: int, cos, sin, *, n_heads,
     w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskv->bqkgv", w, cv)
     return out.reshape(b, n_heads * head_dim) @ p["wo"], cache_k, cache_v
+
+
+def _write_block(ctx, cache, new, pos: int) -> int:
+    """Write ``new`` at global position ``pos`` of the rank's cache block
+    (B, S_local, ...) if the block holds it; the block's offset."""
+    s_loc = cache.shape[1]
+    off = ctx.seq_pos * s_loc
+    if off <= pos < off + s_loc:
+        cache[:, pos - off] = new
+    return off
+
+
+def _gqa_decode_block(ctx, q, k, v, cache_k, cache_v, pos: int,
+                      local_window):
+    """`gqa_decode`'s attention over the rank's sequence block of the
+    cache: q (B, heads of the rank, D), the new k, v (B, KV heads of the
+    rank, D).  Returns the rank's heads' outputs (B, heads x D)."""
+    b, hl, d = q.shape
+    q = ctx.gather_heads(q)
+    k, v = ctx.gather_kv_heads(k), ctx.gather_kv_heads(v)
+    off = _write_block(ctx, cache_k, k, pos)
+    _write_block(ctx, cache_v, v, pos)
+    kpos = off + torch.arange(cache_k.shape[1], device=q.device)
+    if local_window is not None:
+        valid = (kpos >= pos - pos % local_window) & (kpos <= pos)
+    else:
+        valid = kpos <= pos
+    scale = softmax_scale(d, q.dtype)
+    h, hkv = q.shape[1], k.shape[1]
+    qg = q.reshape(b, 1, hkv, h // hkv, d)
+    ck, cv = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, ck) * scale
+    scores = torch.where(valid, scores, NEG_INF)
+    out = ctx.seq_attend(
+        scores, lambda w: torch.einsum("bkgqs,bskv->bkgqv", w, cv))
+    lo = ctx.tp_rank * hl
+    return out.reshape(b, h, d)[:, lo:lo + hl].reshape(b, hl * d)
 
 
 # --------------------------------------------------------------------------- #
@@ -307,6 +359,11 @@ def mla_decode(p, x, cache_ckv, cache_kpe, pos: int, cos, sin, md: MLADims):
     posb = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q_nope, q_pe, c_kv_new, k_pe_new = _mla_qkv(p, x[:, None, :], cos, sin,
                                                 posb, md)
+    ctx = current_context()
+    if ctx is not None and ctx.seq_size > 1:
+        out = _mla_decode_block(ctx, p, q_nope, q_pe, c_kv_new, k_pe_new,
+                                cache_ckv, cache_kpe, pos, md)
+        return out @ p["wo"], cache_ckv, cache_kpe
     cache_ckv[:, pos] = c_kv_new[:, 0]
     cache_kpe[:, pos] = k_pe_new[:, 0]
     wkv_b = p["wkv_b"].reshape(r, h, dn + dv)
@@ -323,3 +380,33 @@ def mla_decode(p, x, cache_ckv, cache_kpe, pos: int, cos, sin, md: MLADims):
     o_lat = torch.einsum("bhs,bsr->bhr", w, ckv)
     out = torch.einsum("bhr,rhv->bhv", o_lat, w_uv).reshape(b, h * dv)
     return out @ p["wo"], cache_ckv, cache_kpe
+
+
+def _mla_decode_block(ctx, p, q_nope, q_pe, c_kv_new, k_pe_new, cache_ckv,
+                      cache_kpe, pos: int, md: MLADims):
+    """`mla_decode`'s absorbed attention over the rank's sequence block:
+    the latent queries of every head (gathered over "model") against the
+    block, combined over the sequence group; the new latents, whole on
+    every model rank, written by the rank whose block holds ``pos``.
+    Returns the rank's heads' outputs (B, heads x dv)."""
+    b = q_nope.shape[0]
+    h, dn, dr, dv, r = md.n_heads, md.qk_nope, md.qk_rope, md.v_head, \
+        md.kv_lora
+    off = _write_block(ctx, cache_ckv, c_kv_new[:, 0], pos)
+    _write_block(ctx, cache_kpe, k_pe_new[:, 0], pos)
+    wkv_b = p["wkv_b"].reshape(r, h, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_lat = ctx.gather_heads(torch.einsum("bqhd,rhd->bhr", q_nope, w_uk))
+    q_pe = ctx.gather_heads(q_pe[:, 0])
+    dt = q_lat.dtype
+    ckv, kpe = cache_ckv.to(dt), cache_kpe.to(dt)
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+              + torch.einsum("bhd,bsd->bhs", q_pe, kpe))
+    scale = softmax_scale(dn + dr, dt)
+    kpos = off + torch.arange(ckv.shape[1], device=ckv.device)
+    scores = torch.where((kpos <= pos)[None, None], scores * scale, NEG_INF)
+    o_lat = ctx.seq_attend(scores,
+                           lambda w: torch.einsum("bhs,bsr->bhr", w, ckv))
+    lo = ctx.tp_rank * h
+    return torch.einsum("bhr,rhv->bhv", o_lat[:, lo:lo + h],
+                        w_uv).reshape(b, h * dv)

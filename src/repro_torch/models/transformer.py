@@ -189,17 +189,15 @@ def group_params(params, gi: int):
     return tree_map(lambda a: a[gi], layers)
 
 
-def _cast_layer(gp, j: int, cfg: TransformerConfig):
-    return tree_map(lambda a: a[j].to(cfg.dtype), gp)
-
-
 def layer_params(params, cfg: TransformerConfig):
     """(layer index, kind, the layer's parameters in ``cfg.dtype``) in
-    order: group by group, the pattern within each."""
+    order: group by group, the pattern within each; in the sharded step
+    each layer's shards gathered at use (`gather_layer_params`)."""
     for gi in range(cfg.n_groups):
         gp = group_params(params, gi)
         for j, kind in enumerate(cfg.layer_pattern):
-            yield gi * cfg.pattern_period + j, kind, _cast_layer(gp, j, cfg)
+            yield gi * cfg.pattern_period + j, kind, gather_layer_params(
+                tree_map(lambda a: a[j], gp), cfg.dtype)
 
 
 def train_view(params, grads, cfg: TransformerConfig) -> dict:
@@ -375,35 +373,53 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
             for k, s in _cache_shapes(cfg, batch, max_seq).items()}
 
 
+def _head(params, x, cfg: TransformerConfig):
+    """``x @ lm_head`` in ``cfg.dtype``; in the sharded step the rank's
+    vocabulary columns, the logits gathered whole (`ParallelContext.
+    gather_logits`)."""
+    ctx = current_context()
+    if ctx is None:
+        return x @ params["lm_head"].to(cfg.dtype)
+    w = ctx.gather_vocab("lm_head", params["lm_head"], cfg.dtype)
+    return ctx.gather_logits(x @ w)
+
+
 def prefill(params, tokens, cfg: TransformerConfig,
             cache_dtype=torch.bfloat16, *, rope=None):
-    """Run the prompt; returns (last-token logits (B, V), cache over S)."""
+    """Run the prompt; returns (last-token logits (B, V), cache over S).
+    In the sharded step the cache is the rank's block of the decode layout
+    (`ParallelContext.cache_block`)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = embed_tokens(params, tokens, cfg)
+    ctx = current_context()
+    x = constrain(embed_tokens(params, tokens, cfg), "act_btd")
     cos, sin = _rope(cfg, rope, x.device)
-    cache = {k: torch.empty(sh, dtype=cache_dtype, device=x.device)
-             for k, sh in _cache_shapes(cfg, b, s).items()}
+    names, cache = tuple(_cache_shapes(cfg, b, s)), {}
     for li, kind, lp in layer_params(params, cfg):
         h = rms_norm(x, lp["attn_norm"])
         attn_out, kv = _attn_apply(lp["attn"], h, kind, cos, sin, positions,
                                    cfg)
-        for name, t in zip(cache, kv):
+        for name, t in zip(names, kv):
+            if ctx is not None:
+                t = ctx.cache_block(t.to(cache_dtype))
+            if name not in cache:
+                cache[name] = torch.empty((cfg.n_layers,) + tuple(t.shape),
+                                          dtype=cache_dtype, device=x.device)
             cache[name][li] = t            # rounded to the cache's dtype
-        x = x + attn_out
+        x = x + constrain(attn_out, "act_btd")
         y, _ = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
-        x = x + y
+        x = x + constrain(y, "act_btd")
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
-    logits = x[:, -1, :] @ params["lm_head"].to(cfg.dtype)
-    return logits, cache
+    return _head(params, x[:, -1, :], cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: TransformerConfig, *,
                 rope=None):
     """One decode step.  tokens: (B,); pos: the next position (an int).
-    Writes the cache in place at ``pos``; returns (logits (B, V), cache)."""
+    Writes the cache in place at ``pos``; returns (logits (B, V), cache).
+    In the sharded step ``cache`` is the rank's block of the cache."""
     pos = int(pos)
-    x = embed_tokens(params, tokens, cfg)
+    x = constrain(embed_tokens(params, tokens, cfg), "act_btd")
     cos, sin = _rope(cfg, rope, x.device)
     for li, kind, lp in layer_params(params, cfg):
         h = rms_norm(x, lp["attn_norm"])
@@ -418,9 +434,8 @@ def decode_step(params, cache, tokens, pos, cfg: TransformerConfig, *,
                 head_dim=cfg.head_dim,
                 local_window=cfg.local_window if kind == "local" else None,
                 use_rope=(kind != "global_nope"))
-        x = x + attn_out
+        x = x + constrain(attn_out, "act_btd")
         y, _ = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
-        x = x + y
+        x = x + constrain(y, "act_btd")
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
-    return x @ params["lm_head"].to(cfg.dtype), cache
-
+    return _head(params, x, cfg), cache

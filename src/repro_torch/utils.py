@@ -97,6 +97,11 @@ def top_k(x: torch.Tensor, k: int, *, largest: bool = True, masked=None):
         if masked is not None:
             tied &= kth[:, 0] != _order_keys(torch.tensor(
                 [masked], dtype=torch.float32, device=x.device))
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(tied):
+            # a dry-run trace (`launch.hlo_analysis`): shapes without
+            # values, so no tie can be seen; the common path's costs
+            return x.gather(1, idx), idx
         rows = torch.nonzero(tied).flatten()
         if rows.numel():
             n = keys.shape[1]

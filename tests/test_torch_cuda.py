@@ -1328,3 +1328,34 @@ def test_compacted_stacked_on_the_card_equals_the_cpu(card):
         for c, g in zip(cpu, on_card):
             np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())
         assert (int(cpu[3]) == total) == (int(cpu[4]) <= cc)
+
+
+def test_cuda_lm_serving_on_a_one_rank_mesh_is_bit_equal(card, tmp_path):
+    """The sharded prefill and decode steps (the reduced LMs, llama4's
+    ``long_500k`` too) on a (1, 1) NCCL mesh equal the unsharded steps on
+    the card bit for bit: logits and caches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mesh = tmesh.make_host_mesh()
+        for arch, shape in (("internlm2-20b", "decode_32k"),
+                            ("minicpm3-4b", "decode_32k"),
+                            ("qwen3-moe-235b-a22b", "decode_32k"),
+                            ("llama4-scout-17b-a16e", "long_500k")):
+            for cell in ("prefill_32k", shape):
+                sd = tsteps.build_step(arch, cell, reduced=True, mesh=mesh)
+                plain = tsteps.build_step(arch, cell, reduced=True)
+                got = sd.fn(*sd.init_args())
+                want = plain.fn(*plain.init_args())
+                assert got[0].is_cuda
+                for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                    assert torch.equal(g, w), (arch, cell)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dist.destroy_process_group()

@@ -11,7 +11,9 @@ Tolerances, and why:
 * a sharded step's flops over all its ranks equal the unsharded step's to
   1e-6: at these meshes every product is split over the data or the model
   ranks and none is replicated (the KV heads divide "model", no MoE
-  router, no MLA), so the sum is the same products cut into pieces;
+  router, no MLA), so the sum is the same products cut into pieces; a
+  sharded decode step's likewise, plus, for MLA, the latent projections
+  that every model rank computes whole (counted exactly);
 * the depth fit (`_fit_lm_costs`) is exact in flops, bytes, collectives
   and peak bytes to 1e-6: a step is affine in its layers.
 """
@@ -109,6 +111,35 @@ def test_sharded_flops_sum_to_the_unsharded_step(mesh, multi_pod):
         <= rec["peak_memory_bytes"]
 
 
+@pytest.mark.parametrize("arch", ["internlm2-20b", "minicpm3-4b"])
+def test_sharded_decode_flops_sum_to_the_unsharded_step(arch):
+    """A decode step at (2, 2): every rank scores all heads (the queries
+    gathered over "model") over its block of the cache, which cuts the
+    scores and values into pieces without repeating any, and GQA's KV
+    projections are split (2 KV heads over 2 model ranks).  The work done
+    on both model ranks is MLA's ``wq_a`` and ``wkv_a`` products, whole on
+    every model rank: (tp - 1) 2 B L d (q_lora + kv_lora + qk_rope)
+    flops, none for GQA.  Beyond that the sum equals to 1e-6."""
+    over = _reduced(arch)
+    rec = dryrun.run_cell(arch, "decode_32k", mesh_shape=(2, 2),
+                          fit_lm=False, cfg_override=over,
+                          shape_override=SMALL, verbose=False)
+    step = tsteps.build_step(arch, "decode_32k", cfg_override=over,
+                             shape_override=SMALL)
+    want = hlo_analysis.record_step(
+        step.fn, lambda: step.init_args(device="cpu")).flops
+    replicated = 0
+    if over["mla"] is not None:
+        m = over["mla"]
+        replicated = (2 - 1) * 2 * SMALL["global_batch"] * over["n_layers"] \
+            * over["d_model"] * (m.q_lora + m.kv_lora + m.qk_rope)
+    assert replicated > 0 or arch == "internlm2-20b"
+    got = rec["flops_per_device"] * 4
+    assert abs(got - (want + replicated)) <= 1e-6 * want
+    assert {"all-gather", "all-reduce"} <= set(rec["collective_breakdown"])
+    assert rec["step"] == step.name
+
+
 def test_depth_fit_equals_a_full_depth_trace():
     over = _reduced("internlm2-20b", n_layers=5)
     kw = dict(mesh_shape=(2, 2), cfg_override=over, shape_override=SMALL,
@@ -127,7 +158,7 @@ def test_depth_fit_equals_a_full_depth_trace():
 def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
     recs = [dryrun.run_cell("mind", "train_batch", mesh_shape=(2, 2),
                             out_dir=str(tmp_path), verbose=False),
-            dryrun.run_cell("internlm2-20b", "prefill_32k",
+            dryrun.run_cell("dlrm-mlperf", "serve_p99",
                             mesh_shape=(2, 2), verbose=False),
             # 40 MLA heads do not split over the production "model" of 16
             dryrun.run_cell("minicpm3-4b", "train_4k", verbose=False)]

@@ -258,7 +258,7 @@ def test_mesh_checks_raise_before_any_collective():
 
 
 @pytest.mark.parametrize("arch,shape", [
-    ("internlm2-20b", "prefill_32k"), ("minicpm3-4b", "decode_32k"),
+    ("dlrm-mlperf", "serve_p99"), ("gat-cora", "molecule"),
     ("mind", "train_batch"), ("gat-cora", "full_graph_sm"),
     ("bert4rec", "train_batch")])
 def test_other_steps_on_a_mesh_are_not_ported_yet(arch, shape):
