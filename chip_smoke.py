@@ -175,6 +175,20 @@ or note, and each phase's time:
    ``decode_32k`` at batch 8), each ``init_args`` gathering to the
    unsharded init and its logits and cache bit-equal to the unsharded
    step's, the full-width ones timed beside it with their peak memory;
+   (e) the recsys and GAT steps on the (1, 1) mesh (the tables' row
+   blocks through the embedding_bag kernel, the batch or the edges over
+   the data axes): every reduced cell of the four recsys archs and the
+   four ``gat-cora`` shapes, its ``init_args`` gathering to the unsharded
+   init and its outputs (a training step's metrics and updated state)
+   bit-equal to the unsharded step's; at full width Wide & Deep's,
+   MIND's and BERT4Rec's ``train_batch`` (one step), ``serve_bulk`` and
+   ``retrieval_cand`` and ``ogb_products`` (one step) bit-equal to the
+   unsharded step and timed beside it; DLRM over one copy of its 48.07 GB
+   table, shared by the unsharded model and the sharded one:
+   ``serve_bulk`` and ``retrieval_cand`` bit-equal to the unsharded
+   forward, and a sharded ``train_batch`` step whose loss equals the
+   unsharded loss of the same batch, computed before it; the sharded
+   steps' embedding_bag launches counted into the kernel line;
 8. the engine's host lane and the dry-run: (a) on the SIFT-1M stand-in
    (phase 2's data, index, queries and radius, made again) with the
    index's arrays on the host, ``oracle=True``: the compacted executor
@@ -5083,6 +5097,13 @@ P7_SERVE = (("nemotron-4-15b", ("decode_32k",)),
             ("llama4-scout-17b-a16e", ("decode_32k", "long_500k")),
             ("qwen3-moe-235b-a22b", ("decode_32k",)))
 P7_SERVE_FULL = ("nemotron-4-15b", 8, 1, 8)
+# (e): the recsys and GAT cells on the (1, 1) mesh: every reduced one, and
+# these at full width (DLRM apart, over one copy of its table)
+P7_RS = ("dlrm-mlperf", "wide-deep", "mind", "bert4rec")
+P7_RS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+P7_GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+P7_RS_FULL = (("wide-deep", "mind", "bert4rec"),
+              ("train_batch", "serve_bulk", "retrieval_cand"))
 
 
 def p7_collectives(torch, chk: Checks, mesh, card: str) -> dict:
@@ -5301,9 +5322,188 @@ def p7_serve_full(torch, chk: Checks, steps, parallel, mesh,
     return rec
 
 
-def phase_distributed(torch, chk: Checks, card: str) -> dict:
-    """Phase 7: the distributed layer and the sharded LM training step on
-    one card, under NCCL at world size 1."""
+def p7_tree(model):
+    return model if isinstance(model, dict) else model.tree()
+
+
+def p7_call(sd, args):
+    """One call of a recsys or GAT step: a training step's metrics and the
+    parameters and state it updated in place, else its outputs."""
+    out = sd.fn(*args)
+    if sd.name.endswith(":train"):
+        return [out, p7_tree(args[0]), args[1]]
+    return out
+
+
+def p7_pair(torch, K, sds: dict, args: dict) -> tuple:
+    """``p7_call`` of the unsharded and the sharded step, each timed on
+    the host clock (synchronized): (outputs, ms, the sharded step's
+    embedding_bag launches)."""
+    outs, ms = {}, {}
+    for k in ("plain", "sharded"):
+        K.reset_launch_counts()
+        outs[k], ms[k] = sync_ms(torch, lambda: p7_call(sds[k], args[k]))
+        if k == "sharded":
+            launches = K.embedding_bag.launches
+    return outs, ms, launches
+
+
+def p7_same_init(torch, parallel, mesh, sds: dict, args: dict) -> bool:
+    sd = sds["sharded"]
+    return p7_same(torch, parallel.gather_tree(
+        p7_tree(args["sharded"][0]), sd.in_shardings[0], mesh),
+        p7_tree(args["plain"][0])) and p7_same(torch, args["sharded"][1:],
+                                               args["plain"][1:])
+
+
+def p7_rs_reduced(torch, chk: Checks, K, steps, parallel, mesh) -> int:
+    """(e) every reduced recsys and GAT cell on the (1, 1) mesh against
+    the unsharded step on the card, bit for bit; returns the sharded
+    steps' embedding_bag launches."""
+    total = 0
+    cells = [(a, s) for a in P7_RS for s in P7_RS_SHAPES] + [
+        ("gat-cora", s) for s in P7_GNN_SHAPES]
+    for arch, shape in cells:
+        sds = {"plain": steps.build_step(arch, shape, reduced=True),
+               "sharded": steps.build_step(arch, shape, reduced=True,
+                                           mesh=mesh)}
+        args = {k: sd.init_args() for k, sd in sds.items()}
+        same_init = p7_same_init(torch, parallel, mesh, sds, args)
+        outs, _, n = p7_pair(torch, K, sds, args)
+        total += n
+        same = p7_same(torch, outs["sharded"], outs["plain"])
+        chk.ok(same_init and same and (n > 0 or arch in ("bert4rec",
+                                                         "gat-cora")),
+               f"{sds['sharded'].name} (reduced) on a (1, 1) mesh: "
+               f"init_args gathered == the unsharded init {same_init}; "
+               f"outputs bit-equal to the unsharded step {same}; "
+               f"embedding_bag launches {n}")
+        del sds, args, outs
+    torch.cuda.empty_cache()
+    return total
+
+
+def p7_rs_full(torch, chk: Checks, K, steps, parallel, mesh,
+               card: str) -> tuple:
+    """(e) Wide & Deep, MIND and BERT4Rec at full width (`P7_RS_FULL`) and
+    ``ogb_products`` (one step): the unsharded and the sharded step from
+    their own seeded init, bit for bit and timed.  Returns (record, the
+    sharded steps' embedding_bag launches)."""
+    rec, total = {}, 0
+    archs, shapes = P7_RS_FULL
+    cells = [(a, s) for a in archs for s in shapes] + [("gat-cora",
+                                                        "ogb_products")]
+    for arch, shape in cells:
+        sds = {"plain": steps.build_step(arch, shape),
+               "sharded": steps.build_step(arch, shape, mesh=mesh)}
+        args = {k: sd.init_args() for k, sd in sds.items()}
+        same_init = p7_same_init(torch, parallel, mesh, sds, args)
+        outs, ms, n = p7_pair(torch, K, sds, args)
+        total += n
+        same = p7_same(torch, outs["sharded"], outs["plain"])
+        name = sds["sharded"].name
+        rec[name] = {"plain_ms": ms["plain"], "sharded_ms": ms["sharded"],
+                     "bit_equal": bool(same and same_init), "launches": n}
+        chk.ok(same_init and same,
+               f"{name} at full width on a (1, 1) mesh: init_args gathered "
+               f"== the unsharded init {same_init}; outputs bit-equal to "
+               f"the unsharded step {same}; {ms['sharded']:.2f} ms beside "
+               f"{ms['plain']:.2f} (one call, host clock, synchronized); "
+               f"embedding_bag launches {n} [{card}]")
+        del sds, args, outs
+        torch.cuda.empty_cache()
+    return rec, total
+
+
+def p7_dlrm(torch, chk: Checks, K, steps, parallel, mesh, card: str) -> tuple:
+    """(e) DLRM at the full MLPerf tables, one copy of the 48.07 GB table
+    on the card: the sharded model over the unsharded model's tree (at (1,
+    1) the table's block is the table itself, the MLPs copied);
+    ``serve_bulk`` and ``retrieval_cand`` against the unsharded forward,
+    bit for bit; a sharded ``train_batch`` step whose loss equals the
+    unsharded loss of its batch, computed before the step.  Returns
+    (record, the sharded steps' embedding_bag launches)."""
+    from repro_torch.models import recsys as rs
+
+    train = {k: steps.build_step("dlrm-mlperf", "train_batch",
+                                 mesh=mesh if k == "sharded" else None)
+             for k in ("plain", "sharded")}
+    model, _, batch = train["plain"].init_args()
+    cfg = model.cfg
+    shard = rs.from_tree("dlrm-mlperf", cfg, parallel.shard_tree(
+        model.tree(), train["sharded"].in_shardings[0], mesh))
+    one_copy = shard.table.data_ptr() == model.table.data_ptr()
+    rng = np.random.default_rng(SEED)
+    b = steps.get_arch("dlrm-mlperf").shapes["serve_bulk"]["batch"]
+    serve_batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+                   steps._rs_batch("dlrm-mlperf", cfg, b, rng,
+                                   "rs_serve").items()}
+    c = steps.get_arch("dlrm-mlperf").shapes["retrieval_cand"]["n_candidates"]
+    vmax = min(cfg.vocab_sizes)
+    query = {k: torch.from_numpy(v).to(DEVICE) for k, v in {
+        "dense": rng.normal(size=(1, cfg.n_dense)).astype(np.float32),
+        "sparse": rng.integers(0, vmax, (1, cfg.n_sparse)).astype(np.int32),
+        "cand_ids": rng.integers(0, vmax, (c,)).astype(np.int32)}.items()}
+    rec, total = {"one_table_copy": one_copy}, 0
+    for shape, inputs in (("serve_bulk", serve_batch),
+                          ("retrieval_cand", query)):
+        sds = {k: steps.build_step("dlrm-mlperf", shape,
+                                   mesh=mesh if k == "sharded" else None)
+               for k in ("plain", "sharded")}
+        args = {"plain": (model, inputs), "sharded": (shard, inputs)}
+        outs, ms, n = p7_pair(torch, K, sds, args)
+        total += n
+        same = p7_same(torch, outs["sharded"], outs["plain"])
+        rec[shape] = {"plain_ms": ms["plain"], "sharded_ms": ms["sharded"],
+                      "bit_equal": bool(same), "launches": n}
+        chk.ok(same and one_copy and n > 0,
+               f"{sds['sharded'].name} at the full MLPerf tables on a (1, 1) "
+               f"mesh, one copy of the table ({one_copy}): outputs bit-equal "
+               f"to the unsharded forward {same}; {ms['sharded']:.2f} ms "
+               f"beside {ms['plain']:.2f} (one call, host clock, "
+               f"synchronized); embedding_bag launches {n} [{card}]")
+        del outs
+    with torch.no_grad():
+        want = rs.dlrm_loss(model, batch)
+    state = steps.train_optimizer().init(shard.tree())
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    m, ms = sync_ms(torch, lambda: train["sharded"].fn(shard, state, batch))
+    n = K.embedding_bag.launches
+    total += n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = bool(torch.equal(m["loss"], want))
+    rec["train_batch"] = {"sharded_ms": ms, "loss": float(m["loss"]),
+                          "loss_equal": same, "launches": n, "peak_gb": peak}
+    chk.ok(same and n > 0 and bool(torch.isfinite(m["loss"])),
+           f"{train['sharded'].name} at the full MLPerf tables on a (1, 1) "
+           f"mesh: the sharded step's loss {float(m['loss']):.6f} equal to "
+           f"the unsharded loss of its batch {float(want):.6f}: {same}; "
+           f"{ms:.2f} ms (one step, host clock, synchronized), peak "
+           f"{peak:.2f} GB; embedding_bag launches {n} [{card}]")
+    del model, shard, state, batch, serve_batch, query, m, want
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def p7_recsys_gat(torch, chk: Checks, K, steps, parallel, mesh,
+                  card: str) -> dict:
+    """(e): `p7_rs_reduced`, `p7_rs_full` and `p7_dlrm`; the record with
+    the sharded steps' embedding_bag launches (``bag_launches``)."""
+    t = time.perf_counter()
+    n = p7_rs_reduced(torch, chk, K, steps, parallel, mesh)
+    full, n_full = p7_rs_full(torch, chk, K, steps, parallel, mesh, card)
+    dlrm, n_dlrm = p7_dlrm(torch, chk, K, steps, parallel, mesh, card)
+    return {"full_width": full, "dlrm": dlrm,
+            "bag_launches": {"reduced": n, "full width": n_full,
+                             "dlrm": n_dlrm},
+            "seconds": time.perf_counter() - t}
+
+
+def phase_distributed(torch, chk: Checks, card: str, K=None) -> dict:
+    """Phase 7: the distributed layer and the sharded LM training and
+    serving steps, then (with the kernels' module ``K``) the sharded
+    recsys and GAT steps, on one card, under NCCL at world size 1."""
     import os
     import tempfile
     import warnings
@@ -5314,9 +5514,9 @@ def phase_distributed(torch, chk: Checks, card: str) -> dict:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
 
-    print("phase 7: the distributed layer, the sharded train_4k step and "
-          "the sharded serving steps, NCCL at world size 1, deterministic "
-          "algorithms")
+    print("phase 7: the distributed layer, the sharded train_4k step, the "
+          "sharded serving steps and the sharded recsys and GAT steps, NCCL "
+          "at world size 1, deterministic algorithms")
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     rec = {}
@@ -5344,6 +5544,9 @@ def phase_distributed(torch, chk: Checks, card: str) -> dict:
             rec["serving"] = p7_serve_full(torch, chk, steps, parallel,
                                            mesh, card)
             rec["serving"]["seconds"] = time.perf_counter() - t
+            if K is not None:
+                rec["recsys_gat"] = p7_recsys_gat(torch, chk, K, steps,
+                                                  parallel, mesh, card)
         finally:
             torch.use_deterministic_algorithms(False)
             dist.destroy_process_group()
@@ -6003,10 +6206,15 @@ def main() -> int:
     t = time.perf_counter()
     Checks.note(f"device memory held before phase 7: "
                 f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    distributed = phase_distributed(torch, chk, card)
+    distributed = phase_distributed(torch, chk, card, K)
     print("phase 7 record: " + json.dumps(distributed))
     if not phase_done("phase 7", t):
         return 1
+    bag = next(r for r in kernels if r["name"] == "embedding_bag")
+    for part, n in distributed["recsys_gat"]["bag_launches"].items():
+        bag["launches_by_path"][f"sharded recsys steps (phase 7 (e), "
+                                f"{part})"] = n
+        bag["launches"] += n
     t = time.perf_counter()
     host = phase_host_and_dryrun(torch, chk, K, ref, ops_mod, snn, engine,
                                  card)

@@ -55,12 +55,34 @@ axes ("data", "model") or ("pod", "data", "model").
   GQA's heads; MLA's latent cache is whole on every model rank), and the
   vocabulary-parallel head's logits are gathered whole
   (`gather_logits`).
+* **The recsys and GAT steps** (``tensor_parallel=False``: "model" cuts
+  the tables' rows and nothing else; every other product is replicated
+  over it, so `copy_to_model` and `reduce_from_model` are identities).
+  A table is held as this rank's row block over "model": a lookup
+  localizes its ids (`localize_rows`: an id outside the block becomes
+  -1, an id past the table is first clamped to the last row, as the
+  unsharded kernel reads it), runs the embedding-bag kernel on the block
+  and sums the partial bags over "model" (`model_sum`); BERT4Rec's item
+  rows are gathered the same way (`vocab_rows`).  The MLP weights are
+  stored by the reference's ``rs_param_spec`` and gathered whole at use
+  (`gather_linear`).  The batch's rows are over the data axes
+  (``rows_split``): a loss divides by the global count (`batch_mean`), a
+  serving step gathers every row (`gather_data_rows`), a top-k merges
+  the ranks' lists (`merge_top_k`).  The GAT's full-graph step holds its
+  edges over the data axes (``edges_split``) and every node tensor whole
+  on every data rank: the segment max is all-reduced (MAX, `edge_max`,
+  which keeps the single card's rule for the gradient of a tie), the
+  softmax denominators and the messages summed (`edge_sum`), and a node
+  tensor read by the rank's edges passes `to_edges`, whose backward sums
+  the edges' partial gradients, so that every parameter's gradient is
+  the whole one on every rank.
 
 Every op runs its collectives on a mesh whose axes have size 1 too (each
 a copy there), except where the arithmetic would change: the
 cross-entropy, the sums over "model" and the serving layout's ops take
-the plain path when their group has size 1, so a (1, 1) mesh is
-bit-equal to the unsharded step.
+the plain path when their group has size 1, and so do the GAT's edge
+ops and the batch means when the data axes have size 1, so a (1, 1)
+mesh is bit-equal to the unsharded step.
 """
 from __future__ import annotations
 
@@ -145,12 +167,16 @@ def _map_path(fn, tree, path=()):
 
 
 def shard_tree(full, specs, mesh):
-    """This rank's shards (contiguous copies) of the tensors of ``full``,
-    laid out by the matching `Spec`s of ``specs``."""
+    """This rank's shards of the tensors of ``full``, laid out by the
+    matching `Spec`s of ``specs``: a copy of each block smaller than its
+    leaf (so that the full leaf can be freed), a leaf whole on this rank
+    as it is (made contiguous)."""
     def one(path, t):
         spec = _spec_at(specs, path)
-        return t[local_slices(spec, t.shape, mesh, ".".join(map(str, path)))
-                 ].contiguous()
+        piece = t[local_slices(spec, t.shape, mesh,
+                               ".".join(map(str, path)))]
+        return piece.clone(memory_format=torch.contiguous_format) \
+            if piece.numel() < t.numel() else piece.contiguous()
     return _map_path(one, full)
 
 
@@ -297,23 +323,55 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _tensor_parallel(ctx) -> bool:
+    return ctx is not None and ctx.tp_size > 1 and ctx.tensor_parallel
+
+
 def copy_to_model(x):
     """The input of a column-parallel product (Megatron's f): identity;
-    under a context with "model" larger than 1 its backward sums the
-    gradient over "model"."""
+    under a tensor-parallel context with "model" larger than 1 its
+    backward sums the gradient over "model"."""
     ctx = current_context()
-    if ctx is None or ctx.tp_size == 1:
+    if not _tensor_parallel(ctx):
         return x
     return _CopyToModel.apply(x, ctx.tp_group)
 
 
 def reduce_from_model(x):
     """A row-parallel product's partial output summed over "model"
-    (Megatron's g); identity without a context or at "model" size 1."""
+    (Megatron's g); identity without a tensor-parallel context or at
+    "model" size 1."""
     ctx = current_context()
-    if ctx is None or ctx.tp_size == 1:
+    if not _tensor_parallel(ctx):
         return x
     return _ReduceFromModel.apply(x, ctx.tp_group)
+
+
+class _EdgeMax(torch.autograd.Function):
+    """The segment max of the rank's edges' scores, all-reduced (MAX) over
+    the data ranks; the backward splits a segment's (whole) gradient
+    evenly among its entries equal to the max on every rank, as
+    `models.gnn.segment_max` does on one card (``scatter_reduce``'s rule:
+    the gradient over the tie count, gathered, times the entry's tie
+    indicator)."""
+
+    @staticmethod
+    def forward(ctx, e, seg, n, group):
+        from ..models.gnn import segment_max
+
+        m = segment_max(e, seg, n)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        ctx.save_for_backward(e, seg, m)
+        ctx.group = group
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        e, seg, m = ctx.saved_tensors
+        tie = (e == m.index_select(0, seg)).to(g.dtype)
+        count = g.new_zeros(m.shape).index_add_(0, seg, tie)
+        dist.all_reduce(count, op=dist.ReduceOp.SUM, group=ctx.group)
+        return tie * (g / count).index_select(0, seg), None, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -326,7 +384,9 @@ class ParallelContext:
     ndim)`` is the storage spec of a layer leaf named ``name`` (the layer
     stacks' leading axes dropped)."""
 
-    def __init__(self, mesh, *, multi_pod: bool = False, spec_of=None):
+    def __init__(self, mesh, *, multi_pod: bool = False, spec_of=None,
+                 tensor_parallel: bool = True, rows_split: bool = False,
+                 edges_split: bool = False):
         want = ("pod", "data", "model") if multi_pod else ("data", "model")
         if tuple(mesh.mesh_dim_names) != want:
             raise ValueError(f"the mesh's axes are {mesh.mesh_dim_names}, "
@@ -346,6 +406,11 @@ class ParallelContext:
         self.seq_group, self.seq_size, self.seq_pos = (
             self.tp_group, self.tp_size, self.tp_rank)
         self.tokens_replicated = False
+        # the recsys and GAT steps: "model" cuts the tables' rows alone;
+        # the batch's rows, or the graph's edges, are over the data axes
+        self.tensor_parallel = tensor_parallel
+        self.rows_split = rows_split
+        self.edges_split = edges_split
 
     def serve_layout(self, long: bool) -> None:
         """The serving steps' layout: the cache's sequence over "model"
@@ -530,6 +595,112 @@ class ParallelContext:
         got = got.movedim(0, 2).reshape(b, blk, -1, t.shape[-1])
         return got[:, :, ::self.kv_rep] if self.kv_rep > 1 else got
 
+    # ---- the recsys and GAT steps ----
+    def model_sum(self, x):
+        """A lookup's partial rows (this rank's table rows; zero for the
+        others) summed over "model"; identity backward.  The plain value
+        at "model" size 1."""
+        if self.tp_size == 1:
+            return x
+        return _ReduceFromModel.apply(x, self.tp_group)
+
+    def localize_rows(self, ids, v_local: int):
+        """Table ids as this rank's row block of a table of ``v_local`` rows
+        a model rank: ``id - row0``, -1 outside the block (padding, -1,
+        stays -1).  An id past the whole table is first clamped to its last
+        row, which the unsharded kernel reads (`kernels.ops.embedding_bag`
+        clamps; unclamped, every rank would read its block's last row)."""
+        v = v_local * self.tp_size
+        loc = ids.clamp_max(v - 1) - self.tp_rank * v_local
+        return torch.where((loc >= 0) & (loc < v_local), loc,
+                           torch.full_like(loc, -1))
+
+    def vocab_rows(self, table, ids):
+        """``F.embedding(ids, table)`` over the row blocks of a table cut
+        over "model" (BERT4Rec's items): the rows of this rank's block,
+        zero for the other ids, summed over "model"."""
+        if self.tp_size == 1:
+            return torch.nn.functional.embedding(ids, table)
+        v = table.shape[0]
+        loc = ids - self.tp_rank * v
+        own = (loc >= 0) & (loc < v)
+        rows = torch.nn.functional.embedding(loc.clamp(0, v - 1), table)
+        return self.model_sum(torch.where(own[..., None], rows, 0.0))
+
+    def gather_linear(self, w, full: tuple):
+        """An ``nn.Linear`` weight (out, in) whose (in, out) leaf is stored
+        by the reference's ``rs_param_spec`` (columns or rows over
+        "model"), gathered whole and contiguous (the unsharded module's
+        layout, so the product is the unsharded GEMM); its gradient is the
+        same on every model rank, whose block the backward keeps."""
+        if tuple(w.shape) == tuple(full):
+            return w.contiguous()
+        dim = 0 if w.shape[0] != full[0] else 1
+        return _Gather.apply(w, None, ((dim, self.tp_group, self.tp_size,
+                                        self.tp_rank, "same"),))
+
+    def gather_data_rows(self, x):
+        """``x``'s rows over the data ranks, in rank order (no gradient):
+        the whole batch's outputs of a serving step, or the occurrences of
+        a table's row gradient."""
+        if self.dp_size == 1:
+            return x
+        return _all_gather(x, 0, self.dp_group, self.dp_size)
+
+    def batch_mean(self, x):
+        """The global batch's mean of a per-row ``x`` of this rank's rows:
+        their sum over the global count (the ranks' results sum to the
+        mean); ``torch.mean`` where the rows are not split."""
+        if not self.rows_split or self.dp_size == 1:
+            return torch.mean(x)
+        return x.sum() / (x.numel() * self.dp_size)
+
+    def batch_count(self, n):
+        """A count over this rank's rows as the global batch's count."""
+        if not self.rows_split or self.dp_size == 1:
+            return n
+        return self.data_sum(n)
+
+    def merge_top_k(self, vals, idx, k: int, counts, over: str):
+        """The ``k`` largest of the ranks' top lists over ``over`` ("data"
+        or "model"), in `utils.top_k`'s order: ``vals`` (B, counts[pos])
+        this rank's list (descending, equal values in ascending index
+        order) and ``idx`` its global indices, the ranks' index ranges
+        ascending with their position.  The lists are gathered and
+        concatenated in rank order, so equal values stand in ascending
+        index order, and one `utils.top_k` picks the k."""
+        from ..utils import top_k
+
+        group, n = ((self.dp_group, self.dp_size) if over == "data" else
+                    (self.tp_group, self.tp_size))
+        if n == 1:
+            return vals, idx
+        pad = max(counts) - vals.shape[1]
+        pairs = torch.stack([vals.double(), idx.double()])
+        if pad:
+            pairs = torch.nn.functional.pad(pairs, (0, pad))
+        got = _all_gather(pairs[None], 0, group, n)      # (n, 2, B, kmax)
+        allv = torch.cat([got[r, 0, :, :c] for r, c in enumerate(counts)], 1)
+        alli = torch.cat([got[r, 1, :, :c] for r, c in enumerate(counts)], 1)
+        v, pos = top_k(allv.float(), k)
+        return v, alli.gather(1, pos).long()
+
+    def edge_sum(self, x):
+        """The ranks' partial sums over their edges of a node tensor,
+        summed over the data ranks; identity backward (the result is whole
+        on every rank, and so is its gradient)."""
+        return _ReduceFromModel.apply(x, self.dp_group)
+
+    def to_edges(self, x):
+        """A node tensor, whole on every data rank, as the rank's edges
+        read it: identity; the backward sums the ranks' partial gradients
+        (Megatron's f over the data axes)."""
+        return _CopyToModel.apply(x, self.dp_group)
+
+    def edge_max(self, e, seg, n: int):
+        """`models.gnn.segment_max` of every rank's edges (`_EdgeMax`)."""
+        return _EdgeMax.apply(e, seg, n, self.dp_group)
+
     # ---- after the backward ----
     def _replicated_over(self, spec: Spec, ndim: int) -> set:
         named = {a for d in range(ndim) for a in spec.axes(d)}
@@ -538,11 +709,19 @@ class ParallelContext:
     @torch.no_grad()
     def sum_replicated_grads(self, grads, specs):
         """Sum over the data ranks the gradients of the leaves that are not
-        split over the data axes (each rank holds its tokens' part)."""
+        split over the data axes (each rank holds its tokens' part).  A
+        sparse row gradient (`models.recsys.row_grad`) is the sum already:
+        its lookup gathered every data rank's occurrences."""
         def one(path, g):
             spec = _spec_at(specs, path)
+            if g.is_sparse:
+                return
             if set(self.dp_axes) <= self._replicated_over(spec, g.ndim):
-                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self.dp_group)
+                # (an MLP weight's gradient is a transposed view)
+                t = g if g.is_contiguous() else g.contiguous()
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.dp_group)
+                if t is not g:
+                    g.copy_(t)
         _map_path(one, grads)
 
     @torch.no_grad()

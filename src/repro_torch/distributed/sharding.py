@@ -18,6 +18,27 @@ of partial results over "model" at ``act_btd``).  A context whose mesh has
 every named axis of size 1 registers nothing, so ``constrain`` stays the
 identity there.
 
+The gnn and recsys names are realised by the local tensors themselves
+and by the context's hooks, which the models call at the reference's
+``constrain`` sites; ``constrain`` stays the identity at these names:
+
+* ``table_rows`` (a table's rows over "model"): the rank's row block, a
+  lookup localized to it and summed over "model"
+  (`parallel.ParallelContext.localize_rows`, ``model_sum``,
+  ``vocab_rows``);
+* ``act_bd``, ``act_bfd``, ``rs_chunk_h`` (the batch over the data axes):
+  the rank's rows of the batch, the losses over the global count
+  (``batch_mean``), the serving outputs gathered (``gather_data_rows``);
+* ``candidates``: the ranking archs' candidates over the data axes, the
+  item tables' candidate rows on their model ranks, the top lists merged
+  (``merge_top_k``);
+* ``edges_e``, ``edges_ed`` (the GAT's edges over the data axes): the
+  rank's edges, the segment max, softmax sums and messages reduced over
+  the data ranks (``edge_max``, ``edge_sum``, ``to_edges``);
+* ``nodes_nd`` (the reference cuts the node tensors over the data axes):
+  the port keeps them whole on every data rank, as it keeps ``act_btd``
+  whole on every model rank (ROADMAP 1(b)).
+
 ``gather_layer_params`` is ZeRO-3's gather at use: under the ``"zero3"``
 flag each weight named in `_GATHERED_2D` / `_GATHERED_3D` is gathered over
 the data axes to the layout its compute wants (TP-only), by the active

@@ -19,12 +19,17 @@ Usage:
   python -m repro_torch.launch.dryrun --arch snn-service --shape svc_10m
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out experiments/dryrun]
 
-The cells the port runs on a mesh are the five LMs' ``train_4k``,
-``prefill_32k``, ``decode_32k`` and ``long_500k`` and the paper's own
-``snn-service``; every other cell (the recsys and GAT steps, and a step
-whose heads do not split over "model": llama4-scout's and minicpm3-4b's
-40 over 16) is written as a ``{"skipped": "<why>"}`` record, not
-dropped.
+Every cell of the registry runs on a mesh: the five LMs' ``train_4k``,
+``prefill_32k``, ``decode_32k`` and ``long_500k``, the four recsys archs'
+``train_batch``, ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``
+(the tables' rows over "model"), the GAT's four shapes (the full graph's
+edges, or the batch, over the data axes) and the paper's own
+``snn-service``.  A cell the port cannot split (a step whose heads do not
+split over "model": llama4-scout's and minicpm3-4b's 40 over 16) is
+written as a ``{"skipped": "<why>"}`` record, not dropped.  On fake
+tensors a table's row gradient takes every occurrence as valid and
+unique (`models.recsys.row_grad`), and `utils.top_k` skips its tie
+repair: the common path's costs, without data-dependent sizes.
 """
 from __future__ import annotations
 
@@ -109,9 +114,9 @@ def _write(rec: dict, out_dir: str | None, name: str) -> None:
             json.dump(rec, f, indent=1)
 
 
-def _trace_lm(arch_id, shape_name, mesh, multi_pod, shape_override,
+def _trace_step(arch_id, shape_name, mesh, multi_pod, shape_override,
               cfg_override):
-    """(step, `hlo_analysis.Trace`, seconds) of one LM step."""
+    """(step, `hlo_analysis.Trace`, seconds) of one cell's step."""
     from .steps import build_step
 
     t0 = time.time()
@@ -138,7 +143,7 @@ def _fit_lm_costs(arch_id, shape_name, mesh, multi_pod, shape_override,
     vals = {}
     for mult in (2, 3):
         over = dict(cfg_override or {}, n_layers=p * mult)
-        _, tr, _ = _trace_lm(arch_id, shape_name, mesh, multi_pod,
+        _, tr, _ = _trace_step(arch_id, shape_name, mesh, multi_pod,
                              shape_override, over)
         vals[mult] = {"flops": tr.flops, "bytes": tr.bytes_accessed,
                       "coll": hlo_analysis.collective_bytes(tr.collectives),
@@ -248,7 +253,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     with fake_world(n_dev):
         mesh = _cpu_mesh(shape)
         try:
-            step, trace, t_trace = _trace_lm(arch_id, shape_name, mesh,
+            step, trace, t_trace = _trace_step(arch_id, shape_name, mesh,
                                              multi_pod, shape_override,
                                              cfg_override) \
                 if not (spec.family == "lm" and fit_lm) else (None, None, 0)
@@ -277,7 +282,12 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             roof.coll_breakdown = coll
             roof.coll_bytes = float(sum(coll.values()))
         else:
-            roof = hlo_analysis.analyze(trace, step.model_flops, n_dev)
+            # the recsys and GAT steps compute in float32 (no TF32)
+            roof = hlo_analysis.analyze(
+                trace, step.model_flops, n_dev,
+                peak_flops=hlo_analysis.PEAK_FLOPS_FP32
+                if spec.family in ("recsys", "gnn") else
+                hlo_analysis.PEAK_FLOPS)
     arg_bytes = _arg_bytes(step, mesh_shape=shape)
     rec = {**base, "step": step.name, "lower_s": 0.0,
            "compile_s": round(t_trace, 2),

@@ -11,7 +11,8 @@ fake process group, and `record_step` reads instead:
   matrix products, attention and convolutions (elementwise ops count 0,
   which XLA's cost analysis counts: a few percent of a transformer step);
 * **bytes accessed**: the sum over every op that writes a tensor, views
-  aside, of its input and output bytes (each op reads its inputs and writes its outputs once:
+  aside, of its input and output bytes (a sparse row gradient's: its ids
+  and rows; each op reads its inputs and writes its outputs once:
   the port's unfused eager step, an upper bound of what a fused program
   moves);
 * **collectives**: one `CollectiveRecord` a c10d collective (its kind, the
@@ -144,11 +145,40 @@ class Trace:
     peak_bytes: float
 
 
+def _parts(t: torch.Tensor) -> tuple:
+    """The dense tensors holding ``t``: a sparse COO tensor's (a table's
+    row gradient, `models.recsys.row_grad`) ids and rows."""
+    if t.layout == torch.sparse_coo:
+        return t._indices(), t._values()
+    return (t,)
+
+
 def _tensor_bytes(tree) -> int:
     from torch.utils._pytree import tree_leaves
 
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
+    return sum(p.numel() * p.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor) for p in _parts(t))
+
+
+def _mem_tracker():
+    """``MemTracker``, which counts a sparse tensor by its ids and rows (it
+    reads a tensor's storage, which a sparse one has not)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class Tracker(MemTracker):
+        def _track(self, reftype, t):
+            for p in _parts(t):
+                super()._track(reftype, p)
+
+        def _update_and_maybe_create_winfos(self, t, reftype,
+                                            update_existing=False):
+            out = set()
+            for p in _parts(t):
+                out |= super()._update_and_maybe_create_winfos(
+                    p, reftype, update_existing)
+            return out
+
+    return Tracker()
 
 
 def _collective_kinds() -> dict:
@@ -217,13 +247,12 @@ def record_step(fn, make_args) -> Trace:
     group is initialized, a fake one for a dry run.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils._pytree import tree_leaves
     from torch.utils.flop_counter import FlopCounterMode
 
     with FakeTensorMode(allow_non_fake_inputs=True):
         args = make_args()
-        mt = MemTracker()
+        mt = _mem_tracker()
         mt.track_external(*[t for t in tree_leaves(args)
                             if isinstance(t, torch.Tensor)])
         counter = FlopCounterMode(display=False)

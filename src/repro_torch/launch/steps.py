@@ -22,11 +22,15 @@ device, so a full-width cell allocates nothing), ``in_shardings`` and
 PartitionSpecs leaf for leaf: `lm_param_spec`, `rs_param_spec`, the
 GAT's replicated leaves and each family's batch specs), and
 ``donate_argnums`` (a decode step writes its cache in place where the
-reference donates it).  With ``mesh=`` an LM's ``train_4k`` step runs
-sharded (`distributed.parallel`: ZeRO-3 over the data axes, tensor
-parallelism over "model"), and so do its serving kinds (the cache in the
-reference's ``kv_cache``/``mla_cache`` layout, `lm_cache_spec`); the
-recsys and GAT steps on a mesh raise `NotImplementedError`.  The batch
+reference donates it).  With ``mesh=`` every step runs sharded
+(`distributed.parallel`): an LM's ``train_4k`` (ZeRO-3 over the data
+axes, tensor parallelism over "model") and its serving kinds (the cache
+in the reference's ``kv_cache``/``mla_cache`` layout, `lm_cache_spec`);
+the recsys steps with the tables' rows over "model" (through the
+embedding-bag kernel on the rank's block) and the batch, or the ranking
+archs' candidates, over the data axes; the GAT's with the full graph's
+edges, or the batch, over the data axes (`build_rs_step`,
+`build_gnn_step`).  The batch
 or the tokens are the JAX package's numpy arrays for the same
 ``default_rng(0)``; the parameters are made on the device from a seeded
 ``torch.Generator`` (``params_from_jax`` of `models.recsys`,
@@ -698,13 +702,60 @@ def _gnn_batch_specs(shape: dict, dp) -> tuple:
              "dst": Spec(dp, None), "labels": Spec(dp)})
 
 
+def _parallel_context(mesh, multi_pod: bool, **flags):
+    """The recsys and GAT steps' `distributed.parallel.ParallelContext`:
+    "model" cuts the tables' rows alone."""
+    from ..distributed import parallel
+
+    return parallel.ParallelContext(mesh, multi_pod=multi_pod,
+                                    tensor_parallel=False, **flags)
+
+
+def _split(what: str, n: int, parts: int) -> None:
+    if n % parts:
+        raise ValueError(f"{what} ({n}) does not split over {parts} ranks")
+
+
+def check_gnn_sharding(shape: dict, dp: int) -> None:
+    """What a sharded GAT step needs of the mesh: the full graph's padded
+    edges, or the batch's rows, split over the ``dp`` data ranks."""
+    kind = shape["kind"]
+    if kind == "gnn_full":
+        epad = -(-(shape["n_edges"] + shape["n_nodes"]) // GNN_PAD) * GNN_PAD
+        _split("the padded edges", epad, dp)
+    elif kind == "gnn_minibatch":
+        _split("the batch's seed nodes", shape["batch_nodes"], dp)
+    else:
+        _split("the batch's graphs", shape["batch"], dp)
+
+
+def _gnn_local_batch(batch: dict, kind: str, pc) -> dict:
+    """The rank's part of a GAT batch: the full graph's block of the edges
+    (nodes, labels and mask whole), or the batch's block of rows."""
+    from ..distributed import parallel
+
+    keys = ("src", "dst", "edge_mask") if kind == "gnn_full" else tuple(batch)
+    n = batch[keys[0]].shape[0]
+    rows = parallel.data_rows(n, 1, pc.dp_size, pc.dp_rank)
+    return {k: v[rows] if k in keys else v for k, v in batch.items()}
+
+
 def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
-                   multi_pod: bool = False,
+                   multi_pod: bool = False, mesh=None,
                    shape_override: dict | None = None) -> StepDef:
     """A GAT training step: the regime's loss and its gradient, the clip at
     a global norm of 1 and AdamW(5e-3), in place.  The batch is drawn from
     the builder's ``default_rng(0)`` when ``init_args`` is called, as in
-    the reference (a second call draws the next batch)."""
+    the reference (a second call draws the next batch).
+
+    With a ``mesh`` the parameters and their AdamW state are replicated
+    on every rank (the reference's specs); ``gnn_full`` holds the rank's
+    block of the padded edges and the nodes whole, and its gradients come
+    out whole on every rank (`models.gnn.gat_layer`); ``gnn_minibatch``
+    and ``gnn_batched`` hold the rank's rows of the batch, their loss over
+    the global count and their gradients summed over the data ranks.
+    "model" replicates every rank's work.  The returned loss is the
+    global one on every rank."""
     cfg = spec.make_config(shape_name, reduced)
     shape = dict(spec.shapes[shape_name])
     if shape_override:
@@ -718,9 +769,28 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
     flops = gnn_model_flops(cfg, shape) if not reduced else 0.0
     loss_f, make_batch = GNN_REGIMES[kind]
     rng = np.random.default_rng(SEED)
+    meta = gnn_mod.init_params(cfg, device="meta")
+    pspec = tree_specs(meta, _replicated)
+    pc = rules = None
+    if mesh is not None:
+        from ..distributed.sharding import rules_for_family, sharding_rules
+
+        check_gnn_sharding(shape, _check_mesh(mesh, multi_pod)[0])
+        pc = _parallel_context(mesh, multi_pod,
+                               rows_split=kind != "gnn_full",
+                               edges_split=kind == "gnn_full")
+        rules = rules_for_family("gnn", multi_pod=multi_pod)
 
     def step(params, opt_state, batch):
-        loss, grads = gnn_mod.value_and_grad(loss_f, params, batch, cfg)
+        if pc is None:
+            loss, grads = gnn_mod.value_and_grad(loss_f, params, batch, cfg)
+        else:
+            with sharding_rules(rules, pc):
+                loss, grads = gnn_mod.value_and_grad(loss_f, params, batch,
+                                                     cfg)
+            if pc.rows_split:
+                pc.sum_replicated_grads(grads, pspec)
+                loss = pc.data_sum(loss)
         gn = adamw_step_(opt, grads, opt_state, params)
         return {"loss": loss, "grad_norm": gn}
 
@@ -728,11 +798,12 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         dev = _registry.resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = gnn_mod.init_params(cfg, generator=gen, device=dev)
-        return params, opt.init(params), _on(dev, make_batch(rng, cfg, shape))
+        batch = make_batch(rng, cfg, shape)
+        if pc is not None:
+            batch = _gnn_local_batch(batch, kind, pc)
+        return params, opt.init(params), _on(dev, batch)
 
-    meta = gnn_mod.init_params(cfg, device="meta")
     meta_state = opt.init(meta)
-    pspec = tree_specs(meta, _replicated)
     ospec = tree_specs(meta_state, _replicated)
     batch_spec, bspec = _gnn_batch_specs(shape, _dp(multi_pod))
     return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
@@ -891,9 +962,55 @@ def train_optimizer():
                                        "dense": adamw(lr=1e-3)})
 
 
+def check_rs_sharding(arch_id: str, meta, shape: dict, dp: int,
+                      tp: int) -> None:
+    """What a sharded recsys step needs of the mesh: every leaf that
+    `rs_param_spec` cuts over "model" (the tables' rows, the wide MLP
+    weights) split into ``tp`` blocks, and the batch's rows (training,
+    serving) or the ranking archs' candidates over the ``dp`` data ranks.
+    ValueError where they do not: no table is padded silently."""
+    def leaf(path, t):
+        spec = rs_param_spec(path, t)
+        for dim, n in enumerate(t.shape):
+            if spec.axes(dim):
+                _split(f"{arch_id} {'.'.join(map(str, path))} dim {dim}", n,
+                       tp)
+    tree_map_with_path(leaf, meta)
+    kind = shape["kind"]
+    if kind != "rs_retrieval":
+        _split("the batch's rows", shape["batch"], dp)
+    elif arch_id in ("dlrm-mlperf", "wide-deep"):
+        _split("the candidates", shape["n_candidates"], dp)
+
+
+def _local_top_k(pc, scores, lo: int, counts, over: str, k: int = 100):
+    """The top ``k`` of a rank's (B, n) ``scores`` of the candidates
+    ``lo .. lo + n - 1``, merged with the other ranks' over ``over``
+    (`ParallelContext.merge_top_k`; ``counts``: every rank's n)."""
+    vals, idx = top_k(scores, min(k, scores.shape[1]))
+    return pc.merge_top_k(vals, idx + lo, k, [min(k, c) for c in counts],
+                          over)
+
+
 def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
-                  multi_pod: bool = False,
+                  multi_pod: bool = False, mesh=None,
                   shape_override: dict | None = None) -> StepDef:
+    """A recsys step: ``rs_train`` (the loss, its gradient and the MLPerf
+    split: row-wise SGD on the tables, AdamW on the rest), ``rs_serve``
+    (the forward, or BERT4Rec's user representation) or ``rs_retrieval``
+    (the top 100 of the candidates).
+
+    With a ``mesh`` every leaf is held as the rank's shard of
+    `rs_param_spec` (the tables' rows over "model"; a module over the
+    shards, `models.recsys.from_tree`), and the batch's rows (or the
+    ranking archs' candidates) are the rank's block over the data axes
+    (the negatives replicated).  A training step's loss is the global
+    mean, its table gradients the row gradients of every data rank's
+    occurrences and its dense gradients summed over the data ranks; a
+    serving step returns the whole batch's outputs on every rank; a
+    retrieval step merges the ranks' top lists (the ranking archs' over
+    the data ranks, MIND's and BERT4Rec's candidate rows, ``table[:C]``,
+    over the model ranks that hold them), in `utils.top_k`'s order."""
     arch_id = spec.arch_id
     cfg = spec.make_config(shape_name, reduced)
     shape = dict(spec.shapes[shape_name])
@@ -905,16 +1022,47 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
     rng = np.random.default_rng(SEED)
     flops = rs_model_flops(arch_id, cfg, shape) if not reduced else 0.0
     b = shape.get("batch", 1)
-
-    def init_model(device):
-        dev = _registry.resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        return dev, _rs_init_model(arch_id, cfg, gen, dev)
-
     dp = _dp(multi_pod)
     meta_model = _rs_init_model(arch_id, cfg, None, "meta")
     meta = meta_model if isinstance(meta_model, dict) else meta_model.tree()
     pspec = tree_specs(meta, rs_param_spec)
+    pc = rules = None
+    if mesh is not None:
+        from ..distributed import parallel
+        from ..distributed.sharding import rules_for_family, sharding_rules
+
+        n_dp, n_tp = _check_mesh(mesh, multi_pod)
+        check_rs_sharding(arch_id, meta, shape, n_dp, n_tp)
+        pc = _parallel_context(mesh, multi_pod, rows_split=True)
+        rules = rules_for_family("recsys", multi_pod=multi_pod)
+        rows = parallel.data_rows(b, 1, pc.dp_size, pc.dp_rank) \
+            if kind != "rs_retrieval" else None
+
+    def sharded(fn):
+        """``fn`` under the step's rules (as it is without a mesh)."""
+        if pc is None:
+            return fn
+
+        def run(*args):
+            with sharding_rules(rules, pc):
+                return fn(*args)
+        return run
+
+    def init_model(device):
+        dev = _registry.resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = _rs_init_model(arch_id, cfg, gen, dev)
+        if pc is None:
+            return dev, model
+        tree = model if isinstance(model, dict) else model.tree()
+        return dev, rs.from_tree(arch_id, cfg,
+                                 parallel.shard_tree(tree, pspec, mesh))
+
+    def local_batch(dev, np_batch):
+        if pc is not None:
+            np_batch = {k: v if k == "negatives" else v[rows]
+                        for k, v in np_batch.items()}
+        return _on(dev, np_batch)
 
     if kind == "rs_train":
         opt = train_optimizer()
@@ -929,9 +1077,13 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             def value_and_grad(model, batch):
                 return (*rs.value_and_grad(loss_f, model, batch),
                         model.tree())
+        value_and_grad = sharded(value_and_grad)
 
         def step(model, opt_state, batch):
             loss, grads, params = value_and_grad(model, batch)
+            if pc is not None:
+                pc.sum_replicated_grads(grads, pspec)
+                loss = pc.data_sum(loss)
             upd, new_state = opt.update(grads, opt_state, params)
             apply_updates(params, upd)
             with torch.no_grad():
@@ -941,7 +1093,7 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         def init_args(device=None):
             dev, model = init_model(device)
             params = model if isinstance(model, dict) else model.tree()
-            return model, opt.init(params), _on(dev, np_batch)
+            return model, opt.init(params), local_batch(dev, np_batch)
 
         meta_state = opt.init(meta)
         ospec = tree_specs(meta_state, rs_param_spec)
@@ -962,14 +1114,16 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                "mind": lambda m, b_: m(b_["hist"]),
                "bert4rec": lambda p, b_: rs.bert4rec_user_repr(p, b_["seq"],
                                                                cfg)}[arch_id]
+        fwd = sharded(fwd)
 
         @torch.inference_mode()
         def step(model, batch):
-            return fwd(model, batch)
+            out = fwd(model, batch)
+            return out if pc is None else pc.gather_data_rows(out)
 
         def init_args(device=None):
             dev, model = init_model(device)
-            return model, _on(dev, np_batch)
+            return model, local_batch(dev, np_batch)
 
         return StepDef(name=f"{arch_id}:{shape_name}:serve", fn=step,
                        model_flops=flops, init_args=init_args,
@@ -985,6 +1139,22 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
         qlen = cfg.hist_len if arch_id == "mind" else cfg.seq_len
         q_spec = {qfield: ArgSpec((b, qlen), i32)}
         qshard = {qfield: Spec(None, None)}
+        table_rows = (cfg.n_items if arch_id == "mind"
+                      else cfg.tf_config().vocab)
+
+        def candidates(table):
+            """(the rank's rows of ``table[:c]``, the first one's index,
+            every model rank's count of them)."""
+            if pc is None:
+                return table[:c], 0, [c]
+            v = table_rows // pc.tp_size
+            counts = [min(max(c - r * v, 0), v) for r in range(pc.tp_size)]
+            return table[:counts[pc.tp_rank]], pc.tp_rank * v, counts
+
+        def merged(scores, lo, counts):
+            if pc is None:
+                return top_k(scores, 100)
+            return _local_top_k(pc, scores, lo, counts, "model")
     else:
         nf = cfg.n_sparse if arch_id == "dlrm-mlperf" else len(cfg.vocab_sizes)
         q_spec = {"dense": ArgSpec((1, cfg.n_dense), torch.float32),
@@ -993,9 +1163,11 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                   "cand_ids": Spec(dp)}
     if arch_id == "bert4rec":
         @torch.inference_mode()
+        @sharded
         def step(params, query):
             u = rs.bert4rec_user_repr(params, query["seq"], cfg)
-            return top_k(u @ params["embed"][:c].T, 100)
+            cand, lo, counts = candidates(params["embed"])
+            return merged(u @ cand.T, lo, counts)
 
         def init_args(device=None):
             dev, params = init_model(device)
@@ -1003,9 +1175,11 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return params, _on(dev, {"seq": seq.astype(np.int32)})
     elif arch_id == "mind":
         @torch.inference_mode()
+        @sharded
         def step(model, query):
-            cand = model.items[:c]
-            return top_k(model.score_candidates(query["hist"], cand), 100)
+            cand, lo, counts = candidates(model.items)
+            return merged(model.score_candidates(query["hist"], cand), lo,
+                          counts)
 
         def init_args(device=None):
             dev, model = init_model(device)
@@ -1013,14 +1187,19 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return model, _on(dev, {"hist": hist.astype(np.int32)})
     else:
         # ranking archs: a fixed user, field 0 set to each candidate id
-        nf = cfg.n_sparse if arch_id == "dlrm-mlperf" else len(cfg.vocab_sizes)
         vmax = min(cfg.vocab_sizes)
 
         @torch.inference_mode()
+        @sharded
         def step(model, query):
             scores = rs.rank_candidates(model, query["dense"],
                                         query["sparse"], query["cand_ids"])
-            vals, idx = top_k(scores[None], 100)
+            if pc is None:
+                vals, idx = top_k(scores[None], 100)
+            else:
+                n = scores.shape[0]
+                vals, idx = _local_top_k(pc, scores[None], pc.dp_rank * n,
+                                         [n] * pc.dp_size, "data")
             return vals[0], idx[0]
 
         def init_args(device=None):
@@ -1028,6 +1207,9 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             q = {"dense": rng.normal(size=(1, cfg.n_dense)).astype(np.float32),
                  "sparse": rng.integers(0, vmax, (1, nf)).astype(np.int32),
                  "cand_ids": rng.integers(0, vmax, (c,)).astype(np.int32)}
+            if pc is not None:
+                q["cand_ids"] = q["cand_ids"][parallel.data_rows(
+                    c, 1, pc.dp_size, pc.dp_rank)]
             return model, _on(dev, q)
 
     return StepDef(name=f"{arch_id}:{shape_name}:retrieval", fn=step,
@@ -1046,11 +1228,14 @@ def build_step(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     small config (LMs: 4 sequences of 32 tokens; the GAT: the reference's
     small graphs; recsys: batch 8 and 128 candidates, as in the JAX
     package); ``shape_override`` replaces entries of the shape,
-    ``cfg_override`` fields of an LM's config; ``multi_pod`` lays the specs
-    (and a ``mesh``'s data axes) over ("pod", "data").  With a ``mesh``
-    (a `DeviceMesh` over ("data", "model"), or ("pod", "data", "model")
-    with ``multi_pod``) an LM's steps run sharded over it; the other
-    families raise `NotImplementedError`."""
+    ``cfg_override`` fields of an LM's config;
+    ``multi_pod`` lays the specs (and a ``mesh``'s data axes) over ("pod",
+    "data").  With a ``mesh`` (a `DeviceMesh` over ("data", "model"), or
+    ("pod", "data", "model") with ``multi_pod``) every family's steps run
+    sharded over it: the LMs' (`build_lm_step`), the recsys steps'
+    (`build_rs_step`: the tables' rows over "model", the batch over the
+    data axes) and the GAT's (`build_gnn_step`: the full graph's edges, or
+    the batch, over the data axes)."""
     spec = get_arch(arch_id)
     if shape_name in spec.skip_shapes:
         raise ValueError(f"{arch_id}:{shape_name} skipped: "
@@ -1060,11 +1245,10 @@ def build_step(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                              multi_pod=multi_pod, mesh=mesh,
                              shape_override=shape_override,
                              cfg_override=cfg_override)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{arch_id}:{shape_name} on a mesh: the port shards the LM "
-            "steps only; the sharded recsys and GAT steps are queued in "
-            "ROADMAP.md")
-    builder = {"gnn": build_gnn_step, "recsys": build_rs_step}[spec.family]
-    return builder(spec, shape_name, reduced=reduced, multi_pod=multi_pod,
-                   shape_override=shape_override)
+    if spec.family == "recsys":
+        return build_rs_step(spec, shape_name, reduced=reduced,
+                             multi_pod=multi_pod, mesh=mesh,
+                             shape_override=shape_override)
+    return build_gnn_step(spec, shape_name, reduced=reduced,
+                          multi_pod=multi_pod, mesh=mesh,
+                          shape_override=shape_override)

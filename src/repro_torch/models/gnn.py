@@ -26,6 +26,18 @@ scatter sum and its gradient edge chunk by chunk instead, keeping only
 Parameters are a dict tree in the JAX layout, ``{"layers": [{"w",
 "a_src", "a_dst"}, ...]}`` (`params_from_jax` carries the JAX package's
 across).
+
+In the sharded step (`launch.steps.build_step(..., mesh=...)`, under a
+`distributed.parallel.ParallelContext`) the parameters are replicated.
+The full-graph regime holds the rank's block of the edges (the
+reference's ``edges_e``) and every node tensor whole on every data rank
+(the reference cuts them, ``nodes_nd``; the port keeps ``x @ w`` whole, as
+it keeps ``act_btd``, ROADMAP 1(b)): each rank scores its edges, the
+segment max is all-reduced (MAX) over the data ranks, the exponentials
+taken, the denominators summed, then the aggregated messages summed
+(`gat_layer`); every parameter's gradient is then the whole one on every
+rank.  The minibatch and batched regimes hold the rank's rows of the
+batch, and their losses divide by the global count.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.sharding import current_context
 from ..kernels import registry as _registry
 from ..utils import grad_view, to_tensor, tree_map
 from .layers import uniform_init
@@ -164,26 +177,40 @@ def edge_aggregate(alpha, h, src, dst, n: int):
 # --------------------------------------------------------------------------- #
 # Full-graph regime                                                            #
 # --------------------------------------------------------------------------- #
+def _edge_ops():
+    """(to_edges, segment max, the sum of the ranks' node partials): the
+    data ranks' ops where the sharded full-graph step splits the edges
+    over more than one data rank, the single card's otherwise."""
+    pc = current_context()
+    if pc is None or not pc.edges_split or pc.dp_size == 1:
+        return (lambda t: t), segment_max, (lambda t: t)
+    return pc.to_edges, pc.edge_max, pc.edge_sum
+
+
 def gat_layer(p, x, src, dst, n_nodes: int, *, n_heads: int, d_head: int,
               slope: float, concat: bool, edge_mask=None):
     """One GAT layer: SDDMM -> segment softmax -> scatter sum.
 
     x: (N, d); src/dst: (E,) int64, self-loops included by the caller;
-    edge_mask: optional (E,) bool, False on padded edges."""
+    edge_mask: optional (E,) bool, False on padded edges.  In the sharded
+    full-graph step the edges are the rank's block, and each node tensor
+    an edge reads passes `ParallelContext.to_edges` (`_edge_ops`)."""
+    to_edges, seg_max, node_sum = _edge_ops()
     h = (x @ p["w"]).reshape(x.shape[0], n_heads, d_head)      # (N, H, dh)
-    es = torch.einsum("nhd,hd->nh", h, p["a_src"])[src]         # (E, H)
-    ed = torch.einsum("nhd,hd->nh", h, p["a_dst"])[dst]
+    es = to_edges(torch.einsum("nhd,hd->nh", h, p["a_src"]))[src]  # (E, H)
+    ed = to_edges(torch.einsum("nhd,hd->nh", h, p["a_dst"]))[dst]
     e = leaky_relu(es + ed, slope)
     if edge_mask is not None:
         e = torch.where(edge_mask[:, None], e, PAD_SCORE)
-    m = segment_max(e, dst, n_nodes)                            # (N, H)
+    m = seg_max(e, dst, n_nodes)                                # (N, H)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    ex = torch.exp(e - m[dst])
+    ex = torch.exp(e - to_edges(m)[dst])
     if edge_mask is not None:
         ex = torch.where(edge_mask[:, None], ex, 0.0)
-    denom = segment_sum(ex, dst, n_nodes)                       # (N, H)
-    alpha = ex / torch.clamp_min(denom[dst], 1e-9)
-    out = edge_aggregate(alpha, h, src, dst, n_nodes)           # (N, H, dh)
+    denom = node_sum(segment_sum(ex, dst, n_nodes))             # (N, H)
+    alpha = ex / torch.clamp_min(to_edges(denom)[dst], 1e-9)
+    out = node_sum(edge_aggregate(alpha, to_edges(h), src, dst,
+                                  n_nodes))                     # (N, H, dh)
     if concat:
         return out.reshape(n_nodes, n_heads * d_head)
     return out.mean(dim=1)
@@ -209,7 +236,11 @@ def node_xent(logits, labels, mask):
     lse = torch.logsumexp(lf, dim=-1)
     ll = lf.gather(1, labels.clamp_min(0).long()[:, None])[:, 0]
     per = torch.where(mask, lse - ll, 0.0)
-    return per.sum() / torch.clamp_min(mask.sum(), 1)
+    count = mask.sum()
+    pc = current_context()
+    if pc is not None:
+        count = pc.batch_count(count)
+    return per.sum() / torch.clamp_min(count, 1)
 
 
 def loss_full(params, batch, cfg: GATConfig):
@@ -236,7 +267,8 @@ def loss_batched_graphs(params, batch, cfg: GATConfig):
     logits = logits.reshape(g, n, -1).mean(dim=1)               # (G, C)
     lse = torch.logsumexp(logits.float(), dim=-1)
     ll = logits.gather(1, batch["labels"].long()[:, None])[:, 0]
-    return (lse - ll).mean()
+    pc = current_context()
+    return (lse - ll).mean() if pc is None else pc.batch_mean(lse - ll)
 
 
 # --------------------------------------------------------------------------- #

@@ -17,7 +17,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..distributed.sharding import current_context
 
 
 # a function of each new `uniform_init` leaf to what its caller keeps of it
@@ -57,8 +60,9 @@ class MLP(nn.Module):
 
     def forward(self, x):
         last = len(self.layers) - 1
+        sharded = current_context() is not None
         for i, lin in enumerate(self.layers):
-            x = lin(x)
+            x = F.linear(x, _weight(lin), lin.bias) if sharded else lin(x)
             if i < last or self.final_relu:
                 x = torch.relu(x)
         return x
@@ -73,7 +77,7 @@ class MLP(nn.Module):
         bf = torch.bfloat16
         for i, lin in enumerate(self.layers):
             dt = torch.promote_types(x.dtype, bf)
-            w, b = lin.weight.to(bf).to(dt), lin.bias.to(bf).to(dt)
+            w, b = _weight(lin).to(bf).to(dt), lin.bias.to(bf).to(dt)
             x = x.to(dt) @ w.T + b
             if i < last or self.final_relu:
                 x = torch.relu(x)
@@ -87,6 +91,26 @@ class MLP(nn.Module):
         return [{"w": leaf(lin.weight).T, "b": leaf(lin.bias)}
                 for lin in self.layers]
 
+    @classmethod
+    def from_tree(cls, params, sizes, *, final_relu: bool = False) -> "MLP":
+        """An MLP of the full ``sizes`` over the tensors of a JAX
+        ``mlp_params`` list, sharing their storage (each weight the
+        transposed view of its ``w``): in the sharded step the leaves are
+        the rank's shards, gathered whole at use (`_weight`)."""
+        mlp = cls.__new__(cls)
+        nn.Module.__init__(mlp)
+        layers = []
+        for (a, b), p in zip(zip(sizes[:-1], sizes[1:]), params):
+            lin = nn.Linear.__new__(nn.Linear)
+            nn.Module.__init__(lin)
+            lin.in_features, lin.out_features = a, b
+            lin.weight = nn.Parameter(p["w"].T)
+            lin.bias = nn.Parameter(p["b"])
+            layers.append(lin)
+        mlp.layers = nn.ModuleList(layers)
+        mlp.final_relu = final_relu
+        return mlp
+
     @torch.no_grad()
     def load_jax(self, params) -> "MLP":
         """Copy a JAX ``mlp_params`` list (``w`` (in, out), ``b`` (out,),
@@ -98,6 +122,15 @@ class MLP(nn.Module):
             lin.weight.copy_(p["w"].T)
             lin.bias.copy_(p["b"])
         return self
+
+
+def _weight(lin: nn.Linear) -> torch.Tensor:
+    """``lin``'s weight as its product uses it: in the sharded step the
+    rank's shard gathered whole (`ParallelContext.gather_linear`)."""
+    ctx = current_context()
+    if ctx is None:
+        return lin.weight
+    return ctx.gather_linear(lin.weight, (lin.out_features, lin.in_features))
 
 
 def mlp_params(sizes, *, final_relu: bool = False, dtype=torch.float32,

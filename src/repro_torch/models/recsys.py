@@ -42,6 +42,26 @@ fixed order, then rounds once to the table's dtype.  BERT4Rec's table is
 read three times a step (the input items, the positives, the sampled
 negatives) by plain row gathers, and its gradient is one dense (V, D)
 tensor, as JAX's (256 MB at full width).
+
+In the sharded step (`launch.steps.build_step(..., mesh=...)`, under a
+`distributed.parallel.ParallelContext`) each table is this rank's row
+block over "model" (the reference's ``table_rows``) and a module holds
+the rank's shards (`from_tree`).  `bag_lookup` localizes the ids to the
+block (an id outside it becomes -1 padding), runs the same kernel on the
+block and sums the partial bags over "model": a bag of one id has one
+rank with a non-zero row, so DLRM's, Wide & Deep's deep and MIND's
+lookups are the unsharded ones bit for bit, and Wide & Deep's wide bag
+is summed a rank at a time, then over the ranks.  Its row gradient
+gathers the occurrences (the localized ids and the output's gradient
+rows) over the data ranks in rank order, so that one `row_grad` on the
+block sums every data rank's occurrences, in the order of the global
+batch's rows (the unsharded order wherever the data ranks' rows are the
+global batch's blocks: every lookup but MIND's, whose shared negatives
+follow each rank's rows): the table's gradient, summed over the data
+ranks, and no dense (V, D) one.  The MLPs' weights are gathered whole at
+use (`layers.MLP`), the losses are means over the global batch
+(`ParallelContext.batch_mean`), and BERT4Rec's item rows come from the
+blocks of its vocabulary (`ParallelContext.vocab_rows`).
 """
 from __future__ import annotations
 
@@ -54,6 +74,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import join as _join
+from ..distributed.sharding import current_context
 from ..kernels import ops as _ops
 from ..kernels import registry as _registry
 from ..utils import to_numpy, to_tensor
@@ -117,9 +138,21 @@ def row_grad(ids: torch.Tensor, grad_out: torch.Tensor,
     float32 in that order by one segment sum, then rounded once: the same
     bits every run, and no atomics on the hot rows (DLRM's synthetic ids
     put 1.7M occurrences a step on 78 rows)."""
+    from torch._subclasses.fake_tensor import is_fake
+
     with torch.profiler.record_function("row_grad"):
         f = ids.shape[1]
         flat = ids.reshape(-1)
+        if is_fake(flat):
+            # a dry-run trace (`launch.hlo_analysis`): no values, so no
+            # data-dependent sizes; every occurrence taken as valid and
+            # unique (the sort and the gather the step does)
+            sorted_ids, order = torch.sort(flat.clamp(0, n_rows - 1).long(),
+                                           stable=True)
+            return torch.sparse_coo_tensor(
+                sorted_ids[None], grad_out[order // f],
+                (n_rows, grad_out.shape[1]), is_coalesced=True,
+                check_invariants=False)
         valid = flat >= 0
         occ = torch.nonzero(valid).flatten()
         rows_of = flat[occ].clamp_max(n_rows - 1).long()
@@ -135,25 +168,53 @@ def row_grad(ids: torch.Tensor, grad_out: torch.Tensor,
 
 
 class _BagLookup(torch.autograd.Function):
+    """The bag lookup; its table gradient is `row_grad`, over the
+    occurrences of every data rank where a context ``pc`` is given."""
+
     @staticmethod
-    def forward(ctx, ids, table):
+    def forward(ctx, ids, table, pc=None):
         ctx.save_for_backward(ids)
         ctx.n_rows = table.shape[0]
+        ctx.pc = pc
         return _ops.embedding_bag(ids, table)
 
     @staticmethod
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[1]:
-            return None, None
+            return None, None, None
         (ids,) = ctx.saved_tensors
-        return None, row_grad(ids, grad_out, ctx.n_rows)
+        if ctx.pc is not None:
+            ids = ctx.pc.gather_data_rows(ids)
+            grad_out = ctx.pc.gather_data_rows(grad_out)
+        return None, row_grad(ids, grad_out, ctx.n_rows), None
 
 
 def bag_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``kernels.ops.embedding_bag(ids, table)`` (the CUDA kernel for a CUDA
     table, the plain version for a CPU one) whose gradient with respect to
-    the table is its row gradient (`row_grad`)."""
-    return _BagLookup.apply(ids, table)
+    the table is its row gradient (`row_grad`).  In the sharded step
+    ``table`` is the rank's row block: the ids localized to it, the same
+    kernel on the block, the bags summed over "model"."""
+    pc = current_context()
+    if pc is None:
+        return _BagLookup.apply(ids, table)
+    local = pc.localize_rows(ids, table.shape[0])
+    return pc.model_sum(_BagLookup.apply(local, table, pc))
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(x)`` over the batch's rows; in the sharded step the
+    global batch's (`ParallelContext.batch_mean`)."""
+    pc = current_context()
+    return torch.mean(x) if pc is None else pc.batch_mean(x)
+
+
+def _item_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``; in the sharded step over the blocks of
+    the vocabulary (`ParallelContext.vocab_rows`)."""
+    pc = current_context()
+    return F.embedding(ids, table) if pc is None else pc.vocab_rows(table,
+                                                                    ids)
 
 
 def stacked_lookup(table: torch.Tensor, ids: torch.Tensor,
@@ -445,7 +506,8 @@ def _bert4rec_hidden(params, seq_ids, cfg: Bert4RecConfig):
     'full', RoPE on) and its dense gated FFN."""
     tcfg = cfg.tf_config()
     b, s = seq_ids.shape
-    x = tf.embed_tokens(params, seq_ids.clamp_min(0), tcfg) + \
+    # the transformer's `embed_tokens` (its gather, then the cast)
+    x = _item_rows(params["embed"], seq_ids.clamp_min(0)).to(tcfg.dtype) + \
         params["pos"][None, :s, :]
     cos, sin = rope_freqs(tcfg.rope_dim, tcfg.max_seq, tcfg.rope_theta,
                           device=x.device)
@@ -478,7 +540,7 @@ def _bert4rec_chunk(hc, lc, table, neg):
     gather row 0, as the reference's ``take(table, max(lc, 0))`` does
     (``F.embedding``: their zero gradients, four fifths of the slots, are
     summed in parallel, see `transformer.embed_tokens`)."""
-    pos = F.embedding(lc.clamp_min(0), table)                   # (C, S, D)
+    pos = _item_rows(table, lc.clamp_min(0))                    # (C, S, D)
     s_pos = torch.einsum("bsd,bsd->bs", hc, pos)[..., None]
     s_neg = torch.einsum("bsd,nd->bsn", hc, neg)
     scores = torch.cat([s_pos, s_neg], -1).float()
@@ -500,7 +562,7 @@ def bert4rec_loss(params, batch, cfg: Bert4RecConfig,
     h = _bert4rec_hidden(params, batch["seq"], cfg)
     labels = batch["labels"]
     table = params["embed"].to(cfg.dtype)
-    neg = F.embedding(batch["negatives"], table)                # (N, D)
+    neg = _item_rows(table, batch["negatives"])                 # (N, D)
     b = h.shape[0]
     if b <= batch_chunk or b % batch_chunk:
         tot, cnt = _bert4rec_chunk(h, labels, table, neg)
@@ -514,7 +576,13 @@ def bert4rec_loss(params, batch, cfg: Bert4RecConfig,
             l, c = (checkpoint(_bert4rec_chunk, *args, use_reentrant=False)
                     if remat else _bert4rec_chunk(*args))
             tot, cnt = tot + l, cnt + c
-    return tot / torch.clamp_min(cnt, 1)
+    return tot / torch.clamp_min(_batch_count(cnt), 1)
+
+
+def _batch_count(n: torch.Tensor) -> torch.Tensor:
+    """A count over the batch; in the sharded step the global batch's."""
+    pc = current_context()
+    return n if pc is None else pc.batch_count(n)
 
 
 # Sequences a training step encodes and differentiates at once: the
@@ -535,7 +603,7 @@ def bert4rec_value_and_grad(params, batch, cfg: Bert4RecConfig,
     sums over the sequences in another order.  The table's gradient is
     one dense tensor."""
     labels = batch["labels"]
-    cnt = torch.clamp_min((labels >= 0).sum(), 1)
+    cnt = torch.clamp_min(_batch_count((labels >= 0).sum()), 1)
     scale = torch.ones((), dtype=torch.float32, device=labels.device) / cnt
     grads = _tree_map(torch.zeros_like, params)
     view = tf.train_view(params, grads, cfg.tf_config())
@@ -544,7 +612,7 @@ def bert4rec_value_and_grad(params, batch, cfg: Bert4RecConfig,
         h = _bert4rec_hidden(view, batch["seq"][i:i + chunk], cfg)
         table = view["embed"].to(cfg.dtype)
         l, _ = _bert4rec_chunk(h, labels[i:i + chunk], table,
-                               F.embedding(batch["negatives"], table))
+                               _item_rows(table, batch["negatives"]))
         l.backward(scale)
         tot = tot + l.detach()
     return tot / cnt, grads
@@ -557,9 +625,9 @@ def bce_loss(logits, labels):
     """Mean binary cross-entropy on logits, in float32 (``jnp.maximum``'s
     even split of the gradient at 0 is ``torch.maximum``'s too)."""
     logits = logits.float()
-    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
-                      - logits * labels
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    return _batch_mean(torch.maximum(logits, torch.zeros_like(logits))
+                       - logits * labels
+                       + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def dlrm_loss(model: DLRM, batch: dict):
@@ -590,7 +658,7 @@ def mind_loss(model: MIND, batch: dict):
     scores = torch.cat([(u * pos[:, None, :]).sum(-1, keepdim=True),
                         u @ negs.T], dim=-1).amax(dim=1)       # (B, 1 + N)
     lse = torch.logsumexp(scores.float(), dim=-1)
-    return torch.mean(lse - scores[:, 0])
+    return _batch_mean(lse - scores[:, 0])
 
 
 LOSSES = {"dlrm-mlperf": dlrm_loss, "wide-deep": widedeep_loss,
@@ -741,6 +809,32 @@ def params_from_jax(arch_id: str, tree, device=None, *,
                        (cfg.seq_len, cfg.embed_dim), "pos")
         core = {k: v for k, v in tree.items() if k != "pos"}
         return {**tf.params_from_jax(core, cfg.tf_config(), dev), "pos": pos}
+    raise KeyError(arch_id)
+
+
+def from_tree(arch_id: str, cfg, tree):
+    """The port's model of ``arch_id`` (at ``cfg``'s widths) over the
+    tensors of a tree in the JAX layout (``model.tree()``'s), sharing their
+    storage: in the sharded step the rank's shards (a table's row block,
+    the MLP leaves as ``rs_param_spec`` cuts them).  BERT4Rec's model is
+    the tree itself."""
+    if arch_id == "dlrm-mlperf":
+        n_int = (cfg.n_sparse + 1) * cfg.n_sparse // 2
+        return DLRM(cfg, tree["emb"]["table"],
+                    MLP.from_tree(tree["bot"], (cfg.n_dense,) + cfg.bot_mlp,
+                                  final_relu=True),
+                    MLP.from_tree(tree["top"], (n_int + cfg.bot_mlp[-1],)
+                                  + cfg.top_mlp))
+    if arch_id == "wide-deep":
+        d_in = len(cfg.vocab_sizes) * cfg.embed_dim + cfg.n_dense
+        return WideDeep(cfg, tree["emb"]["table"], tree["wide"]["table"],
+                        tree["wide_dense"],
+                        MLP.from_tree(tree["deep"], (d_in,) + cfg.deep_mlp
+                                      + (1,)))
+    if arch_id == "mind":
+        return MIND(cfg, tree["items"], tree["bilinear"])
+    if arch_id == "bert4rec":
+        return tree
     raise KeyError(arch_id)
 
 

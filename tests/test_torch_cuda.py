@@ -1359,3 +1359,50 @@ def test_cuda_lm_serving_on_a_one_rank_mesh_is_bit_equal(card, tmp_path):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         dist.destroy_process_group()
+
+
+def test_cuda_recsys_and_gat_on_a_one_rank_mesh_are_bit_equal(card,
+                                                               tmp_path):
+    """The sharded recsys and GAT steps (the reduced cells) on a (1, 1)
+    NCCL mesh equal the unsharded steps on the card bit for bit, and a
+    sharded lookup of a CUDA table launches the embedding_bag kernel (the
+    ids localized to the table's row block, never a plain version)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = tmesh.make_host_mesh()
+        for arch, shape in (("dlrm-mlperf", "train_batch"),
+                            ("wide-deep", "retrieval_cand"),
+                            ("mind", "serve_p99"),
+                            ("bert4rec", "train_batch"),
+                            ("gat-cora", "full_graph_sm"),
+                            ("gat-cora", "molecule")):
+            sd = tsteps.build_step(arch, shape, reduced=True, mesh=mesh)
+            plain = tsteps.build_step(arch, shape, reduced=True)
+            args, want_args = sd.init_args(), plain.init_args()
+            tsq.reset_launch_counts()
+            got = sd.fn(*args)
+            launches = tsq.embedding_bag.launches
+            want = plain.fn(*want_args)
+            if arch in ("dlrm-mlperf", "wide-deep", "mind"):
+                assert launches > 0, (arch, shape)
+            trees = [(got, want)]
+            if shape == "train_batch" or arch == "gat-cora":
+                trees.append((args[0] if isinstance(args[0], dict)
+                              else args[0].tree(),
+                              want_args[0] if isinstance(want_args[0], dict)
+                              else want_args[0].tree()))
+            for a, b in trees:
+                for g, w in zip(tree_leaves(a), tree_leaves(b)):
+                    assert g.is_cuda and torch.equal(g, w), (arch, shape)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dist.destroy_process_group()

@@ -156,20 +156,31 @@ def test_depth_fit_equals_a_full_depth_trace():
 
 
 def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
+    """The recsys and GAT steps run on a mesh: ``mind:train_batch`` (the
+    row gradient's occurrences gathered over the data ranks, its dense
+    gradients all-reduced) and ``dlrm-mlperf:serve_p99`` (the lookups
+    summed over "model", the outputs gathered) at (2, 2) are records with
+    terms; a cell the port cannot split stays a ``skipped`` record
+    (minicpm3-4b's 40 MLA heads over the production "model" of 16)."""
     recs = [dryrun.run_cell("mind", "train_batch", mesh_shape=(2, 2),
                             out_dir=str(tmp_path), verbose=False),
             dryrun.run_cell("dlrm-mlperf", "serve_p99",
                             mesh_shape=(2, 2), verbose=False),
-            # 40 MLA heads do not split over the production "model" of 16
             dryrun.run_cell("minicpm3-4b", "train_4k", verbose=False)]
-    for rec in recs:
-        assert set(rec) >= {"arch", "shape", "mesh", "skipped"}
-    assert "ROADMAP.md" in recs[0]["skipped"]
-    assert "ROADMAP.md" in recs[1]["skipped"]
+    for rec, step in zip(recs[:2], ("mind:train_batch:train",
+                                    "dlrm-mlperf:serve_p99:serve")):
+        assert "skipped" not in rec and rec["step"] == step
+        assert rec["mesh"] == (2, 2) and rec["n_devices"] == 4
+        assert rec["flops_per_device"] > 0 and rec["hbm_bytes_per_device"] > 0
+        assert {"all-gather", "all-reduce"} <= set(rec["collective_breakdown"])
+        assert 0 < rec["memory_analysis"]["argument_size_in_bytes"] \
+            <= rec["peak_memory_bytes"]
+        assert rec["bottleneck"] in ("compute", "memory", "collective")
+    assert set(recs[2]) >= {"arch", "shape", "mesh", "skipped"}
     assert "'model' axis size 16" in recs[2]["skipped"]
     saved = json.loads((tmp_path / "mind__train_batch__single.json")
                        .read_text())
-    assert saved["skipped"] == recs[0]["skipped"]
+    assert saved["flops_per_device"] == recs[0]["flops_per_device"]
     assert not dist.is_initialized()
 
 
