@@ -55,21 +55,22 @@ axes ("data", "model") or ("pod", "data", "model").
   GQA's heads; MLA's latent cache is whole on every model rank), and the
   vocabulary-parallel head's logits are gathered whole
   (`gather_logits`).
-* **The recsys and GAT steps** (``tensor_parallel=False``: "model" cuts
-  the tables' rows and nothing else; every other product is replicated
+* **The recsys and GAT steps** (``layout="rows"`` or ``"edges"``: "model"
+  cuts the tables' rows and nothing else; every other product is replicated
   over it, so `copy_to_model` and `reduce_from_model` are identities).
   A table is held as this rank's row block over "model": a lookup
   localizes its ids (`localize_rows`: an id outside the block becomes
   -1, an id past the table is first clamped to the last row, as the
   unsharded kernel reads it), runs the embedding-bag kernel on the block
   and sums the partial bags over "model" (`model_sum`); BERT4Rec's item
-  rows are gathered the same way (`vocab_rows`).  The MLP weights are
+  rows are read the same way (`vocab_rows`, and `embed` under this
+  layout).  The MLP weights are
   stored by the reference's ``rs_param_spec`` and gathered whole at use
   (`gather_linear`).  The batch's rows are over the data axes
-  (``rows_split``): a loss divides by the global count (`batch_mean`), a
+  (``layout="rows"``): a loss divides by the global count (`batch_mean`), a
   serving step gathers every row (`gather_data_rows`), a top-k merges
   the ranks' lists (`merge_top_k`).  The GAT's full-graph step holds its
-  edges over the data axes (``edges_split``) and every node tensor whole
+  edges over the data axes (``layout="edges"``) and every node tensor whole
   on every data rank: the segment max is all-reduced (MAX, `edge_max`,
   which keeps the single card's rule for the gradient of a tie), the
   softmax denominators and the messages summed (`edge_sum`), and a node
@@ -101,6 +102,11 @@ _VOCAB_GATHERED = {"embed": Spec("model", None), "lm_head": Spec(None, "model")}
 _WHOLE = {"router"}
 # a GQA layer's KV projections, whole heads a model rank (`replicate_kv`)
 _KV = {"wk", "wv"}
+# what the mesh cuts: "tp" the LMs' weights (Megatron over "model", ZeRO
+# over the data axes); "rows" the recsys tables' rows over "model" and the
+# batch's rows over the data axes; "edges" the full graph's edges over the
+# data axes ("model" cuts nothing in either)
+_LAYOUTS = ("tp", "rows", "edges")
 
 
 def _groups_of(mesh, axes: tuple):
@@ -324,7 +330,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 def _tensor_parallel(ctx) -> bool:
-    return ctx is not None and ctx.tp_size > 1 and ctx.tensor_parallel
+    return ctx is not None and ctx.tp_size > 1 and ctx.layout == "tp"
 
 
 def copy_to_model(x):
@@ -348,18 +354,17 @@ def reduce_from_model(x):
 
 
 class _EdgeMax(torch.autograd.Function):
-    """The segment max of the rank's edges' scores, all-reduced (MAX) over
+    """A segment max of the rank's edges' scores (``m``, the rank's
+    `models.gnn.segment_max` of ``e`` over ``seg``) all-reduced (MAX) over
     the data ranks; the backward splits a segment's (whole) gradient
     evenly among its entries equal to the max on every rank, as
     `models.gnn.segment_max` does on one card (``scatter_reduce``'s rule:
     the gradient over the tie count, gathered, times the entry's tie
-    indicator)."""
+    indicator), and passes none to the rank's own max."""
 
     @staticmethod
-    def forward(ctx, e, seg, n, group):
-        from ..models.gnn import segment_max
-
-        m = segment_max(e, seg, n)
+    def forward(ctx, m, e, seg, group):
+        m = m.clone()
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
         ctx.save_for_backward(e, seg, m)
         ctx.group = group
@@ -371,7 +376,7 @@ class _EdgeMax(torch.autograd.Function):
         tie = (e == m.index_select(0, seg)).to(g.dtype)
         count = g.new_zeros(m.shape).index_add_(0, seg, tie)
         dist.all_reduce(count, op=dist.ReduceOp.SUM, group=ctx.group)
-        return tie * (g / count).index_select(0, seg), None, None, None
+        return None, tie * (g / count).index_select(0, seg), None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -382,11 +387,12 @@ class ParallelContext:
     hooks (`sharding.constrain`, `sharding.gather_layer_params`,
     `copy_to_model`, ...) do under the step's rules.  ``spec_of(name,
     ndim)`` is the storage spec of a layer leaf named ``name`` (the layer
-    stacks' leading axes dropped)."""
+    stacks' leading axes dropped); ``layout`` is one of `_LAYOUTS`."""
 
     def __init__(self, mesh, *, multi_pod: bool = False, spec_of=None,
-                 tensor_parallel: bool = True, rows_split: bool = False,
-                 edges_split: bool = False):
+                 layout: str = "tp"):
+        if layout not in _LAYOUTS:
+            raise ValueError(f"layout {layout!r} is none of {_LAYOUTS}")
         want = ("pod", "data", "model") if multi_pod else ("data", "model")
         if tuple(mesh.mesh_dim_names) != want:
             raise ValueError(f"the mesh's axes are {mesh.mesh_dim_names}, "
@@ -406,11 +412,7 @@ class ParallelContext:
         self.seq_group, self.seq_size, self.seq_pos = (
             self.tp_group, self.tp_size, self.tp_rank)
         self.tokens_replicated = False
-        # the recsys and GAT steps: "model" cuts the tables' rows alone;
-        # the batch's rows, or the graph's edges, are over the data axes
-        self.tensor_parallel = tensor_parallel
-        self.rows_split = rows_split
-        self.edges_split = edges_split
+        self.layout = layout
 
     def serve_layout(self, long: bool) -> None:
         """The serving steps' layout: the cache's sequence over "model"
@@ -498,17 +500,30 @@ class ParallelContext:
                           _VOCAB_GATHERED[name], local.ndim)
         return _Gather.apply(local, dtype, plan)
 
+    def _block_ids(self, ids, v_local: int):
+        """``ids`` as offsets into this rank's row block (``v_local`` rows
+        a model rank), and whether the block holds each."""
+        loc = ids - self.tp_rank * v_local
+        return loc, (loc >= 0) & (loc < v_local)
+
+    def _own_rows(self, table, ids):
+        """``F.embedding(ids, table)`` over this rank's row block
+        ``table``: its rows, zero for the ids the block does not hold."""
+        if self.tp_size == 1:
+            return torch.nn.functional.embedding(ids, table)
+        loc, own = self._block_ids(ids, table.shape[0])
+        rows = torch.nn.functional.embedding(loc.clamp(0, table.shape[0] - 1),
+                                             table)
+        return torch.where(own[..., None], rows, 0.0)
+
     def embed(self, table, tokens):
         """The rows of this rank's vocabulary range for ``tokens`` (zero for
-        the other tokens; the sum over "model" is the lookup)."""
-        w = self.gather_vocab("embed", table)
-        if self.tp_size == 1:
-            return torch.nn.functional.embedding(tokens, w)
-        v = w.shape[0]
-        ids = tokens - self.tp_rank * v
-        own = (ids >= 0) & (ids < v)
-        rows = torch.nn.functional.embedding(ids.clamp(0, v - 1), w)
-        return torch.where(own[..., None], rows, 0.0)
+        the other tokens; the sum over "model" at ``act_btd`` is the
+        lookup).  Under the recsys layout the table is not cut over the
+        data axes and no ``act_btd`` sum follows: `vocab_rows`."""
+        if self.layout != "tp":
+            return self.vocab_rows(table, tokens)
+        return self._own_rows(self.gather_vocab("embed", table), tokens)
 
     def xent_chunk(self, hc, yc, w):
         """`transformer._xent_chunk` over a head whose columns are this
@@ -610,22 +625,15 @@ class ParallelContext:
         stays -1).  An id past the whole table is first clamped to its last
         row, which the unsharded kernel reads (`kernels.ops.embedding_bag`
         clamps; unclamped, every rank would read its block's last row)."""
-        v = v_local * self.tp_size
-        loc = ids.clamp_max(v - 1) - self.tp_rank * v_local
-        return torch.where((loc >= 0) & (loc < v_local), loc,
-                           torch.full_like(loc, -1))
+        loc, own = self._block_ids(ids.clamp_max(v_local * self.tp_size - 1),
+                                   v_local)
+        return torch.where(own, loc, torch.full_like(loc, -1))
 
     def vocab_rows(self, table, ids):
         """``F.embedding(ids, table)`` over the row blocks of a table cut
         over "model" (BERT4Rec's items): the rows of this rank's block,
         zero for the other ids, summed over "model"."""
-        if self.tp_size == 1:
-            return torch.nn.functional.embedding(ids, table)
-        v = table.shape[0]
-        loc = ids - self.tp_rank * v
-        own = (loc >= 0) & (loc < v)
-        rows = torch.nn.functional.embedding(loc.clamp(0, v - 1), table)
-        return self.model_sum(torch.where(own[..., None], rows, 0.0))
+        return self.model_sum(self._own_rows(table, ids))
 
     def gather_linear(self, w, full: tuple):
         """An ``nn.Linear`` weight (out, in) whose (in, out) leaf is stored
@@ -651,13 +659,13 @@ class ParallelContext:
         """The global batch's mean of a per-row ``x`` of this rank's rows:
         their sum over the global count (the ranks' results sum to the
         mean); ``torch.mean`` where the rows are not split."""
-        if not self.rows_split or self.dp_size == 1:
+        if self.layout != "rows" or self.dp_size == 1:
             return torch.mean(x)
         return x.sum() / (x.numel() * self.dp_size)
 
     def batch_count(self, n):
         """A count over this rank's rows as the global batch's count."""
-        if not self.rows_split or self.dp_size == 1:
+        if self.layout != "rows" or self.dp_size == 1:
             return n
         return self.data_sum(n)
 
@@ -697,9 +705,10 @@ class ParallelContext:
         (Megatron's f over the data axes)."""
         return _CopyToModel.apply(x, self.dp_group)
 
-    def edge_max(self, e, seg, n: int):
-        """`models.gnn.segment_max` of every rank's edges (`_EdgeMax`)."""
-        return _EdgeMax.apply(e, seg, n, self.dp_group)
+    def edge_max(self, m, e, seg):
+        """The segment max ``m`` of the rank's edges ``e`` over ``seg``, as
+        the max over every rank's edges (`_EdgeMax`)."""
+        return _EdgeMax.apply(m, e, seg, self.dp_group)
 
     # ---- after the backward ----
     def _replicated_over(self, spec: Spec, ndim: int) -> set:

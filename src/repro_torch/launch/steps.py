@@ -702,13 +702,13 @@ def _gnn_batch_specs(shape: dict, dp) -> tuple:
              "dst": Spec(dp, None), "labels": Spec(dp)})
 
 
-def _parallel_context(mesh, multi_pod: bool, **flags):
+def _parallel_context(mesh, multi_pod: bool, layout: str):
     """The recsys and GAT steps' `distributed.parallel.ParallelContext`:
-    "model" cuts the tables' rows alone."""
+    "model" cuts the tables' rows alone, the data axes the batch's rows
+    (``layout="rows"``) or the full graph's edges (``"edges"``)."""
     from ..distributed import parallel
 
-    return parallel.ParallelContext(mesh, multi_pod=multi_pod,
-                                    tensor_parallel=False, **flags)
+    return parallel.ParallelContext(mesh, multi_pod=multi_pod, layout=layout)
 
 
 def _split(what: str, n: int, parts: int) -> None:
@@ -777,8 +777,7 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
 
         check_gnn_sharding(shape, _check_mesh(mesh, multi_pod)[0])
         pc = _parallel_context(mesh, multi_pod,
-                               rows_split=kind != "gnn_full",
-                               edges_split=kind == "gnn_full")
+                               "edges" if kind == "gnn_full" else "rows")
         rules = rules_for_family("gnn", multi_pod=multi_pod)
 
     def step(params, opt_state, batch):
@@ -788,7 +787,7 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             with sharding_rules(rules, pc):
                 loss, grads = gnn_mod.value_and_grad(loss_f, params, batch,
                                                      cfg)
-            if pc.rows_split:
+            if pc.layout == "rows":
                 pc.sum_replicated_grads(grads, pspec)
                 loss = pc.data_sum(loss)
         gn = adamw_step_(opt, grads, opt_state, params)
@@ -1033,7 +1032,7 @@ def build_rs_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
 
         n_dp, n_tp = _check_mesh(mesh, multi_pod)
         check_rs_sharding(arch_id, meta, shape, n_dp, n_tp)
-        pc = _parallel_context(mesh, multi_pod, rows_split=True)
+        pc = _parallel_context(mesh, multi_pod, "rows")
         rules = rules_for_family("recsys", multi_pod=multi_pod)
         rows = parallel.data_rows(b, 1, pc.dp_size, pc.dp_rank) \
             if kind != "rs_retrieval" else None

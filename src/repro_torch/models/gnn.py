@@ -178,12 +178,13 @@ def edge_aggregate(alpha, h, src, dst, n: int):
 # Full-graph regime                                                            #
 # --------------------------------------------------------------------------- #
 def _edge_ops():
-    """(to_edges, segment max, the sum of the ranks' node partials): the
-    data ranks' ops where the sharded full-graph step splits the edges
-    over more than one data rank, the single card's otherwise."""
+    """(to_edges, the max of the ranks' segment maxes, the sum of the
+    ranks' node partials): the data ranks' ops where the sharded
+    full-graph step splits the edges over more than one data rank,
+    identities otherwise."""
     pc = current_context()
-    if pc is None or not pc.edges_split or pc.dp_size == 1:
-        return (lambda t: t), segment_max, (lambda t: t)
+    if pc is None or pc.layout != "edges" or pc.dp_size == 1:
+        return (lambda t: t), (lambda m, e, seg: m), (lambda t: t)
     return pc.to_edges, pc.edge_max, pc.edge_sum
 
 
@@ -195,14 +196,14 @@ def gat_layer(p, x, src, dst, n_nodes: int, *, n_heads: int, d_head: int,
     edge_mask: optional (E,) bool, False on padded edges.  In the sharded
     full-graph step the edges are the rank's block, and each node tensor
     an edge reads passes `ParallelContext.to_edges` (`_edge_ops`)."""
-    to_edges, seg_max, node_sum = _edge_ops()
+    to_edges, max_over, node_sum = _edge_ops()
     h = (x @ p["w"]).reshape(x.shape[0], n_heads, d_head)      # (N, H, dh)
     es = to_edges(torch.einsum("nhd,hd->nh", h, p["a_src"]))[src]  # (E, H)
     ed = to_edges(torch.einsum("nhd,hd->nh", h, p["a_dst"]))[dst]
     e = leaky_relu(es + ed, slope)
     if edge_mask is not None:
         e = torch.where(edge_mask[:, None], e, PAD_SCORE)
-    m = seg_max(e, dst, n_nodes)                                # (N, H)
+    m = max_over(segment_max(e, dst, n_nodes), e, dst)          # (N, H)
     m = torch.where(torch.isfinite(m), m, 0.0)
     ex = torch.exp(e - to_edges(m)[dst])
     if edge_mask is not None:

@@ -60,9 +60,8 @@ class MLP(nn.Module):
 
     def forward(self, x):
         last = len(self.layers) - 1
-        sharded = current_context() is not None
         for i, lin in enumerate(self.layers):
-            x = F.linear(x, _weight(lin), lin.bias) if sharded else lin(x)
+            x = F.linear(x, _weight(lin), lin.bias)
             if i < last or self.final_relu:
                 x = torch.relu(x)
         return x

@@ -61,7 +61,8 @@ follow each rank's rows): the table's gradient, summed over the data
 ranks, and no dense (V, D) one.  The MLPs' weights are gathered whole at
 use (`layers.MLP`), the losses are means over the global batch
 (`ParallelContext.batch_mean`), and BERT4Rec's item rows come from the
-blocks of its vocabulary (`ParallelContext.vocab_rows`).
+blocks of its vocabulary (`ParallelContext.vocab_rows`, which the
+transformer's `embed_tokens` reaches through `ParallelContext.embed`).
 """
 from __future__ import annotations
 
@@ -506,8 +507,7 @@ def _bert4rec_hidden(params, seq_ids, cfg: Bert4RecConfig):
     'full', RoPE on) and its dense gated FFN."""
     tcfg = cfg.tf_config()
     b, s = seq_ids.shape
-    # the transformer's `embed_tokens` (its gather, then the cast)
-    x = _item_rows(params["embed"], seq_ids.clamp_min(0)).to(tcfg.dtype) + \
+    x = tf.embed_tokens(params, seq_ids.clamp_min(0), tcfg) + \
         params["pos"][None, :s, :]
     cos, sin = rope_freqs(tcfg.rope_dim, tcfg.max_seq, tcfg.rope_theta,
                           device=x.device)

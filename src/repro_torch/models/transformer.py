@@ -250,7 +250,7 @@ def embed_tokens(params, tokens, cfg: TransformerConfig):
     backward sums them one row after another (BERT4Rec's [MASK] id is a
     fifth of a batch's tokens).  In the sharded step the rank's rows of
     its vocabulary range (`ParallelContext.embed`), summed at
-    ``act_btd``."""
+    ``act_btd`` (BERT4Rec's: summed at once)."""
     ctx = current_context()
     if ctx is not None:
         return ctx.embed(params["embed"], tokens).to(cfg.dtype)

@@ -20,11 +20,15 @@ shards,
 
 On a one-rank mesh the rank also runs the unsharded step on the same
 inputs and records whether every output is bit-equal.  A case with
-``"unit": "lookup"`` runs the row-sharded lookup unit case instead, one
-with ``"unit": "wide"`` the widened DLRM whose MLP weights
-``rs_param_spec`` cuts (held against the unsharded step by this rank).  Rank 0 writes
+``"wide": true`` runs the DLRM widened by ``WIDE_DLRM`` (`wide_dlrm`),
+whose MLP weights ``rs_param_spec`` cuts over "model": its parameters
+are JAX's widened DLRM's (``DIR/dlrm-mlperf-wide_<shape>_params.npz``),
+and the rank also records which top-MLP weights are stored cut and the
+unsharded port's outputs (``plain/...``).  A case with ``"unit":
+"lookup"`` runs the row-sharded lookup unit case instead.  Rank 0 writes
 ``DIR/<case>_torch.npz``.  Imports no JAX.
 """
+import contextlib
 import dataclasses
 import json
 import sys
@@ -89,10 +93,32 @@ def flat_numpy(tree) -> list:
         t, torch.Tensor) else np.asarray(t, np.float64) for t in leaves]
 
 
+@contextlib.contextmanager
+def wide_dlrm(reg):
+    """DLRM widened by ``WIDE_DLRM`` in the architecture registry ``reg``
+    (the port's, or the JAX package's: the same interface) while the block
+    runs."""
+    arch = reg.get_arch("dlrm-mlperf")
+
+    def wide(shape_name, reduced=False):
+        return dataclasses.replace(arch.make_config(shape_name, reduced),
+                                   **WIDE_DLRM)
+    reg.register(dataclasses.replace(arch, make_config=wide))
+    try:
+        yield
+    finally:
+        reg.register(arch)
+
+
+def params_file(case: dict) -> str:
+    """The name of the case's JAX parameters in the run's directory."""
+    wide = "-wide" if case.get("wide") else ""
+    return f"{case['arch']}{wide}_{case['shape']}_params.npz"
+
+
 def from_jax(case: dict, d: Path):
     """The port's unsharded parameters of the JAX package's."""
-    tree = unflatten(dict(np.load(
-        d / f"{case['arch']}_{case['shape']}_params.npz")))
+    tree = unflatten(dict(np.load(d / params_file(case))))
     if case["arch"] == "gat-cora":
         cfg = steps.get_arch("gat-cora").make_config(case["shape"], True)
         return gnn.params_from_jax(tree, cfg, device="cpu")
@@ -166,8 +192,7 @@ def lookup_case(mesh, rank: int) -> dict:
     bags = torch.randint(-1, 66, (9, 5), generator=gen, dtype=torch.int32)
     g1 = torch.randn(ones.shape[0], 8, generator=gen)
     g5 = torch.randn(9, 8, generator=gen)
-    pc = parallel.ParallelContext(mesh, tensor_parallel=False,
-                                  rows_split=True)
+    pc = parallel.ParallelContext(mesh, layout="rows")
     out = {}
     for name, ids, g in (("one", ones[:, None], g1), ("five", bags, g5)):
         full = table.clone().requires_grad_()
@@ -188,55 +213,15 @@ def lookup_case(mesh, rank: int) -> dict:
     return out
 
 
-def wide_case(mesh) -> dict:
-    """The widened DLRM (``WIDE_DLRM``, registered in this process in the
-    place of the reduced config) on the case's mesh against the unsharded
-    step, from the same seeded init: its MLP weights are stored cut over
-    "model" and gathered at use."""
-    arch = registry.get_arch("dlrm-mlperf")
-
-    def wide(shape_name, reduced=False):
-        return dataclasses.replace(arch.make_config(shape_name, reduced),
-                                   **WIDE_DLRM)
-    registry.register(dataclasses.replace(arch, make_config=wide))
-    try:
-        return wide_steps(mesh)
-    finally:
-        registry.register(arch)
-
-
-def wide_steps(mesh) -> dict:
-    kw = dict(reduced=True)
-    out = {}
-    for shape in ("train_batch", "serve_p99", "retrieval_cand"):
-        sd = steps.build_step("dlrm-mlperf", shape, mesh=mesh, **kw)
-        plain = steps.build_step("dlrm-mlperf", shape, **kw)
-        args, fargs = sd.init_args(device="cpu"), plain.init_args(device="cpu")
-        cut = [tuple(lin.weight.shape) != (lin.out_features, lin.in_features)
-               for lin in args[0].top.layers]
-        got = gathered(run(sd, args[0], args[1:]), sd, mesh)
-        want = run(plain, fargs[0], fargs[1:])
-        for k, v in got.items():
-            flat = flat_numpy(v) if isinstance(v, (dict, list)) else [
-                np.asarray(v.detach().double().numpy())]
-            ref_flat = flat_numpy(want[k]) if isinstance(
-                want[k], (dict, list)) else [np.asarray(
-                    want[k].detach().double().numpy())]
-            for i, (a, b) in enumerate(zip(flat, ref_flat)):
-                out[f"{shape}/{k}_{i}/got"] = a
-                out[f"{shape}/{k}_{i}/want"] = b
-        out[f"{shape}/cut"] = np.asarray(cut)
-    return out
-
-
 def run_case(case: dict, d: Path, rank: int) -> None:
     mp = case["multi_pod"]
     names = ("pod", "data", "model") if mp else ("data", "model")
     mesh = init_device_mesh("cpu", tuple(case["mesh"]), mesh_dim_names=names)
     if case.get("unit") == "lookup":
         out = lookup_case(mesh, rank)
-    elif case.get("unit") == "wide":
-        out = wide_case(mesh)
+    elif case.get("wide"):
+        with wide_dlrm(registry):
+            out = main_case(case, d, mesh)
     else:
         out = main_case(case, d, mesh)
     if rank == 0:
@@ -250,18 +235,34 @@ def main_case(case: dict, d: Path, mesh) -> dict:
     args, fargs = sd.init_args(device="cpu"), plain.init_args(device="cpu")
     out = {"same_init": np.asarray(init_checks(sd, plain, mesh, args,
                                                fargs))}
-    got = gathered(run(sd, shard_model(case, sd, from_jax(case, d), mesh),
-                       args[1:]), sd, mesh)
-    if mesh.mesh.numel() == 1:
+    model = shard_model(case, sd, from_jax(case, d), mesh)
+    if case.get("wide"):
+        out["cut"] = np.asarray([
+            tuple(lin.weight.shape) != (lin.out_features, lin.in_features)
+            for lin in model.top.layers])
+    got = gathered(run(sd, model, args[1:]), sd, mesh)
+    if mesh.mesh.numel() == 1 or case.get("wide"):
         want = run(plain, from_jax(case, d), fargs[1:])
-        out["bit_equal"] = np.asarray(same(
-            [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]))
-    for k, v in got.items():
+        if mesh.mesh.numel() == 1:
+            out["bit_equal"] = np.asarray(same(
+                [got[k] for k in sorted(got)],
+                [want[k] for k in sorted(want)]))
+        if case.get("wide"):
+            out.update(arrays(want, "plain/"))
+    out.update(arrays(got))
+    return out
+
+
+def arrays(res: dict, prefix: str = "") -> dict:
+    """A step's outputs as float64 arrays: a tree's leaves under
+    ``<key>_<i>``."""
+    out = {}
+    for k, v in res.items():
         if isinstance(v, (dict, list)):
             for i, a in enumerate(flat_numpy(v)):
-                out[f"{k}_{i}"] = a
+                out[f"{prefix}{k}_{i}"] = a
         else:
-            out[k] = np.asarray(v.detach().double().numpy())
+            out[prefix + k] = np.asarray(v.detach().double().numpy())
     return out
 
 

@@ -20,8 +20,10 @@ mesh axes on this host, so the single-device step is the reference):
 * a lookup on a (1, 4) table with ids at every shard boundary (row0 - 1,
   row0, row1 - 1), the last rows, ids past the table and -1 padding;
 * a DLRM widened (``bot_mlp`` (256, 16), ``top_mlp`` (256, 1)) so that
-  ``rs_param_spec`` cuts its MLP weights over "model", on (2, 2) and
-  (1, 4), against the port's unsharded step.
+  ``rs_param_spec`` cuts its MLP weights over "model" (the full-size
+  DLRM's and Wide & Deep's are cut; the reduced configs' are not), its
+  three steps on (2, 2) and (1, 4), against JAX's widened single-device
+  step like every other case, and against the port's unsharded step.
 
 Tolerances, and why:
 
@@ -40,9 +42,10 @@ Tolerances, and why:
   element (JAX scatter-adds its gradient in bfloat16), and the optimizer
   state's moments within 2^-14 of each leaf's largest magnitude, its
   step counts equal;
-* the widened DLRM against the port's unsharded step within 2^-16 of the
-  largest magnitude (losses, outputs, the moments) and the parameters as
-  above;
+* the widened DLRM against JAX as every other case, and against the
+  port's unsharded step within 2^-16 of the largest magnitude (losses,
+  outputs, the moments; 2^-6 for the bfloat16 retrieval scores) and the
+  parameters as above;
 * the shard-boundary lookup's bags of one bit-equal to the unsharded
   lookup and to the plain version on the whole table, the bags of five
   within ``F * 2^-24 * sum |w|``, and every row gradient bit-equal to the
@@ -52,6 +55,7 @@ Tolerances, and why:
 The mesh checks raise ``ValueError`` before any collective (a mesh
 without a process group).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -64,10 +68,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.configs import registry as jreg
 from repro.launch import steps as jsteps
 from repro.models import recsys as jrs
 from repro_torch.launch import steps as tsteps
 
+from _torch_parallel_recsys_rank import params_file, wide_dlrm
 from _torch_train import MOMENT_REL, one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,10 +85,11 @@ REL = 2.0 ** -16
 RANK_REL = 2.0 ** -6
 
 
-def _case(arch, shape, mesh, multi_pod=False):
-    name = f"{arch}_{shape}_{'x'.join(map(str, mesh))}"
+def _case(arch, shape, mesh, multi_pod=False, wide=False):
+    tag = f"{arch}-wide" if wide else arch
+    name = f"{tag}_{shape}_{'x'.join(map(str, mesh))}"
     return dict(name=name, arch=arch, shape=shape, mesh=mesh,
-                multi_pod=multi_pod)
+                multi_pod=multi_pod, wide=wide)
 
 
 # (world size, cases) a launch
@@ -90,10 +97,9 @@ LAUNCHES = {
     4: [_case(a, s, m) for m in ([2, 2], [1, 4], [4, 1])
         for a in RS_ARCHS for s in RS_SHAPES]
     + [_case("gat-cora", s, m) for m in ([4, 1], [2, 2]) for s in GNN_SHAPES]
-    + [dict(name="lookup_1x4", unit="lookup", mesh=[1, 4], multi_pod=False),
-       dict(name="wide_mlp_2x2", unit="wide", mesh=[2, 2], multi_pod=False),
-       dict(name="wide_mlp_1x4", unit="wide", mesh=[1, 4],
-            multi_pod=False)],
+    + [_case("dlrm-mlperf", s, m, wide=True) for m in ([2, 2], [1, 4])
+       for s in RS_SHAPES]
+    + [dict(name="lookup_1x4", unit="lookup", mesh=[1, 4], multi_pod=False)],
     8: [_case("dlrm-mlperf", s, [2, 2, 2], multi_pod=True)
         for s in RS_SHAPES],
     1: [_case(a, s, [1, 1]) for a in RS_ARCHS for s in RS_SHAPES]
@@ -141,10 +147,20 @@ def _jax_scores(arch, jparams, jq, c):
     return np.asarray(fwd(p16, dense, sparse, cfg).astype(jnp.float32))
 
 
-def jax_run(arch, shape) -> dict:
-    """JAX's single-device step at the reduced size: its initial
-    parameters, and its 3 training steps, its serving outputs or its top
-    100 (with the scores before the top-k)."""
+def _jax_arch(wide: bool):
+    """JAX's DLRM widened as the rank widens the port's, or nothing."""
+    return wide_dlrm(jreg) if wide else contextlib.nullcontext()
+
+
+def jax_run(arch, shape, wide=False) -> dict:
+    """JAX's single-device step at the reduced size (DLRM ``wide``ned):
+    its initial parameters, and its 3 training steps, its serving outputs
+    or its top 100 (with the scores before the top-k)."""
+    with _jax_arch(wide):
+        return _jax_run(arch, shape)
+
+
+def _jax_run(arch, shape) -> dict:
     jsd = jsteps.build_step(arch, shape, reduced=True)
     args = jsd.init_args()
     out = {"params0": args[0]}
@@ -172,22 +188,25 @@ def runs(tmp_path_factory):
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     rank_script = str(ROOT / "tests" / "_torch_parallel_recsys_rank.py")
-    keys = sorted({(c["arch"], c["shape"]) for c in CASES.values()})
+    keys = sorted({(c["arch"], c["shape"], c["wide"])
+                   for c in CASES.values()})
     params = {}
-    for arch, shape in keys:
-        jsd = jsteps.build_step(arch, shape, reduced=True)
-        params[(arch, shape)] = jsd.init_args()[0]
+    for arch, shape, wide in keys:
+        with _jax_arch(wide):
+            jsd = jsteps.build_step(arch, shape, reduced=True)
+            params[(arch, shape, wide)] = jsd.init_args()[0]
     procs, dirs = [], {}
     for world, cases in LAUNCHES.items():
         d = tmp_path_factory.mktemp(f"rs{world}")
         dirs[world] = d
-        for arch, shape in {(c["arch"], c["shape"]) for c in cases
-                            if "arch" in c}:
-            np.savez(d / f"{arch}_{shape}_params.npz", **{
+        for c in cases:
+            if "arch" not in c:
+                continue
+            np.savez(d / params_file(c), **{
                 _key(p): np.asarray(jnp.asarray(a).astype(jnp.float32)
                                     if a.dtype == jnp.bfloat16 else a)
                 for p, a in jax.tree_util.tree_flatten_with_path(
-                    params[(arch, shape)])[0]})
+                    params[(c["arch"], c["shape"], c["wide"])])[0]})
         (d / "cases.json").write_text(json.dumps(cases))
         procs.append((world, [subprocess.Popen(
             [sys.executable, rank_script, str(r), str(world), str(d)],
@@ -208,7 +227,8 @@ def runs(tmp_path_factory):
         for case in LAUNCHES[world]:
             z = dict(np.load(dirs[world] / f"{case['name']}_torch.npz"))
             out[case["name"]] = (z, ref.get((case.get("arch"),
-                                             case.get("shape"))))
+                                             case.get("shape"),
+                                             case.get("wide"))))
     return out
 
 
@@ -319,21 +339,22 @@ def test_row_sharded_lookup_at_the_shard_boundaries(runs):
 
 @pytest.mark.parametrize("name", ["wide_mlp_2x2", "wide_mlp_1x4"])
 def test_wide_mlp_weights_cut_over_model_are_gathered(runs, name):
-    z, _ = runs[name]
-    for shape in ("train_batch", "serve_p99", "retrieval_cand"):
+    # (the widened DLRM's cases are held against JAX by the tests above;
+    # here: its weights are cut, and it gives the port's unsharded step)
+    mesh = name.rsplit("_", 1)[1]
+    for shape in RS_SHAPES:
+        z, _ = runs[f"dlrm-mlperf-wide_{shape}_{mesh}"]
         # the top MLP's weights are stored cut over "model": (26, 256) by
         # its columns, (256, 1) by its rows
-        assert z[f"{shape}/cut"].tolist() == [True, True]
-        keys = sorted({k.rsplit("/", 1)[0] for k in z
-                       if k.startswith(shape + "/") and k.endswith("/got")})
+        assert z["cut"].tolist() == [True, True]
+        keys = sorted(k[len("plain/"):] for k in z if k.startswith("plain/"))
         assert keys
         for k in keys:
-            got, want = z[k + "/got"], z[k + "/want"]
-            if "/params_" in k:
+            got, want = z[k], z["plain/" + k]
+            if k.startswith("params_"):
                 _params_close([got], [(k, want, False)], 1e-3)
             else:
-                _rel_close(got, want, RANK_REL if shape == "retrieval_cand"
-                           and "vals" in k else REL)
+                _rel_close(got, want, RANK_REL if k == "vals" else REL)
 
 
 def _mesh(*sizes, multi_pod=False):
