@@ -162,8 +162,9 @@ or note, and each phase's time:
    (a) ``ring_allgather_matmul`` against a float64 product and
    ``compressed_psum`` in "none" and "int8" mode against the exact sum and
    the quantization done by hand; (b) the five reduced LMs' ``train_4k``
-   on a (1, 1) mesh (ZeRO-3 and tensor parallelism, every collective a
-   copy), its ``init_args`` shards gathering to the unsharded init, and 3
+   on a (1, 1) mesh (ZeRO-3, tensor parallelism and the sequence
+   parallelism of ``act_btd``, every collective a copy), its
+   ``init_args`` shards gathering to the unsharded init, and 3
    steps bit-equal to the unsharded step (losses, norms, parameters,
    moments); (c) internlm2-20b at 4 of 48 layers and minicpm3-4b at 8 of
    62 at full width, the unsharded step then the sharded one (3 timed
@@ -188,7 +189,11 @@ or note, and each phase's time:
    ``serve_bulk`` and ``retrieval_cand`` bit-equal to the unsharded
    forward, and a sharded ``train_batch`` step whose loss equals the
    unsharded loss of the same batch, computed before it; the sharded
-   steps' embedding_bag launches counted into the kernel line;
+   steps' embedding_bag launches counted into the kernel line; one line
+   with the forward calls of the sequence-parallel ops (the gathers and
+   scatters of the sequence over "model", the prefill's last token) and
+   of the GAT's node-row ops (``to_edges``, ``node_scatter``), each of
+   which must have run;
 8. the engine's host lane and the dry-run: (a) on the SIFT-1M stand-in
    (phase 2's data, index, queries and radius, made again) with the
    index's arrays on the host, ``oracle=True``: the compacted executor
@@ -5500,6 +5505,19 @@ def p7_recsys_gat(torch, chk: Checks, K, steps, parallel, mesh,
             "seconds": time.perf_counter() - t}
 
 
+def p7_ops(chk: Checks, parallel, gat: bool) -> dict:
+    """The sequence-parallel ops of (b)-(d) (the reference's ``act_btd``)
+    and, with (e), the GAT's node-row ops, by their forward calls in this
+    phase: each must have run (a copy through NCCL at world size 1)."""
+    ops = dict(parallel.OP_COUNTS)
+    want = ("gather_seq", "scatter_seq", "last_token") + (
+        ("to_edges", "node_scatter") if gat else ())
+    chk.ok(all(ops.get(k, 0) > 0 for k in want),
+           f"sequence-parallel and node-row ops run by the sharded steps of "
+           f"(b)-(e), forward calls: {ops}")
+    return ops
+
+
 def phase_distributed(torch, chk: Checks, card: str, K=None) -> dict:
     """Phase 7: the distributed layer and the sharded LM training and
     serving steps, then (with the kernels' module ``K``) the sharded
@@ -5515,8 +5533,10 @@ def phase_distributed(torch, chk: Checks, card: str, K=None) -> dict:
     from repro_torch.launch import steps
 
     print("phase 7: the distributed layer, the sharded train_4k step, the "
-          "sharded serving steps and the sharded recsys and GAT steps, NCCL "
-          "at world size 1, deterministic algorithms")
+          "sharded serving steps and the sharded recsys and GAT steps (the "
+          "residual stream cut along the sequence, the GAT's hidden node "
+          "rows over the data ranks), NCCL at world size 1, deterministic "
+          "algorithms")
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     rec = {}
@@ -5535,6 +5555,7 @@ def phase_distributed(torch, chk: Checks, card: str, K=None) -> dict:
                    f"NCCL process group, make_host_mesh {tuple(mesh.shape)} "
                    f"{mesh.mesh_dim_names} on {mesh.device_type}")
             rec["collectives"] = p7_collectives(torch, chk, mesh, card)
+            parallel.OP_COUNTS.clear()
             p7_reduced(torch, chk, steps, parallel, mesh)
             for arch, layers in P7_FULL.items():
                 rec[arch] = p7_full(torch, chk, steps, parallel, mesh,
@@ -5547,6 +5568,7 @@ def phase_distributed(torch, chk: Checks, card: str, K=None) -> dict:
             if K is not None:
                 rec["recsys_gat"] = p7_recsys_gat(torch, chk, K, steps,
                                                   parallel, mesh, card)
+            rec["seq_node_ops"] = p7_ops(chk, parallel, K is not None)
         finally:
             torch.use_deterministic_algorithms(False)
             dist.destroy_process_group()

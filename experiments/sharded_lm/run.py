@@ -5,12 +5,16 @@
         [--batch N] [--steps 3] [--out sharded_lm.json]
 
     torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
+        --arch nemotron-4-15b --layers 0 --meshes 1x4 2x2   # all 32 layers
+
+    torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
         --device cpu --reduced          # a rehearsal: gloo, the reduced config
 
 Each rank joins one NCCL group (torchrun's rendezvous on this host) on its
 own card and, for each ``--meshes`` entry (data x model), builds
 ``launch.steps.build_step(arch, "train_4k", mesh=...)`` at full width and
-``--layers`` layers with a global batch of ``--batch`` sequences of 4,096
+``--layers`` layers (0: the config's own depth) with a global batch of
+``--batch`` sequences of 4,096
 tokens (by default one sequence a data rank in each of the config's
 microbatches: 8 for an MoE model, 2 dense), makes its
 shards with ``init_args`` (one full leaf at a time), runs one untimed step
@@ -21,9 +25,13 @@ loss beside ln V, the card's name and power limit; ``--out`` also writes
 the lines there.  At one period of llama4-scout (174 GB of training
 state) the (4, 1) mesh fits an 80 GB card only with
 ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in the environment
-(75.3 GB at its peak).  ``--device cpu`` runs the same over gloo on the CPU
-(with ``--reduced``: the arch's reduced config, 4 sequences of 32 tokens).
-Imports no JAX.
+(75.3 GB at its peak).  A rank that runs out of device memory prints one
+JSON line of its own before it fails (``"oom": true``: where, the card's
+peak and what was allocated then, the rank's parameter and optimizer
+shards among it, the allocator's message) and appends it to
+``<--out>.oom``; torchrun then ends the other ranks.  ``--device cpu``
+runs the same over gloo on the CPU (with ``--reduced``: the arch's
+reduced config, 4 sequences of 32 tokens).  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -74,23 +82,38 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
                               shape_override={"global_batch": batch})
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    params, state, data = sd.init_args(device=device)
-    sync()
-    init_s = time.perf_counter() - t
-    local = sum(p.numel() for p in tree_leaves(params))
-    losses, norms, times = [], [], []
-    for i in range(n_steps + 1):
-        dist.barrier()
-        sync()
+    where, state_gb = "init_args", 0.0
+    try:
         t = time.perf_counter()
-        m = sd.fn(params, state, data)
+        params, state, data = sd.init_args(device=device)
         sync()
-        ms = 1e3 * (time.perf_counter() - t)
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        if i:
-            times.append(ms)
+        init_s = time.perf_counter() - t
+        local = sum(p.numel() for p in tree_leaves(params))
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves((params, state))) / 1e9
+        losses, norms, times = [], [], []
+        for i in range(n_steps + 1):
+            where = f"step {i}"
+            dist.barrier()
+            sync()
+            t = time.perf_counter()
+            m = sd.fn(params, state, data)
+            sync()
+            ms = 1e3 * (time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i:
+                times.append(ms)
+    except torch.cuda.OutOfMemoryError as e:
+        raise OutOfMemory({
+            "oom": True, "arch": arch, "layers": cfg.n_layers,
+            "mesh": list(shape), "global_batch": batch,
+            "rank": dist.get_rank(), "where": where,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "params_and_optimizer_gb": state_gb,
+            "error": str(e).splitlines()[0][:400]}) from e
     peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9
                          if cuda else 0.0], device=device)
     peaks = [torch.zeros_like(peak) for _ in range(dist.get_world_size())]
@@ -115,10 +138,15 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
             "slowest_rank_step_ms": float(slowest)}
 
 
+class OutOfMemory(RuntimeError):
+    """A rank ran out of device memory; ``args[0]`` is its record."""
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama4-scout-17b-a16e")
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=4,
+                    help="layers at full width; 0: the config's own")
     ap.add_argument("--meshes", nargs="+", default=["2x2", "1x4", "4x1"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
@@ -142,8 +170,16 @@ def main() -> None:
         lines = []
         for m in args.meshes:
             shape = tuple(int(v) for v in m.split("x"))
-            rec = run_mesh(args.arch, args.layers, shape, args.batch,
-                           args.steps, args.device, args.reduced)
+            try:
+                rec = run_mesh(args.arch, args.layers, shape, args.batch,
+                               args.steps, args.device, args.reduced)
+            except OutOfMemory as e:
+                rec = dict(e.args[0], card=card_line())
+                print(json.dumps(rec), flush=True)
+                if args.out:
+                    with open(f"{args.out}.oom", "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+                raise
             rec["card"] = card
             if dist.get_rank() == 0:
                 print(json.dumps(rec), flush=True)

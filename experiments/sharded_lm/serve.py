@@ -1,7 +1,7 @@
 """The sharded LM serving steps across the cards of one host.
 
     torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/serve.py \
-        [--parts full period nemotron long] [--meshes 1x4 2x2] \
+        [--parts full prefill period nemotron long] [--meshes 1x4 2x2] \
         [--out serve.json]
 
     torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/serve.py \
@@ -28,6 +28,7 @@ mesh=...)``:
   MoE's capacity at E / k (nothing dropped), in bfloat16 and in float32
   compute over the same weights, at the first 4, 12, 24 and all 48
   layers (`DEPTHS`).
+* ``prefill``: ``full``'s ``prefill_32k`` alone.
 * ``period``: llama4-scout at one pattern period (4 layers), its
   ``init_args`` shards (the unsharded init, cut): ``prefill_32k`` at one
   sequence a data rank and ``decode_32k`` at batch 8 over a seeded random
@@ -247,11 +248,18 @@ def within(a: dict) -> bool:
     return a["rel"] <= BOUND and a.get("top1", 1.0) >= TOP1
 
 
-def part_full(run: Run) -> dict:
-    """llama4 at full depth: prefill_32k and decode_32k timed, and decode
-    against a longer prefill."""
+def part_prefill(run: Run) -> dict:
+    """llama4 at full depth: prefill_32k alone, timed."""
+    rec = {"part": "prefill", "arch": LLAMA4}
+    full_prefill(run, rec)
+    return rec
+
+
+def full_prefill(run: Run, rec: dict) -> tuple:
+    """llama4 at full depth, its weights seeded a block at a time, and
+    prefill_32k at one sequence a data rank timed after a warm-up, into
+    ``rec``; returns (the weights, the config)."""
     z, dp = run.size, run.shape[0]
-    rec = {"part": "full", "arch": LLAMA4}
     pre = run.step(LLAMA4, "prefill_32k", z["layers"], batch=dp)
     cfg = run.cfg(LLAMA4, "prefill_32k", z["layers"])
     run.reset_peak()
@@ -269,7 +277,15 @@ def part_full(run: Run) -> dict:
                prefill_tokens_per_s=dp * s_full / (ms / 1e3),
                prefill_finite=bool(torch.isfinite(logits).all()),
                prefill_peak_gb=run.peaks())
-    del logits, cache
+    return params, cfg
+
+
+def part_full(run: Run) -> dict:
+    """llama4 at full depth: prefill_32k and decode_32k timed, and decode
+    against a longer prefill."""
+    z, dp = run.size, run.shape[0]
+    rec = {"part": "full", "arch": LLAMA4}
+    params, cfg = full_prefill(run, rec)
     b = z["decode_batch"]
     dec = run.step(LLAMA4, "decode_32k", z["layers"], batch=b)
     s_dec = 32 if run.reduced else \
@@ -608,13 +624,14 @@ def part_long(run: Run) -> dict:
     return rec
 
 
-PARTS = {"full": part_full, "period": part_period,
+PARTS = {"full": part_full, "prefill": part_prefill, "period": part_period,
          "nemotron": part_nemotron, "long": part_long}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parts", nargs="+", default=list(PARTS))
+    ap.add_argument("--parts", nargs="+",
+                    default=["full", "period", "nemotron", "long"])
     ap.add_argument("--meshes", nargs="+", default=["1x4", "2x2"])
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

@@ -26,8 +26,9 @@ own card and, for each mesh (data x model):
 * ``gat``: ``gat-cora`` ``ogb_products`` (2,449,029 nodes, 64,308,169
   edges with the self loops): every rank runs the unsharded step on the
   whole graph from the seeded init (its loss, gradient norm and updated
-  parameters), then the sharded step (the edges over the data ranks)
-  from the same init and batch, one untimed and ``--steps`` timed.
+  parameters), then the sharded step (the edges over the data ranks, and
+  between layers its block of the padded node rows) from the same init
+  and batch, one untimed and ``--steps`` timed.
 
 Rank 0 prints one JSON line per part and mesh: the step times, every
 card's peak memory, the losses beside the one-card ones and their
@@ -232,6 +233,8 @@ def gat(shape: tuple, n_steps: int, run: Run, reduced: bool) -> dict:
             times.append(ms)
     rec = {"part": "gat", "cell": cell, "mesh": list(shape),
            "local_edges": int(batch["src"].shape[0]),
+           # the padded node rows between layers, over the data ranks
+           "local_node_rows": int(batch["x"].shape[0]) // shape[0],
            "one_card": want, "one_card_step_ms": one_ms,
            "metrics": metrics,
            "first_loss_rel": rel(metrics[0]["loss"], want["loss"]),

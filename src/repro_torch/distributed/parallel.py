@@ -17,19 +17,34 @@ axes ("data", "model") or ("pod", "data", "model").
   Leaves not split over the data axes (the norms, MLA's ``wq_b`` and
   ``wkv_b``) get a partial gradient on each data rank, summed once after
   the backward (`ParallelContext.sum_replicated_grads`).
-* **Tensor parallelism over "model"** (Megatron): a column-parallel
-  product's input passes `copy_to_model` (identity; its backward sums the
-  input's gradient over "model"), a row-parallel product's output is
-  partial and is summed over "model" where the model constrains it to
-  ``act_btd`` (`reduce_from_model`; identity backward).  The embedding
-  rows and the head's columns are split over "model" too: a rank looks up
-  the tokens of its vocabulary range (zero elsewhere, summed at
-  ``act_btd``), and the cross-entropy's log-sum-exp and label logit are
-  reduced over "model" (`ParallelContext.xent_chunk`).  The MoE router is
-  gathered whole (the routing is complete before the softmax and top-k on
-  every model rank; its gradient, the same on each, is cut back to the
-  shard); each model rank runs its own experts' capacity slots and the
-  partial outputs are summed at ``act_btd``.
+* **Tensor and sequence parallelism over "model"** (Megatron with
+  sequence parallelism, the reference's ``act_btd`` = (dp, "model",
+  None)): between layers a rank holds ``(B / dp, S / tp, d)``, its
+  contiguous block of the sequence in the order of the "model" ranks.
+  The norms run on the block; the input of each column-parallel product
+  is the sequence gathered over "model" (`gather_seq`: all-gather along
+  S, its backward reduce-scatters the ranks' partial gradients), and a
+  row-parallel product's partial output is reduce-scattered back into
+  the blocks where the model constrains it to ``act_btd``
+  (`ParallelContext.scatter_seq`; its backward all-gathers).  The
+  embedding rows and the head's columns are split over "model" too: a
+  rank looks up every token of its vocabulary range (zero elsewhere,
+  reduce-scattered at ``act_btd``), and the cross-entropy gathers the
+  sequence and reduces its log-sum-exp and label logit over "model"
+  (`ParallelContext.xent_chunk`); a prefill gathers its last token's row
+  (`ParallelContext.last_token`).  The leaves replicated over "model"
+  (the norms, MLA's ``wq_a``/``wkv_a``, applied to the rank's block) get
+  a partial gradient on each model rank, summed after the backward
+  (`ParallelContext.sum_replicated_grads`).  The MoE routes the rank's
+  block with the router whole (its logits gathered, their gradient the
+  same on every rank; the router's own gradient reduce-scattered over
+  "model"), gathers the sequence, so that the reference's groups,
+  capacities and aux losses are unchanged, runs its own experts'
+  capacity slots and scatters its partial output at ``act_btd``.  Decode
+  steps and ``long_500k`` (one token, or tokens replicated; the
+  reference applies no ``act_btd`` rule there) keep the whole residual on
+  every model rank: the inputs pass `copy_to_model` and the partial
+  outputs are summed (`reduce_from_model`).
 * **Fewer KV heads than model ranks** (GQA, "model" a multiple of the
   KV heads): consecutive model ranks share a KV head, gathered whole over
   their run and its gradient reduce-scattered back
@@ -70,23 +85,32 @@ axes ("data", "model") or ("pod", "data", "model").
   (``layout="rows"``): a loss divides by the global count (`batch_mean`), a
   serving step gathers every row (`gather_data_rows`), a top-k merges
   the ranks' lists (`merge_top_k`).  The GAT's full-graph step holds its
-  edges over the data axes (``layout="edges"``) and every node tensor whole
-  on every data rank: the segment max is all-reduced (MAX, `edge_max`,
-  which keeps the single card's rule for the gradient of a tie), the
-  softmax denominators and the messages summed (`edge_sum`), and a node
-  tensor read by the rank's edges passes `to_edges`, whose backward sums
-  the edges' partial gradients, so that every parameter's gradient is
-  the whole one on every rank.
+  edges over the data axes (``layout="edges"``) and, between layers, its
+  block of the padded node rows (the reference's ``nodes_nd``): a layer
+  computes ``x @ w`` and the attention logits on its rows, the node
+  tensors its edges read are gathered (`to_edges`: all-gather, its
+  backward reduce-scatters the edges' partial gradients), the segment
+  max is all-reduced (MAX, `edge_max`, which keeps the single card's
+  rule for the gradient of a tie) and the softmax denominators summed
+  (`edge_sum`), both read whole by the rank's edges (`edge_whole`:
+  their backward sums the edges' partial gradients), and the messages
+  are reduce-scattered into the rank's rows (`node_scatter`); the last
+  layer's output is summed whole instead (`edge_sum`), as the reference
+  constrains only between layers.  The parameters' gradients are then
+  partial over the data ranks and summed after the backward.
 
 Every op runs its collectives on a mesh whose axes have size 1 too (each
-a copy there), except where the arithmetic would change: the
+a copy there: the sequence's and the node rows' gathers and scatters
+among them), except where the arithmetic would change: the
 cross-entropy, the sums over "model" and the serving layout's ops take
-the plain path when their group has size 1, and so do the GAT's edge
-ops and the batch means when the data axes have size 1, so a (1, 1)
-mesh is bit-equal to the unsharded step.
+the plain path when their group has size 1, and so do the GAT's
+whole-node sums and maxes and the batch means when the data axes have
+size 1, so a (1, 1) mesh is bit-equal to the unsharded step.
+`OP_COUNTS` counts the sequence's and the node rows' ops as they run.
 """
 from __future__ import annotations
 
+import collections
 import math
 import weakref
 
@@ -102,6 +126,8 @@ _VOCAB_GATHERED = {"embed": Spec("model", None), "lm_head": Spec(None, "model")}
 _WHOLE = {"router"}
 # a GQA layer's KV projections, whole heads a model rank (`replicate_kv`)
 _KV = {"wk", "wv"}
+# the sequence-parallel and node-row ops run (forward calls, by name)
+OP_COUNTS: collections.Counter = collections.Counter()
 # what the mesh cuts: "tp" the LMs' weights (Megatron over "model", ZeRO
 # over the data axes); "rows" the recsys tables' rows over "model" and the
 # batch's rows over the data axes; "edges" the full graph's edges over the
@@ -300,6 +326,43 @@ class _Gather(torch.autograd.Function):
         return g, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    """Blocks gathered along ``dim`` over ``group`` (``n`` ranks, this one
+    at ``pos``); the backward reduce-scatters the ranks' partial
+    gradients, or with ``same`` takes this rank's block of a gradient the
+    same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, pos, same):
+        ctx.args = (dim, group, n, pos, same)
+        return _all_gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, pos, same = ctx.args
+        if same:
+            b = g.shape[dim] // n
+            return g.narrow(dim, pos * b, b), None, None, None, None, None
+        return (_reduce_scatter(g, dim, group, n).contiguous(), None, None,
+                None, None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The ranks' partial sums reduce-scattered along ``dim``: this rank's
+    block of the sum, contiguous (as the unsharded tensor is, so that the
+    reductions that read it sum in its order); the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _reduce_scatter(x, dim, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.args
+        return _all_gather(g, dim, group, n), None, None, None
+
+
 class _CopyToModel(torch.autograd.Function):
     """Identity; the backward sums the gradient over "model"."""
 
@@ -331,6 +394,17 @@ class _ReduceFromModel(torch.autograd.Function):
 
 def _tensor_parallel(ctx) -> bool:
     return ctx is not None and ctx.tp_size > 1 and ctx.layout == "tp"
+
+
+def gather_seq(x):
+    """The input of a column-parallel product: under sequence parallelism
+    (`ParallelContext.seq_parallel`) the rank's block of the sequence
+    (B, S / tp, ...) gathered over "model" to (B, S, ...)
+    (`ParallelContext.gather_seq`); otherwise `copy_to_model`."""
+    ctx = current_context()
+    if ctx is not None and ctx.seq_parallel:
+        return ctx.gather_seq(x)
+    return copy_to_model(x)
 
 
 def copy_to_model(x):
@@ -413,16 +487,23 @@ class ParallelContext:
             self.tp_group, self.tp_size, self.tp_rank)
         self.tokens_replicated = False
         self.layout = layout
+        # the residual stream cut along the sequence over "model" between
+        # layers (``act_btd``): the LMs' training and prefill steps
+        self.seq_parallel = layout == "tp"
 
-    def serve_layout(self, long: bool) -> None:
+    def serve_layout(self, long: bool, prefill: bool) -> None:
         """The serving steps' layout: the cache's sequence over "model"
         and the tokens' rows over the data axes, or with ``long``
         (``long_500k``) the sequence over the data axes and "model"
-        (row-major) and the tokens replicated on every rank."""
+        (row-major) and the tokens replicated on every rank.  Only a
+        prefill of rows over the data axes cuts its residual stream along
+        the sequence (`seq_parallel`); a decode step's one token and
+        ``long_500k``'s replicated tokens stay whole."""
         if long:
             self.seq_group, self.seq_size, self.seq_pos = _groups_of(
                 self.mesh, self.dp_axes + ("model",))
         self.tokens_replicated = long
+        self.seq_parallel = prefill and not long
 
     def replicate_kv(self, n_kv_heads: int) -> None:
         """Megatron's GQA layout where "model" is wider than the KV heads
@@ -462,14 +543,44 @@ class ParallelContext:
     # ---- the model's hooks ----
     def constrain(self, x, name, spec):
         if name == "act_btd":
-            return reduce_from_model(x)
+            return (self.scatter_seq(x) if self.seq_parallel
+                    else reduce_from_model(x))
         return x
 
-    def _plan(self, storage: Spec, gathered: Spec, ndim: int) -> tuple:
+    # ---- sequence parallelism over "model" ----
+    def gather_seq(self, x, same: bool = False):
+        """The rank's block of the sequence, (B, S / tp, ...), gathered
+        over "model" to (B, S, ...); the backward reduce-scatters the
+        model ranks' partial gradients, or with ``same`` (a gradient the
+        same on every model rank) takes the rank's block."""
+        OP_COUNTS["gather_seq"] += 1
+        return _AllGather.apply(x, 1, self.tp_group, self.tp_size,
+                                self.tp_rank, same)
+
+    def scatter_seq(self, x):
+        """A row-parallel product's partial output (B, S, ...) summed over
+        "model" into the rank's block of the sequence, (B, S / tp, ...);
+        the backward all-gathers."""
+        OP_COUNTS["scatter_seq"] += 1
+        return _ReduceScatter.apply(x, 1, self.tp_group, self.tp_size)
+
+    def last_token(self, x):
+        """The last token's rows (B, d) of the residual (B, S / tp, d),
+        which the last model rank's block holds, on every rank; the whole
+        residual's last row without sequence parallelism."""
+        if not self.seq_parallel:
+            return x[:, -1, :]
+        OP_COUNTS["last_token"] += 1
+        return _all_gather(x[:, -1:, :], 1, self.tp_group,
+                           self.tp_size)[:, -1, :]
+
+    def _plan(self, storage: Spec, gathered: Spec, ndim: int,
+              model_kind: str = "same") -> tuple:
         plan = []
         for dim in range(ndim):
             keep = set(gathered.axes(dim))
-            for kind, axes in (("sum", self.dp_axes), ("same", ("model",))):
+            for kind, axes in (("sum", self.dp_axes),
+                               (model_kind, ("model",))):
                 have = tuple(a for a in storage.axes(dim) if a in axes)
                 if have and not keep & set(have):
                     group, n, pos = _groups_of(self.mesh, have)
@@ -478,14 +589,20 @@ class ParallelContext:
 
     def gather_weight(self, name, local, dtype):
         """``local`` cast to ``dtype`` and gathered to its compute layout
-        (`sharding.gathered_spec`; the router whole); a leaf without one
-        (a norm) is cast alone."""
+        (`sharding.gathered_spec`; the router whole: under sequence
+        parallelism it routes the rank's block of the sequence, so its
+        gradient is partial over "model" and reduce-scattered, else the
+        same on every model rank); a leaf without one (a norm) is cast
+        alone."""
         want = gathered_spec(name, local.ndim)
+        model_kind = "same"
         if name in _WHOLE:
             want = Spec(*(None,) * local.ndim)
+            model_kind = "sum" if self.seq_parallel else "same"
         if want is None:
             return local if dtype is None else local.to(dtype)
-        plan = self._plan(self.spec_of(name, local.ndim), want, local.ndim)
+        plan = self._plan(self.spec_of(name, local.ndim), want, local.ndim,
+                          model_kind)
         if self.kv_rep > 1 and name in _KV:
             plan += ((local.ndim - 1, self.kv_group, self.kv_rep,
                       self.kv_pos, "sum"),)
@@ -518,8 +635,9 @@ class ParallelContext:
 
     def embed(self, table, tokens):
         """The rows of this rank's vocabulary range for ``tokens`` (zero for
-        the other tokens; the sum over "model" at ``act_btd`` is the
-        lookup).  Under the recsys layout the table is not cut over the
+        the other tokens; the sum over "model" at ``act_btd``, under
+        sequence parallelism a reduce-scatter into the rank's block of
+        the sequence, is the lookup).  Under the recsys layout the table is not cut over the
         data axes and no ``act_btd`` sum follows: `vocab_rows`."""
         if self.layout != "tp":
             return self.vocab_rows(table, tokens)
@@ -693,16 +811,38 @@ class ParallelContext:
         v, pos = top_k(allv.float(), k)
         return v, alli.gather(1, pos).long()
 
+    def node_rows(self, x):
+        """The rank's block of a node tensor's (padded) rows over the data
+        ranks: the reference's ``nodes_nd``."""
+        b = _block(x.shape[0], self.dp_size, "the padded nodes")
+        return x.narrow(0, self.dp_rank * b, b)
+
+    def to_edges(self, x):
+        """A node tensor held as the rank's rows (`node_rows`), gathered
+        whole for the rank's edges to read: all-gather over the data
+        ranks; the backward reduce-scatters the edges' partial
+        gradients."""
+        OP_COUNTS["to_edges"] += 1
+        return _AllGather.apply(x, 0, self.dp_group, self.dp_size,
+                                self.dp_rank, False)
+
+    def node_scatter(self, x):
+        """The ranks' partial sums over their edges of a node tensor,
+        reduce-scattered into the rank's rows; the backward all-gathers."""
+        OP_COUNTS["node_scatter"] += 1
+        return _ReduceScatter.apply(x, 0, self.dp_group, self.dp_size)
+
     def edge_sum(self, x):
         """The ranks' partial sums over their edges of a node tensor,
         summed over the data ranks; identity backward (the result is whole
         on every rank, and so is its gradient)."""
         return _ReduceFromModel.apply(x, self.dp_group)
 
-    def to_edges(self, x):
-        """A node tensor, whole on every data rank, as the rank's edges
-        read it: identity; the backward sums the ranks' partial gradients
-        (Megatron's f over the data axes)."""
+    def edge_whole(self, x):
+        """A node tensor whole on every data rank (`edge_sum`'s,
+        `edge_max`'s) as the rank's edges read it: identity; the backward
+        sums the ranks' partial gradients (Megatron's f over the data
+        axes)."""
         return _CopyToModel.apply(x, self.dp_group)
 
     def edge_max(self, m, e, seg):
@@ -718,19 +858,30 @@ class ParallelContext:
     @torch.no_grad()
     def sum_replicated_grads(self, grads, specs):
         """Sum over the data ranks the gradients of the leaves that are not
-        split over the data axes (each rank holds its tokens' part).  A
-        sparse row gradient (`models.recsys.row_grad`) is the sum already:
-        its lookup gathered every data rank's occurrences."""
+        split over the data axes (each rank holds its tokens' part), and
+        under sequence parallelism with "model" larger than 1 over "model"
+        those not split over "model" (each model rank holds its block of
+        the sequence's part).  A sparse row gradient
+        (`models.recsys.row_grad`) is the sum already: its lookup gathered
+        every data rank's occurrences."""
+        over_model = self.seq_parallel and self.tp_size > 1
+
         def one(path, g):
             spec = _spec_at(specs, path)
             if g.is_sparse:
                 return
-            if set(self.dp_axes) <= self._replicated_over(spec, g.ndim):
-                # (an MLP weight's gradient is a transposed view)
-                t = g if g.is_contiguous() else g.contiguous()
-                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.dp_group)
-                if t is not g:
-                    g.copy_(t)
+            rep = self._replicated_over(spec, g.ndim)
+            groups = [self.dp_group] if set(self.dp_axes) <= rep else []
+            if over_model and "model" in rep:
+                groups.append(self.tp_group)
+            if not groups:
+                return
+            # (an MLP weight's gradient is a transposed view)
+            t = g if g.is_contiguous() else g.contiguous()
+            for group in groups:
+                dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            if t is not g:
+                g.copy_(t)
         _map_path(one, grads)
 
     @torch.no_grad()

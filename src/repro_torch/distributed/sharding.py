@@ -13,10 +13,10 @@ for a `DeviceMesh`.
 
 The rules name layouts; the sharded step (`distributed.parallel`) holds
 the local tensors that realise them and registers, in its context, what
-``constrain`` does at each name: the layout change a name marks (the sum
-of partial results over "model" at ``act_btd``).  A context whose mesh has
-every named axis of size 1 registers nothing, so ``constrain`` stays the
-identity there.
+``constrain`` does at each name: the layout change a name marks (at
+``act_btd`` the partial results reduce-scattered over "model" into the
+rank's block of the sequence, or, where a step keeps the residual whole,
+summed).
 
 The gnn and recsys names are realised by the local tensors themselves
 and by the context's hooks, which the models call at the reference's
@@ -33,11 +33,12 @@ and by the context's hooks, which the models call at the reference's
   item tables' candidate rows on their model ranks, the top lists merged
   (``merge_top_k``);
 * ``edges_e``, ``edges_ed`` (the GAT's edges over the data axes): the
-  rank's edges, the segment max, softmax sums and messages reduced over
-  the data ranks (``edge_max``, ``edge_sum``, ``to_edges``);
-* ``nodes_nd`` (the reference cuts the node tensors over the data axes):
-  the port keeps them whole on every data rank, as it keeps ``act_btd``
-  whole on every model rank (ROADMAP 1(b)).
+  rank's edges, the segment max and softmax sums reduced over the data
+  ranks (``edge_max``, ``edge_sum``, ``edge_whole``);
+* ``nodes_nd`` (the GAT's hidden node rows over the data axes): the
+  rank's block of the padded rows between layers (``node_rows``), the
+  rows gathered for the rank's edges (``to_edges``) and the messages
+  reduce-scattered back (``node_scatter``).
 
 ``gather_layer_params`` is ZeRO-3's gather at use: under the ``"zero3"``
 flag each weight named in `_GATHERED_2D` / `_GATHERED_3D` is gathered over

@@ -24,13 +24,14 @@ GAT's replicated leaves and each family's batch specs), and
 ``donate_argnums`` (a decode step writes its cache in place where the
 reference donates it).  With ``mesh=`` every step runs sharded
 (`distributed.parallel`): an LM's ``train_4k`` (ZeRO-3 over the data
-axes, tensor parallelism over "model") and its serving kinds (the cache
-in the reference's ``kv_cache``/``mla_cache`` layout, `lm_cache_spec`);
-the recsys steps with the tables' rows over "model" (through the
-embedding-bag kernel on the rank's block) and the batch, or the ranking
-archs' candidates, over the data axes; the GAT's with the full graph's
-edges, or the batch, over the data axes (`build_rs_step`,
-`build_gnn_step`).  The batch
+axes, tensor and sequence parallelism over "model": the reference's
+``act_btd``) and its serving kinds (the cache in the reference's
+``kv_cache``/``mla_cache`` layout, `lm_cache_spec`; a prefill's residual
+over "model" by the sequence too); the recsys steps with the tables' rows
+over "model" (through the embedding-bag kernel on the rank's block) and
+the batch, or the ranking archs' candidates, over the data axes; the
+GAT's with the full graph's edges and hidden node rows, or the batch,
+over the data axes (`build_rs_step`, `build_gnn_step`).  The batch
 or the tokens are the JAX package's numpy arrays for the same
 ``default_rng(0)``; the parameters are made on the device from a seeded
 ``torch.Generator`` (``params_from_jax`` of `models.recsys`,
@@ -83,6 +84,10 @@ class StepDef:
     in_shardings: tuple = ()    # the matching trees of Spec
     out_shardings: Any = None   # or None (no layout asked)
     donate_argnums: tuple = ()
+    # an LM's or the GAT's training step before its update: (params,
+    # batch) -> (the global loss, the gradients in params' layout, on a
+    # mesh this rank's shards of the whole gradient)
+    grad_fn: Callable | None = None
 
 
 def _path_keys(path) -> list[str]:
@@ -277,11 +282,17 @@ def _check_mesh(mesh, multi_pod: bool):
 def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
                       dp: int, tp: int) -> None:
     """What the sharded ``train_4k`` step needs of the mesh (``dp`` data
-    ranks, ``tp`` model ranks): ValueError where it does not hold."""
+    ranks, ``tp`` model ranks): the microbatch's sequences over the data
+    ranks, each sequence over "model" (sequence parallelism), the heads,
+    experts and vocabulary over "model" and the MoE groups over the data
+    ranks.  ValueError where it does not hold."""
     mb = b // accum
     if b % accum or mb % dp:
         raise ValueError(f"{dp} data ranks do not divide microbatches of "
                          f"{mb} sequences")
+    if s % tp:
+        raise ValueError(f"a sequence of {s} does not split into {tp} "
+                         "blocks over 'model'")
     _check_heads(cfg, tp)
     _check_moe_groups(cfg, mb * s, dp)
 
@@ -388,9 +399,12 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                                      mesh, multi_pod, pspec, flops, rope,
                                      shard_kw)
 
+        def grad_fn(params, batch):
+            return lm_grads(params, batch, cfg, accum,
+                            rope=rope(batch["tokens"].device))
+
         def step(params, opt_state, batch):
-            loss, grads = lm_grads(params, batch, cfg, accum,
-                                   rope=rope(batch["tokens"].device))
+            loss, grads = grad_fn(params, batch)
             gn = adamw_step_(opt, grads, opt_state, params)
             return {"loss": loss, "grad_norm": gn}
 
@@ -404,7 +418,8 @@ def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
             return params, opt.init(params), _on(dev, batch)
 
         return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
-                       model_flops=flops, init_args=init_args, **shard_kw)
+                       model_flops=flops, init_args=init_args,
+                       grad_fn=grad_fn, **shard_kw)
 
     if kind == "prefill":
         shard_kw = dict(arg_specs=(params_spec, ArgSpec((b, s), torch.int32)),
@@ -486,18 +501,22 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
     lcfg = _local_cfg(cfg, n_tp)
     rules = rules_for_family("lm", multi_pod=multi_pod)
 
-    def step(params, opt_state, batch):
+    def grad_fn(params, batch):
         with sharding_rules(rules, ctx):
             loss, grads = lm_grads(params, batch, lcfg, accum,
                                    rope=rope(batch["tokens"].device))
         ctx.sum_replicated_grads(grads, pspec)
+        return ctx.data_sum(loss), grads
+
+    def step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
         with torch.no_grad():
             gn = ctx.global_norm(grads, pspec)
             scale = _clip_scale(gn, 1.0)
             for g in tree_leaves(grads):
                 g.mul_(scale)
         opt.update_(grads, opt_state, params)
-        return {"loss": ctx.data_sum(loss), "grad_norm": gn}
+        return {"loss": loss, "grad_norm": gn}
 
     def init_args(device=None):
         dev = _registry.resolve_device(device)
@@ -513,7 +532,8 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
         return params, opt.init(params), _on(dev, batch)
 
     return StepDef(name=f"{spec.arch_id}:{shape_name}:train", fn=step,
-                   model_flops=flops, init_args=init_args, **shard_kw)
+                   model_flops=flops, init_args=init_args, grad_fn=grad_fn,
+                   **shard_kw)
 
 
 def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
@@ -538,7 +558,7 @@ def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
     dp = _dp(multi_pod)
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
-    ctx.serve_layout(long)
+    ctx.serve_layout(long, kind == "prefill")
     if cfg.mla is None:
         ctx.replicate_kv(cfg.n_kv_heads)
     lcfg = _local_cfg(cfg, n_tp)
@@ -718,11 +738,14 @@ def _split(what: str, n: int, parts: int) -> None:
 
 def check_gnn_sharding(shape: dict, dp: int) -> None:
     """What a sharded GAT step needs of the mesh: the full graph's padded
-    edges, or the batch's rows, split over the ``dp`` data ranks."""
+    edges and padded nodes, or the batch's rows, split over the ``dp``
+    data ranks."""
     kind = shape["kind"]
     if kind == "gnn_full":
         epad = -(-(shape["n_edges"] + shape["n_nodes"]) // GNN_PAD) * GNN_PAD
         _split("the padded edges", epad, dp)
+        _split("the padded nodes", -(-shape["n_nodes"] // GNN_PAD) * GNN_PAD,
+               dp)
     elif kind == "gnn_minibatch":
         _split("the batch's seed nodes", shape["batch_nodes"], dp)
     else:
@@ -731,7 +754,8 @@ def check_gnn_sharding(shape: dict, dp: int) -> None:
 
 def _gnn_local_batch(batch: dict, kind: str, pc) -> dict:
     """The rank's part of a GAT batch: the full graph's block of the edges
-    (nodes, labels and mask whole), or the batch's block of rows."""
+    (the node features, labels and mask whole: the model cuts its hidden
+    node rows itself), or the batch's block of rows."""
     from ..distributed import parallel
 
     keys = ("src", "dst", "edge_mask") if kind == "gnn_full" else tuple(batch)
@@ -750,12 +774,13 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
 
     With a ``mesh`` the parameters and their AdamW state are replicated
     on every rank (the reference's specs); ``gnn_full`` holds the rank's
-    block of the padded edges and the nodes whole, and its gradients come
-    out whole on every rank (`models.gnn.gat_layer`); ``gnn_minibatch``
-    and ``gnn_batched`` hold the rank's rows of the batch, their loss over
-    the global count and their gradients summed over the data ranks.
-    "model" replicates every rank's work.  The returned loss is the
-    global one on every rank."""
+    block of the padded edges, the input features, labels and mask whole,
+    and between layers its block of the padded node rows
+    (`models.gnn.forward_full`), its loss whole on every rank;
+    ``gnn_minibatch`` and ``gnn_batched`` hold the rank's rows of the
+    batch, their loss over the global count.  The gradients are summed
+    over the data ranks.  "model" replicates every rank's work.  The
+    returned loss is the global one on every rank."""
     cfg = spec.make_config(shape_name, reduced)
     shape = dict(spec.shapes[shape_name])
     if shape_override:
@@ -780,16 +805,16 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                                "edges" if kind == "gnn_full" else "rows")
         rules = rules_for_family("gnn", multi_pod=multi_pod)
 
-    def step(params, opt_state, batch):
+    def grad_fn(params, batch):
         if pc is None:
+            return gnn_mod.value_and_grad(loss_f, params, batch, cfg)
+        with sharding_rules(rules, pc):
             loss, grads = gnn_mod.value_and_grad(loss_f, params, batch, cfg)
-        else:
-            with sharding_rules(rules, pc):
-                loss, grads = gnn_mod.value_and_grad(loss_f, params, batch,
-                                                     cfg)
-            if pc.layout == "rows":
-                pc.sum_replicated_grads(grads, pspec)
-                loss = pc.data_sum(loss)
+        pc.sum_replicated_grads(grads, pspec)
+        return (pc.data_sum(loss) if pc.layout == "rows" else loss), grads
+
+    def step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
         gn = adamw_step_(opt, grads, opt_state, params)
         return {"loss": loss, "grad_norm": gn}
 
@@ -810,7 +835,8 @@ def build_gnn_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
                    arg_specs=(arg_specs_of(meta), arg_specs_of(meta_state),
                               batch_spec),
                    in_shardings=(pspec, ospec, bspec),
-                   out_shardings=(pspec, ospec, None), donate_argnums=(0, 1))
+                   out_shardings=(pspec, ospec, None), donate_argnums=(0, 1),
+                   grad_fn=grad_fn)
 
 
 # --------------------------------------------------------------------------- #

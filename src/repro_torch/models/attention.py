@@ -29,11 +29,14 @@ dicts of tensors, the JAX pytree's layout.
 
 The sharding hooks sit where the reference's are: ``constrain`` of the
 queries (``act_bthd``) and the scores (``attn_scores``), and, for tensor
-parallelism, `copy_to_model` at the input of each column-parallel product
+parallelism, `gather_seq` at the input of each column-parallel product
 (the heads' projections: GQA's input; MLA's normalised latents and the
-shared RoPE key).  Under tensor parallelism the caller passes this rank's
-head counts and its heads' weights, and the output projection's result is
-the rank's partial sum.
+shared RoPE key), which under sequence parallelism gathers the rank's
+block of the sequence (MLA's replicated ``wq_a``/``wkv_a`` and their
+norms run on the block, so the narrow latents are gathered, not ``x``)
+and otherwise is `copy_to_model`.  Under tensor parallelism the caller
+passes this rank's head counts and its heads' weights, and the output
+projection's result is the rank's partial sum over the whole sequence.
 
 A decode step under a context whose cache is cut along the sequence
 (`distributed.parallel.ParallelContext.serve_layout`) holds this rank's
@@ -53,7 +56,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.parallel import copy_to_model
+from ..distributed.parallel import gather_seq
 from ..distributed.sharding import constrain, current_context, scoped
 from .layers import apply_rope, rms_norm, uniform_init
 
@@ -208,9 +211,11 @@ def local_chunked_attention(q, k, v, *, window: int, scale):
 # --------------------------------------------------------------------------- #
 def gqa_forward(p, x, cos, sin, positions, *, n_heads, n_kv_heads, head_dim,
                 causal=True, chunk_q=None, local_window=None, use_rope=True):
-    """x: (B, S, d) -> (out (B, S, d), (k, v) after RoPE)."""
+    """x: (B, S, d) -> (out (B, S, d), (k, v) after RoPE); under sequence
+    parallelism x is the rank's block (B, S / tp, d) and the rest over the
+    whole sequence."""
+    x = gather_seq(x)
     b, s, _ = x.shape
-    x = copy_to_model(x)
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
@@ -319,31 +324,36 @@ class MLADims:
 
 
 def _mla_qkv(p, x, cos, sin, positions, md: MLADims):
-    b, s, _ = x.shape
+    """(q_nope, q_pe, c_kv, k_pe) of x (B, S, d); the latents pass
+    `gather_seq` after their norms (under sequence parallelism x is the
+    rank's block of the sequence and the outputs are whole)."""
     h, dn, dr = md.n_heads, md.qk_nope, md.qk_rope
-    q = copy_to_model(rms_norm(x @ p["wq_a"], p["q_norm"])) @ p["wq_b"]
+    q = gather_seq(rms_norm(x @ p["wq_a"], p["q_norm"])) @ p["wq_b"]
+    b, s = q.shape[:2]
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cos, sin)
     kv_a = x @ p["wkv_a"]
-    c_kv = rms_norm(kv_a[..., :md.kv_lora], p["kv_norm"])      # (b, s, r)
-    k_pe = apply_rope(kv_a[..., md.kv_lora:][:, :, None, :], positions, cos,
-                      sin)
+    c_kv = gather_seq(rms_norm(kv_a[..., :md.kv_lora],
+                               p["kv_norm"]))                  # (b, s, r)
+    k_pe = apply_rope(gather_seq(kv_a[..., md.kv_lora:])[:, :, None, :],
+                      positions, cos, sin)
     return q_nope, q_pe, c_kv, k_pe[:, :, 0, :]
 
 
 def mla_forward(p, x, cos, sin, positions, md: MLADims, *, causal=True,
                 chunk_q=None):
-    """x: (B, S, d) -> (out (B, S, d), (c_kv (B, S, r), k_pe (B, S, dr)))."""
-    b, s, _ = x.shape
+    """x: (B, S, d) -> (out (B, S, d), (c_kv (B, S, r), k_pe (B, S, dr)));
+    under sequence parallelism x is the rank's block (B, S / tp, d) and
+    the rest over the whole sequence."""
     h, dn, dr, dv = md.n_heads, md.qk_nope, md.qk_rope, md.v_head
     q_nope, q_pe, c_kv, k_pe = _mla_qkv(p, x, cos, sin, positions, md)
-    kv = (copy_to_model(c_kv) @ p["wkv_b"]).reshape(b, s, h, dn + dv)
+    b, s = c_kv.shape[:2]
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     # the shared RoPE part of k broadcast over the heads
     q = constrain(torch.cat([q_nope, q_pe], dim=-1), "act_bthd")
-    k = torch.cat([k_nope, copy_to_model(k_pe)[:, :, None, :].expand(
-        b, s, h, dr)], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     scale = softmax_scale(dn + dr, x.dtype)
     out = full_attention(q, k, v, causal=causal, scale=scale, chunk_q=chunk_q)
     return out.reshape(b, s, h * dv) @ p["wo"], (c_kv, k_pe)

@@ -30,14 +30,18 @@ across).
 In the sharded step (`launch.steps.build_step(..., mesh=...)`, under a
 `distributed.parallel.ParallelContext`) the parameters are replicated.
 The full-graph regime holds the rank's block of the edges (the
-reference's ``edges_e``) and every node tensor whole on every data rank
-(the reference cuts them, ``nodes_nd``; the port keeps ``x @ w`` whole, as
-it keeps ``act_btd``, ROADMAP 1(b)): each rank scores its edges, the
-segment max is all-reduced (MAX) over the data ranks, the exponentials
-taken, the denominators summed, then the aggregated messages summed
-(`gat_layer`); every parameter's gradient is then the whole one on every
-rank.  The minibatch and batched regimes hold the rank's rows of the
-batch, and their losses divide by the global count.
+reference's ``edges_e``) and, between layers, its block of the padded
+node rows (``nodes_nd``; the input features, labels and mask whole): a
+layer computes ``x @ w`` and the attention logits on its rows, gathers
+them whole for its edges (`ParallelContext.to_edges`), scores its edges,
+all-reduces the segment max (MAX) over the data ranks, takes the
+exponentials, sums the denominators, and reduce-scatters the aggregated
+messages into its rows (`ParallelContext.node_scatter`); the last layer
+sums them whole instead, so the loss is whole on every rank (`gat_layer`,
+`forward_full`).  The minibatch and batched regimes hold the rank's rows
+of the batch, and their losses divide by the global count.  Every
+parameter's gradient is then partial over the data ranks and summed
+after the backward.
 """
 from __future__ import annotations
 
@@ -177,55 +181,72 @@ def edge_aggregate(alpha, h, src, dst, n: int):
 # --------------------------------------------------------------------------- #
 # Full-graph regime                                                            #
 # --------------------------------------------------------------------------- #
-def _edge_ops():
-    """(to_edges, the max of the ranks' segment maxes, the sum of the
-    ranks' node partials): the data ranks' ops where the sharded
-    full-graph step splits the edges over more than one data rank,
-    identities otherwise."""
+def _node_context():
+    """The sharded full-graph step's context (``layout="edges"``), or
+    None."""
     pc = current_context()
-    if pc is None or pc.layout != "edges" or pc.dp_size == 1:
+    return pc if pc is not None and pc.layout == "edges" else None
+
+
+def _whole_ops(pc):
+    """(a whole node tensor as the rank's edges read it, the max of the
+    ranks' segment maxes, the sum of the ranks' node partials): the data
+    ranks' ops where the edges are split over more than one data rank,
+    identities otherwise."""
+    if pc is None or pc.dp_size == 1:
         return (lambda t: t), (lambda m, e, seg: m), (lambda t: t)
-    return pc.to_edges, pc.edge_max, pc.edge_sum
+    return pc.edge_whole, pc.edge_max, pc.edge_sum
 
 
 def gat_layer(p, x, src, dst, n_nodes: int, *, n_heads: int, d_head: int,
-              slope: float, concat: bool, edge_mask=None):
+              slope: float, concat: bool, edge_mask=None,
+              out_rows: bool = False):
     """One GAT layer: SDDMM -> segment softmax -> scatter sum.
 
     x: (N, d); src/dst: (E,) int64, self-loops included by the caller;
     edge_mask: optional (E,) bool, False on padded edges.  In the sharded
-    full-graph step the edges are the rank's block, and each node tensor
-    an edge reads passes `ParallelContext.to_edges` (`_edge_ops`)."""
-    to_edges, max_over, node_sum = _edge_ops()
+    full-graph step the edges are the rank's block and x the rank's rows
+    of the N nodes: ``x @ w`` and the logits are gathered whole for the
+    edges (`ParallelContext.to_edges`), and the output is the rank's rows
+    (``out_rows``, `ParallelContext.node_scatter`) or whole on every
+    rank."""
+    pc = _node_context()
+    read, max_over, node_sum = _whole_ops(pc)
     h = (x @ p["w"]).reshape(x.shape[0], n_heads, d_head)      # (N, H, dh)
-    es = to_edges(torch.einsum("nhd,hd->nh", h, p["a_src"]))[src]  # (E, H)
-    ed = to_edges(torch.einsum("nhd,hd->nh", h, p["a_dst"]))[dst]
-    e = leaky_relu(es + ed, slope)
+    es = torch.einsum("nhd,hd->nh", h, p["a_src"])
+    ed = torch.einsum("nhd,hd->nh", h, p["a_dst"])
+    if pc is not None:
+        h, es, ed = pc.to_edges(h), pc.to_edges(es), pc.to_edges(ed)
+    e = leaky_relu(es[src] + ed[dst], slope)                   # (E, H)
     if edge_mask is not None:
         e = torch.where(edge_mask[:, None], e, PAD_SCORE)
     m = max_over(segment_max(e, dst, n_nodes), e, dst)          # (N, H)
     m = torch.where(torch.isfinite(m), m, 0.0)
-    ex = torch.exp(e - to_edges(m)[dst])
+    ex = torch.exp(e - read(m)[dst])
     if edge_mask is not None:
         ex = torch.where(edge_mask[:, None], ex, 0.0)
     denom = node_sum(segment_sum(ex, dst, n_nodes))             # (N, H)
-    alpha = ex / torch.clamp_min(to_edges(denom)[dst], 1e-9)
-    out = node_sum(edge_aggregate(alpha, to_edges(h), src, dst,
-                                  n_nodes))                     # (N, H, dh)
+    alpha = ex / torch.clamp_min(read(denom)[dst], 1e-9)
+    out = edge_aggregate(alpha, h, src, dst, n_nodes)           # (N, H, dh)
+    out = pc.node_scatter(out) if pc is not None and out_rows \
+        else node_sum(out)
     if concat:
-        return out.reshape(n_nodes, n_heads * d_head)
+        return out.reshape(out.shape[0], n_heads * d_head)
     return out.mean(dim=1)
 
 
 def forward_full(params, x, src, dst, cfg: GATConfig, edge_mask=None):
-    """Full-graph forward -> (N, n_classes) logits."""
+    """Full-graph forward -> (N, n_classes) logits.  In the sharded step
+    the hidden state between layers is the rank's rows of the padded
+    nodes (the reference's ``nodes_nd``), the logits whole."""
     n = x.shape[0]
     src, dst = src.long(), dst.long()
-    h = x
+    pc = _node_context()
+    h = x if pc is None else pc.node_rows(x)
     for lp in params["layers"][:-1]:
         h = elu(gat_layer(lp, h, src, dst, n, n_heads=cfg.n_heads,
                           d_head=cfg.d_hidden, slope=cfg.negative_slope,
-                          concat=True, edge_mask=edge_mask))
+                          concat=True, edge_mask=edge_mask, out_rows=True))
     return gat_layer(params["layers"][-1], h, src, dst, n, n_heads=1,
                      d_head=cfg.n_classes, slope=cfg.negative_slope,
                      concat=False, edge_mask=edge_mask)

@@ -21,7 +21,13 @@ holding their share of the groups (an aux value is then the rank's part
 of the global mean), and under tensor parallelism a rank holds the
 experts of its block: it routes every token (the router whole), fills
 and runs its own experts' capacity slots and returns its partial combined
-output, which the caller sums over "model" (``act_btd``).
+output, which the caller sums over "model" (``act_btd``).  Under sequence
+parallelism the input is the rank's block of the sequence, (B, S / tp,
+d): the rank computes its block's router logits and gathers them (their
+gradient is the same on every model rank), then gathers the sequence
+(the reference's ``moe_gtd``: a group's tokens whole over "model"), so
+that the groups, capacities, routing and aux losses are the unsharded
+ones, and returns its partial output over the whole sequence.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import math
 
 import torch
 
-from ..distributed.parallel import copy_to_model
+from ..distributed.parallel import copy_to_model, gather_seq
 from ..distributed.sharding import constrain, current_context
 from ..utils import top_k
 from .layers import ACTIVATIONS, uniform_init
@@ -76,9 +82,20 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 
 def moe_apply(p, x, cfg: MoEConfig):
-    """x: (T, d) -> (y (T, d), aux {load_balance, z_loss, dropped_frac})."""
-    t, d = x.shape
+    """x: (..., d) -> (y (..., d), aux {load_balance, z_loss,
+    dropped_frac}), the tokens in x's order; under sequence parallelism x
+    is the rank's block of the sequence, (B, S / tp, d), and y is over the
+    whole sequence, (B, S, d)."""
+    d = x.shape[-1]
     ctx = current_context()
+    logits = None
+    if ctx is not None and ctx.seq_parallel:
+        # the router in float32 (a bfloat16 router promoted, as in JAX)
+        logits = ctx.gather_seq(x.float() @ p["router"].float(), same=True)
+        x = ctx.gather_seq(x)
+    shape = x.shape
+    x = x.reshape(-1, d)
+    t = x.shape[0]
     if ctx is None:
         g, share = math.gcd(t, max(cfg.dispatch_groups, 1)), 1.0
         experts = (0, cfg.n_experts)
@@ -86,18 +103,23 @@ def moe_apply(p, x, cfg: MoEConfig):
         g, share = ctx.moe_groups(t, cfg.dispatch_groups)
         experts = ctx.local_experts(cfg.n_experts)
     xg = constrain(x.reshape(g, t // g, d), "moe_gtd")
-    y, aux = _moe_apply_groups(p, xg, cfg, experts)
+    if logits is not None:
+        logits = logits.reshape(g, t // g, -1)
+    y, aux = _moe_apply_groups(p, xg, cfg, experts, logits)
     y = constrain(y, "moe_gtd")
     aux = {k: v.mean() for k, v in aux.items()}
     if share != 1.0:
         aux = {k: v * share for k, v in aux.items()}
-    return y.reshape(t, d), aux
+    return y.reshape(shape), aux
 
 
-def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple):
+def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple, logits=None):
     """The reference's ``_moe_apply_group`` on each of the G groups of
     x: (G, t, d) -> (y (G, t, d), aux values (G,)).  ``experts`` = (first,
-    count): the experts whose weights ``p`` holds; the output is theirs."""
+    count): the experts whose weights ``p`` holds; the output is theirs.
+    ``logits``: the router's (G, t, E), given where x is the gathered
+    sequence (`moe_apply`), whose backward sums the model ranks' partial
+    gradients already; else computed here and x passes `copy_to_model`."""
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     lo, el = experts
@@ -107,8 +129,10 @@ def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple):
     dev = x.device
     gi = torch.arange(g, device=dev)[:, None]
 
-    # the router in float32 (a bfloat16 router promoted, as in JAX)
-    logits = x.float() @ p["router"].float()                 # (G, t, E)
+    if logits is None:
+        # the router in float32 (a bfloat16 router promoted, as in JAX)
+        logits = x.float() @ p["router"].float()             # (G, t, E)
+        x = copy_to_model(x)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = top_k(probs.reshape(g * t, e), k)
     topv, topi = topv.reshape(g, t, k), topi.reshape(g, t, k)
@@ -129,7 +153,7 @@ def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple):
 
     # gather dispatch: slot (e, c) takes sorted position starts[e] + c,
     # for this rank's experts [lo, lo + el)
-    xb = copy_to_model(x)
+    xb = x
     cgrid = torch.arange(c, device=dev)
     slot_pos = starts[:, lo:lo + el, None] + cgrid           # (G, el, C)
     slot_valid = (cgrid < counts[:, lo:lo + el, None]) & (slot_pos < n)

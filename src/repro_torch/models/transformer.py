@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.parallel import copy_to_model
+from ..distributed.parallel import gather_seq
 from ..distributed.sharding import (constrain, current_context,
                                     gather_layer_params, scoped)
 from ..kernels import registry as _registry
@@ -218,13 +218,13 @@ def train_view(params, grads, cfg: TransformerConfig) -> dict:
 def ffn_apply(lp, x, cfg: TransformerConfig):
     """The FFN over x: (..., d) -> (y, MoE aux values or None).  Under
     tensor parallelism y is this rank's partial sum (its FFN columns or
-    experts), which the caller constrains to ``act_btd``."""
+    experts), which the caller constrains to ``act_btd``; under sequence
+    parallelism x is the rank's block of the sequence, (B, S / tp, d), and
+    y is over the whole sequence, (B, S, d)."""
     if cfg.moe is not None:
-        d = x.shape[-1]
-        y, aux = moe_apply(lp, x.reshape(-1, d), cfg.moe)
-        return y.reshape(x.shape), aux
+        return moe_apply(lp, x, cfg.moe)
     act = ACTIVATIONS[cfg.act]
-    x = copy_to_model(x)
+    x = gather_seq(x)
     h = constrain(x @ lp["w1"], "act_btf")
     h = act(h) * (x @ lp["w3"]) if cfg.gated_ffn else act(h)
     return h @ lp["w2"], None
@@ -263,7 +263,8 @@ def _group_apply(gp, x, aux_acc, cos, sin, positions,
     in the sharded step gathered, `gather_layer_params`), so that under a
     checkpoint the cast is recomputed, not kept.  The attention's and the
     FFN's outputs are constrained to ``act_btd`` (in the sharded step: the
-    sum of the model ranks' partial outputs)."""
+    model ranks' partial outputs summed into the rank's block of the
+    sequence, which is what ``x`` holds)."""
     for j, kind in enumerate(cfg.layer_pattern):
         lp = gather_layer_params(tree_map(lambda a: a[j], gp), cfg.dtype)
         h = rms_norm(x, lp["attn_norm"])
@@ -280,7 +281,9 @@ def _group_apply(gp, x, aux_acc, cos, sin, positions,
 
 def forward(params, tokens, cfg: TransformerConfig, positions=None, *,
             rope=None):
-    """tokens: (B, S) -> final hidden (B, S, d), total aux loss (scalar)."""
+    """tokens: (B, S) -> final hidden (B, S, d), total aux loss (scalar).
+    Under sequence parallelism the hidden is the rank's block of the
+    sequence, (B, S / tp, d)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -313,21 +316,23 @@ def lm_loss(params, hidden, labels, cfg: TransformerConfig):
     """Mean cross-entropy over the labels >= 0, in chunks of
     ``cfg.xent_chunk`` tokens (each under a checkpoint in a backward, so
     one chunk's (chunk, V) logits are held at a time), summed in chunk
-    order, as the reference's scan.  In the sharded step the head's columns
+    order, as the reference's scan.  In the sharded step the hidden rows
+    are the rank's block of the sequence, gathered whole (the reference's
+    ``logits``: every token, a slice of the vocabulary), the head's columns
     are the rank's vocabulary range (`ParallelContext.xent_chunk`) and the
     mean divides by the label count of every data rank's tokens."""
-    b, s, d = hidden.shape
-    h = hidden.reshape(b * s, d)
-    y = labels.reshape(b * s)
     ctx = current_context()
     xent = _xent_chunk
     if ctx is None:
         w = params["lm_head"].to(cfg.dtype)
     else:
         w = ctx.gather_vocab("lm_head", params["lm_head"], cfg.dtype)
-        h = copy_to_model(h)
+        hidden = gather_seq(hidden)
         if ctx.tp_size > 1:
             xent = ctx.xent_chunk
+    b, s, d = hidden.shape
+    h = hidden.reshape(b * s, d)
+    y = labels.reshape(b * s)
     t, ck = b * s, cfg.xent_chunk
     if ck is None or ck >= t:
         tot, cnt = xent(h, y, w)
@@ -387,8 +392,11 @@ def _head(params, x, cfg: TransformerConfig):
 def prefill(params, tokens, cfg: TransformerConfig,
             cache_dtype=torch.bfloat16, *, rope=None):
     """Run the prompt; returns (last-token logits (B, V), cache over S).
-    In the sharded step the cache is the rank's block of the decode layout
-    (`ParallelContext.cache_block`)."""
+    In the sharded step the residual stream is the rank's block of the
+    sequence (the attention's K and V come from the gathered sequence),
+    the cache the rank's block of the decode layout
+    (`ParallelContext.cache_block`), and the last token's row reaches
+    every rank (`ParallelContext.last_token`)."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     ctx = current_context()
@@ -410,7 +418,8 @@ def prefill(params, tokens, cfg: TransformerConfig,
         y, _ = ffn_apply(lp["ffn"], rms_norm(x, lp["ffn_norm"]), cfg)
         x = x + constrain(y, "act_btd")
     x = rms_norm(x, params["final_norm"].to(cfg.dtype))
-    return _head(params, x[:, -1, :], cfg), cache
+    last = x[:, -1, :] if ctx is None else ctx.last_token(x)
+    return _head(params, last, cfg), cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: TransformerConfig, *,

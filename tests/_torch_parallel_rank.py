@@ -12,8 +12,13 @@ JAX package's init, written by the test) cut into this rank's shards,
 three steps, and the state gathered back.  Rank 0 writes
 ``DIR/<case>_torch.npz``: each step's loss and gradient norm, the
 gathered parameters and AdamW moments (keys: tree paths joined by "/"),
-and, on a one-rank mesh, whether every step and leaf was bit-equal to the
-unsharded step's.  Imports no JAX.
+the shapes of the residual stream between layers (every pattern group's
+input and output) in the sharded steps, ``residual``, as rows, and, on a
+one-rank mesh, whether every step and leaf was bit-equal to the
+unsharded step's.  A case with ``"norm_grads"`` also writes the sharded
+step's gradient (``StepDef.grad_fn``) of the starting parameters with
+respect to the norms (``grad/<path>``: every rank holds them whole).
+Imports no JAX.
 """
 import json
 import sys
@@ -29,6 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.distributed import parallel  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map_with_path  # noqa: E402
 
 STEPS = 3
@@ -37,6 +43,21 @@ STEPS = 3
 FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
           "vocab", "mla", "moe", "local_window")
 ACCUM_SHAPE = {"seq_len": 32, "global_batch": 8}
+# the norms' leaves (MLA's latent norms too), replicated over "model"
+NORMS = ("attn_norm", "ffn_norm", "final_norm", "q_norm", "kv_norm")
+# the residual stream's shapes at each pattern group's input and output
+RESIDUAL: list = []
+
+
+def _recording(group_apply):
+    def run(gp, x, *args):
+        out = group_apply(gp, x, *args)
+        RESIDUAL.extend([tuple(x.shape), tuple(out[0].shape)])
+        return out
+    return run
+
+
+tf._group_apply = _recording(tf._group_apply)
 
 
 def step_kwargs(case: dict) -> dict:
@@ -104,11 +125,18 @@ def run_case(case: dict, d: Path, rank: int) -> None:
     with torch.no_grad():
         for p, s in zip(tree_leaves(params), tree_leaves(shards)):
             p.copy_(s)
+    if case.get("norm_grads"):
+        _, grads = sd.grad_fn(params, batch)
+        tree_map_with_path(lambda p, g: out.__setitem__(
+            "grad/" + key(p), g.numpy().copy()) if p[-1] in NORMS else None,
+            grads)
     losses, norms = [], []
+    RESIDUAL.clear()
     for _ in range(STEPS):
         m = sd.fn(params, state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+    out["residual"] = np.asarray(sorted(set(RESIDUAL)))
     out["loss"], out["grad_norm"] = np.asarray(losses), np.asarray(norms)
     gp = parallel.gather_tree(params, pspec, mesh)
     gmu = parallel.gather_tree(state["mu"], ospec["mu"], mesh)

@@ -14,7 +14,10 @@ shards,
 
 * a training cell: three steps on the step's own batch, each step's
   metrics, then the gathered parameters and optimizer state (flattened as
-  `ft.checkpoint` flattens a tree: dict keys sorted);
+  `ft.checkpoint` flattens a tree: dict keys sorted); a full-graph GAT
+  cell first takes the step's gradient of the starting parameters
+  (``StepDef.grad_fn``: ``loss0`` and ``gparams_<i>``) and records each
+  layer's hidden node rows a rank, in and out (``rows``);
 * a serving cell: the whole batch's outputs;
 * a retrieval cell: the top-100 values and indices.
 
@@ -52,6 +55,19 @@ from repro_torch.models import gnn, recsys  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 TRAIN_STEPS = 3
+# (node rows in, node rows out) of each full-graph GAT layer called
+LAYER_ROWS: list = []
+
+
+def _recording(layer):
+    def run(p, x, *args, **kwargs):
+        out = layer(p, x, *args, **kwargs)
+        LAYER_ROWS.append((x.shape[0], out.shape[0]))
+        return out
+    return run
+
+
+gnn.gat_layer = _recording(gnn.gat_layer)
 # the widened DLRM: wide enough that rs_param_spec cuts its MLP weights
 WIDE_DLRM = {"bot_mlp": (256, 16), "top_mlp": (256, 1)}
 
@@ -240,6 +256,11 @@ def main_case(case: dict, d: Path, mesh) -> dict:
         out["cut"] = np.asarray([
             tuple(lin.weight.shape) != (lin.out_features, lin.in_features)
             for lin in model.top.layers])
+    if shape == "full_graph_sm":
+        LAYER_ROWS.clear()
+        loss, grads = sd.grad_fn(model, args[2])
+        out["rows"] = np.asarray(sorted(set(LAYER_ROWS)))
+        out.update(arrays({"loss0": loss, "gparams": grads}))
     got = gathered(run(sd, model, args[1:]), sd, mesh)
     if mesh.mesh.numel() == 1 or case.get("wide"):
         want = run(plain, from_jax(case, d), fargs[1:])

@@ -1406,3 +1406,45 @@ def test_cuda_recsys_and_gat_on_a_one_rank_mesh_are_bit_equal(card,
         torch.use_deterministic_algorithms(False)
         torch.backends.cuda.matmul.allow_tf32 = tf32
         dist.destroy_process_group()
+
+
+def test_cuda_sequence_and_node_row_ops_on_a_one_rank_mesh(card, tmp_path):
+    """The reference's sequence-parallel ``act_btd`` (the LMs' training and
+    prefill steps) and the GAT's hidden node rows on a (1, 1) NCCL mesh:
+    their gathers and scatters run (each a copy through NCCL) and the
+    gradients and the prefill's logits and cache equal the unsharded
+    steps' on the card bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import parallel
+    from repro_torch.launch import mesh as tmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = tmesh.make_host_mesh()
+        parallel.OP_COUNTS.clear()
+        for arch, shape in (("minicpm3-4b", "train_4k"),
+                            ("qwen3-moe-235b-a22b", "train_4k"),
+                            ("nemotron-4-15b", "prefill_32k"),
+                            ("gat-cora", "full_graph_sm")):
+            sd = tsteps.build_step(arch, shape, reduced=True, mesh=mesh)
+            plain = tsteps.build_step(arch, shape, reduced=True)
+            args, want_args = sd.init_args(), plain.init_args()
+            if shape == "prefill_32k":
+                got, want = sd.fn(*args), plain.fn(*want_args)
+            else:
+                got = sd.grad_fn(args[0], args[-1])
+                want = plain.grad_fn(want_args[0], want_args[-1])
+            for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                assert g.is_cuda and torch.equal(g, w), (arch, shape)
+        for op in ("gather_seq", "scatter_seq", "last_token", "to_edges",
+                   "node_scatter"):
+            assert parallel.OP_COUNTS[op] > 0, op
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        dist.destroy_process_group()

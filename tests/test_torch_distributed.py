@@ -383,8 +383,9 @@ def test_step_layouts_equal_the_reference(arch, multi_pod):
 class _CountingContext:
     """A one-device context that counts the layer gathers it is asked for
     (what `parallel.ParallelContext` does with them is tested in
-    `test_torch_parallel.py`)."""
+    `test_torch_parallel.py`), without sequence parallelism."""
     tp_size = 1
+    seq_parallel = False
 
     def __init__(self):
         self.gathers = 0

@@ -21,12 +21,18 @@ directory), beside the JAX step and the port's unsharded step run here:
 * internlm2-20b and qwen3-moe on a (1, 1) mesh of one rank, which must be
   bit-equal to the unsharded step.
 
+Every case runs the reference's sequence parallelism: between layers each
+rank holds ``(B / dp, S / tp, d)`` of the residual stream (recorded at
+every pattern group's input and output).  On (1, 4) the norms' gradients
+(each model rank's part of the sequence, summed over "model") are held
+against ``jax.value_and_grad`` within `_torch_train`'s gradient bound.
+
 Losses, gradient norms, parameters and AdamW moments are held within
 `_torch_train`'s tolerances; each case's sharded ``init_args`` must gather
 to the unsharded init bit for bit, and its batch be the rank's rows of
 each microbatch.  The mesh checks (data ranks dividing the microbatch and
-the MoE groups, heads and experts dividing "model") raise ``ValueError``
-before any collective.
+the MoE groups, heads and experts dividing "model", the sequence
+splitting over "model") raise ``ValueError`` before any collective.
 """
 import dataclasses
 import json
@@ -44,9 +50,11 @@ import torch
 
 from repro.configs import registry as jreg
 from repro.launch import steps as jsteps
+from repro.models import transformer as jt
 from repro_torch.launch import steps as tsteps
 
-from _torch_train import LOSS_REL, NORM_REL, scalar_close, state_close
+from _torch_train import (GRAD_REL, LOSS_REL, NORM_REL, scalar_close,
+                          state_close)
 from _torch_train import one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -70,7 +78,7 @@ LAUNCHES = {
         dict(name="minicpm3_accum_2x2", arch="minicpm3-4b", mesh=[2, 2],
              multi_pod=False, accum=True),
         dict(name="internlm2_kv_1x4", arch="internlm2-20b", mesh=[1, 4],
-             multi_pod=False)],
+             multi_pod=False, norm_grads=True)],
     1: [dict(name="internlm2_1x1", arch="internlm2-20b", mesh=[1, 1],
              multi_pod=False),
         dict(name="qwen3_moe_1x1", arch="qwen3-moe-235b-a22b", mesh=[1, 1],
@@ -164,6 +172,11 @@ def runs(tmp_path_factory):
         out[name] = {"jax": (jm, jparams, jstate),
                      "plain": ([(float(m["loss"]), float(m["grad_norm"]))
                                 for m in tm], tparams, tstate)}
+        if case.get("norm_grads"):
+            jcfg = dataclasses.replace(jreg.get_arch(case["arch"]).make_config(
+                "train_4k", True), max_seq=64)
+            out[name]["jax_grad"] = jax.jit(jax.value_and_grad(
+                lambda p: jt.loss_fn(p, jbatch, jcfg)))(starts[name][1][0])
     torch.set_num_threads(threads)
     for world, ps in procs:
         _wait(ps, f"the {world} gloo ranks")
@@ -223,6 +236,33 @@ def test_one_rank_mesh_is_bit_equal_to_the_unsharded_step(runs, name):
     assert bool(runs[name]["sharded"]["bit_equal"])
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_residual_stream_is_cut_along_the_sequence(runs, name):
+    # the reference's act_btd (dp, "model", None): between layers a rank
+    # holds (B / dp, S / tp, d), its microbatch rows and sequence block
+    case = CASES[name]
+    cfg = tsteps.get_arch(case["arch"]).make_config("train_4k", True)
+    b, s = (ACCUM_SHAPE["global_batch"] // 2, ACCUM_SHAPE["seq_len"]) \
+        if case.get("accum") else (4, 32)
+    *data, tp = case["mesh"]
+    want = [[b // int(np.prod(data)), s // tp, cfg.d_model]]
+    assert runs[name]["sharded"]["residual"].tolist() == want
+
+
+def test_norm_gradients_over_model_match_jax(runs):
+    # (1, 4): each model rank's norms see its block of the sequence; their
+    # gradients, summed over "model", against jax.value_and_grad
+    z = runs["internlm2_kv_1x4"]["sharded"]
+    want_loss, want = runs["internlm2_kv_1x4"]["jax_grad"]
+    flat = {_key(p): np.asarray(a) for p, a in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    keys = sorted(k[len("grad/"):] for k in z if k.startswith("grad/"))
+    assert keys == ["final_norm", "layers/attn_norm", "layers/ffn_norm"]
+    for k in keys:
+        top = np.abs(flat[k]).max()
+        assert np.abs(z["grad/" + k] - flat[k]).max() <= GRAD_REL * top, k
+
+
 def _mesh(*sizes, multi_pod=False):
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
     return types.SimpleNamespace(mesh_dim_names=names,
@@ -247,6 +287,13 @@ def test_mesh_checks_raise_before_any_collective():
         tsteps.build_step("qwen3-moe-235b-a22b", "train_4k",
                           shape_override={"seq_len": 8, "global_batch": 32},
                           cfg_override=over, mesh=_mesh(4, 1))
+    # 32 tokens a sequence do not split into 3 blocks over "model" (the
+    # heads and the vocabulary do)
+    with pytest.raises(ValueError, match="sequence of 32"):
+        tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
+                          cfg_override={"n_heads": 6, "n_kv_heads": 3,
+                                        "vocab": 513},
+                          mesh=_mesh(1, 3))
     # the data axes of a multi-pod mesh are ("pod", "data")
     with pytest.raises(ValueError, match="microbatches"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,

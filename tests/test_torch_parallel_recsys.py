@@ -13,9 +13,11 @@ mesh axes on this host, so the single-device step is the reference):
 * DLRM, Wide & Deep, MIND and BERT4Rec: ``train_batch`` (3 steps),
   ``serve_p99`` and ``retrieval_cand`` on (data, model) = (2, 2), (1, 4)
   and (4, 1), and DLRM on (pod, data, model) = (2, 2, 2) (``multi_pod``);
-* the GAT: ``full_graph_sm`` (the edges over the data ranks),
-  ``minibatch_lg`` and ``molecule`` (the batch over them), 3 steps each, on
-  (4, 1) and (2, 2);
+* the GAT: ``full_graph_sm`` (the edges over the data ranks, and
+  between layers the padded node rows: ``N / dp`` hidden rows a rank, the
+  last layer's output whole), ``minibatch_lg`` and ``molecule`` (the
+  batch over them), 3 steps each, on (4, 1) and (2, 2); the full graph's
+  loss and gradient of the starting parameters too;
 * every case on (1, 1), which must be bit-equal to the unsharded port;
 * a lookup on a (1, 4) table with ids at every shard boundary (row0 - 1,
   row0, row1 - 1), the last rows, ids past the table and -1 padding;
@@ -53,7 +55,8 @@ Tolerances, and why:
   the unsharded order).
 
 The mesh checks raise ``ValueError`` before any collective (a mesh
-without a process group).
+without a process group): a table's rows, the batch's, the candidates,
+the GAT's padded edges and padded nodes that do not split.
 """
 import contextlib
 import json
@@ -70,6 +73,7 @@ import pytest
 
 from repro.configs import registry as jreg
 from repro.launch import steps as jsteps
+from repro.models import gnn as jgnn
 from repro.models import recsys as jrs
 from repro_torch.launch import steps as tsteps
 
@@ -167,6 +171,10 @@ def _jax_run(arch, shape) -> dict:
     fn = jax.jit(jsd.fn)
     if shape == "train_batch" or arch == "gat-cora":
         params, state, batch = args
+        if shape == "full_graph_sm":
+            cfg = jreg.get_arch(arch).make_config(shape, True)
+            out["grad_loss"], out["grads"] = jax.jit(jax.value_and_grad(
+                lambda p: jgnn.loss_full(p, batch, cfg)))(params)
         out["metrics"] = []
         for _ in range(3):
             params, state, m = fn(params, state, batch)
@@ -289,6 +297,24 @@ def test_sharded_training_matches_the_jax_step(runs, name):
             np.testing.assert_array_equal(g, w, err_msg=path)
 
 
+@pytest.mark.parametrize("name", sorted(
+    n for n, c in CASES.items() if c["shape"] == "full_graph_sm"))
+def test_full_graph_hidden_rows_over_the_data_ranks(runs, name):
+    # the reference's nodes_nd (dp, None): each layer but the last takes
+    # and gives N / dp of the 512 padded node rows a rank, the last gives
+    # the logits whole; the loss and every gradient as JAX's
+    z, ref = runs[name]
+    dp = CASES[name]["mesh"][0]
+    rows = 512 // dp
+    assert z["rows"].tolist() == sorted(map(list, {(rows, rows), (rows, 512)}))
+    _rel_close(z["loss0"], ref["grad_loss"])
+    want = _np_leaves(ref["grads"])
+    got = _flat(z, "gparams")
+    assert len(got) == len(want) == 6
+    for g, (path, w, _) in zip(got, want):
+        _rel_close(g, w)
+
+
 @pytest.mark.parametrize("name", SERVE)
 def test_sharded_serving_matches_the_jax_step(runs, name):
     z, ref = runs[name]
@@ -371,6 +397,7 @@ def _mesh(*sizes, multi_pod=False):
     ("mind", "serve_p99", (3, 1), "batch's rows"),
     ("dlrm-mlperf", "retrieval_cand", (3, 1), "candidates"),
     ("gat-cora", "full_graph_sm", (3, 1), "padded edges"),
+    ("gat-cora", {"n_nodes": 100, "n_edges": 1000}, (3, 1), "padded nodes"),
     ("gat-cora", "minibatch_lg", (3, 2), "seed nodes"),
     ("gat-cora", "molecule", (3, 1), "graphs")])
 def test_mesh_checks_raise_before_any_collective(arch, shape, mesh, what):
@@ -378,9 +405,14 @@ def test_mesh_checks_raise_before_any_collective(arch, shape, mesh, what):
     # "model" (MIND's 512 items, the stacked tables' 256 rows, BERT4Rec's
     # 576-row vocabulary) raises, as do the batch's rows, the ranking
     # candidates and the GAT's edges over the data ranks
+    # (a dict: full_graph_sm at full width with these nodes and edges,
+    # 1,536 padded edges over 3 data ranks, 512 padded nodes not)
+    kw = ({"reduced": True} if isinstance(shape, str) else
+          {"reduced": False, "shape_override": shape})
+    shape = shape if isinstance(shape, str) else "full_graph_sm"
     with pytest.raises(ValueError, match=what):
-        tsteps.build_step(arch, shape, reduced=True, mesh=_mesh(*mesh))
+        tsteps.build_step(arch, shape, mesh=_mesh(*mesh), **kw)
     # a multi-pod step wants the axes ("pod", "data", "model")
     with pytest.raises(ValueError, match="axes"):
-        tsteps.build_step(arch, shape, reduced=True, multi_pod=True,
-                          mesh=_mesh(*mesh))
+        tsteps.build_step(arch, shape, multi_pod=True, mesh=_mesh(*mesh),
+                          **kw)
