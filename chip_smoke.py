@@ -210,7 +210,9 @@ or note, and each phase's time:
    within 1% of FlopCounterMode's count there, its peak within 15% of
    ``max_memory_allocated``, the measured step beside the roofline's
    terms; then its estimates at (16, 16) and (2, 16, 16) for
-   internlm2-20b ``train_4k`` and ``snn-service`` ``svc_10m``; (d) the
+   internlm2-20b ``train_4k``, minicpm3-4b ``train_4k`` (40 MLA heads
+   over a "model" of 16: three on the traced rank) and ``snn-service``
+   ``svc_10m``; (d) the
    card's bf16 and FP32 matmul peaks and a 4 GiB copy, each beside the
    data sheet's constant.
 
@@ -5823,7 +5825,10 @@ def card_step(torch, steps, arch: str, layers: int) -> dict:
             "step_ms": ms, "kw": kw}
 
 
-P8_PRODUCTION = (("internlm2-20b", "train_4k"), ("snn-service", "svc_10m"))
+# the production cells of (c): minicpm3-4b's 40 MLA heads over "model" 16
+# split unevenly (the traced rank holds three)
+P8_PRODUCTION = (("internlm2-20b", "train_4k"), ("minicpm3-4b", "train_4k"),
+                 ("snn-service", "svc_10m"))
 
 
 def production_dryruns(out_dir: str):

@@ -8,6 +8,10 @@
         --arch nemotron-4-15b --layers 0 --meshes 1x4 2x2   # all 32 layers
 
     torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
+        --arch minicpm3-4b --layers 2 --meshes 1x4 --heads 38 \
+        --one-card step --f32           # heads "model" does not divide
+
+    torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
         --device cpu --reduced          # a rehearsal: gloo, the reduced config
 
 Each rank joins one NCCL group (torchrun's rendezvous on this host) on its
@@ -31,7 +35,18 @@ peak and what was allocated then, the rank's parameter and optimizer
 shards among it, the allocator's message) and appends it to
 ``<--out>.oom``; torchrun then ends the other ranks.  ``--device cpu``
 runs the same over gloo on the CPU (with ``--reduced``: the arch's
-reduced config, 4 sequences of 32 tokens).  Imports no JAX.
+reduced config, 4 sequences of 32 tokens).
+
+``--heads H [--kv-heads K]`` replaces the published head counts
+(`heads.head_override`): 38 MLA heads over a "model" of 4 give its ranks
+10, 10, 9 and 9 whole heads, 10 query heads over 2 KV heads 3, 3, 2 and
+2, rank 1's reading both KV heads.  ``--f32`` computes in float32 (the
+parameters are float32 either way).  ``--one-card`` first runs one card's
+reference on rank 0 from the same seeded init and batch (the other ranks
+wait): ``step``, the unsharded step (its loss and gradient norm), or
+``loss``, the loss alone under ``no_grad`` (a model whose training state
+one card cannot hold); the record then holds the sharded step-0 loss
+(and norm) beside it.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -46,6 +61,7 @@ import time
 from datetime import timedelta
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -53,7 +69,9 @@ from torch.distributed.device_mesh import init_device_mesh
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT / "src"))
 
+from heads import described, head_override  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
 
@@ -64,21 +82,72 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def one_card_reference(arch: str, over: dict, batch: int, mode: str,
+                       device: str, reduced: bool) -> dict:
+    """Rank 0's unsharded reference from the step's seeded init and batch:
+    ``step`` runs the unsharded step once (loss, gradient norm), ``loss``
+    the loss alone under ``no_grad`` (the parameters alone on the card,
+    as `steps.build_step`'s ``init_args`` makes them)."""
+    kw = (dict(reduced=True, cfg_override=over) if reduced else
+          dict(cfg_override=over, shape_override={"global_batch": batch}))
+    plain = steps.build_step(arch, "train_4k", **kw)
+    if mode == "step":
+        params, state, data = plain.init_args(device=device)
+        m = plain.fn(params, state, data)
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    cfg = dataclasses.replace(
+        steps.get_arch(arch).make_config("train_4k", reduced), **over)
+    if reduced:
+        cfg = dataclasses.replace(cfg, max_seq=64)
+    s = plain.arg_specs[2]["tokens"].shape[1]
+    gen = torch.Generator(device=device).manual_seed(steps.SEED)
+    params = tf.init_params(cfg, generator=gen, device=device)
+    rng = np.random.default_rng(steps.SEED)
+    tokens = torch.from_numpy(steps._lm_tokens(rng, cfg, (batch, s))).to(
+        device)
+    labels = torch.from_numpy(steps._lm_tokens(rng, cfg, (batch, s))).to(
+        device)
+    accum = steps.lm_accum(cfg, reduced)
+    mb = batch // accum
+    with torch.no_grad():
+        total = sum(float(tf.loss_fn(params, {"tokens": tokens[i:i + mb],
+                                              "labels": labels[i:i + mb]},
+                                     cfg))
+                    for i in range(0, batch, mb))
+    return {"loss": total / accum if accum > 1 else total}
+
+
 def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
-             n_steps: int, device: str, reduced: bool) -> dict:
+             n_steps: int, device: str, reduced: bool, over: dict | None = None,
+             one_card: str | None = None) -> dict:
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     mesh = init_device_mesh(device, shape, mesh_dim_names=("data", "model"))
     cfg = steps.get_arch(arch).make_config("train_4k", reduced)
+    over = dict(over or {})
     if reduced:
-        sd = steps.build_step(arch, "train_4k", mesh=mesh, reduced=True)
         batch = 4
     else:
         if layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
         batch = batch or steps.lm_accum(cfg, False) * shape[0]
+        over["n_layers"] = cfg.n_layers
+    cfg = dataclasses.replace(cfg, **over)
+    ref = None
+    if one_card:
+        # before the shards: one card holds the reference alone
+        if dist.get_rank() == 0:
+            ref = one_card_reference(arch, over, batch, one_card, device,
+                                     reduced)
+        if cuda:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    if reduced:
+        sd = steps.build_step(arch, "train_4k", mesh=mesh, reduced=True,
+                              cfg_override=over or None)
+    else:
         sd = steps.build_step(arch, "train_4k", mesh=mesh,
-                              cfg_override={"n_layers": cfg.n_layers},
+                              cfg_override=over,
                               shape_override={"global_batch": batch})
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -126,7 +195,15 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
     data_tokens = batch * (
         32 if reduced else steps.get_arch(arch).shapes["train_4k"]["seq_len"])
     mean_ms = sum(times) / len(times)
-    return {"arch": arch, "layers": cfg.n_layers, "mesh": list(shape),
+    extra = {"heads": described(over), "compute_dtype": str(cfg.dtype)}
+    if ref is not None:
+        extra["one_card"] = ref
+        extra["first_loss_rel"] = abs(losses[0] - ref["loss"]) / abs(
+            ref["loss"])
+        if "grad_norm" in ref:
+            extra["first_grad_norm_rel"] = abs(
+                norms[0] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    return {**extra, "arch": arch, "layers": cfg.n_layers, "mesh": list(shape),
             "global_batch": batch, "tokens_a_step": data_tokens,
             "accum": steps.lm_accum(cfg, reduced),
             "local_params_b": local / 1e9, "init_s": init_s,
@@ -153,13 +230,21 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--heads", type=int, default=None)
+    ap.add_argument("--kv-heads", type=int, default=None)
+    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--one-card", choices=["step", "loss"], default=None)
     args = ap.parse_args()
+    over = head_override(args.arch, args.heads, args.kv_heads, args.reduced)
+    if args.f32:
+        over["dtype"] = torch.float32
     local_rank = int(os.environ["LOCAL_RANK"])
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.set_device(local_rank)
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-        dist.init_process_group("nccl", timeout=timedelta(minutes=5),
+        # a one-card reference holds the other ranks at a barrier
+        dist.init_process_group("nccl", timeout=timedelta(minutes=20),
                                 device_id=torch.device("cuda", local_rank))
     else:
         torch.set_num_threads(1)
@@ -172,7 +257,8 @@ def main() -> None:
             shape = tuple(int(v) for v in m.split("x"))
             try:
                 rec = run_mesh(args.arch, args.layers, shape, args.batch,
-                               args.steps, args.device, args.reduced)
+                               args.steps, args.device, args.reduced, over,
+                               args.one_card)
             except OutOfMemory as e:
                 rec = dict(e.args[0], card=card_line())
                 print(json.dumps(rec), flush=True)

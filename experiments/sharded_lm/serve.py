@@ -29,7 +29,8 @@ mesh=...)``:
   compute over the same weights, at the first 4, 12, 24 and all 48
   layers (`DEPTHS`).
 * ``prefill``: ``full``'s ``prefill_32k`` alone.
-* ``period``: llama4-scout at one pattern period (4 layers), its
+* ``period``: llama4-scout (or ``--arch``) at one pattern period (4
+  layers; ``--period-layers`` another depth), its
   ``init_args`` shards (the unsharded init, cut): ``prefill_32k`` at one
   sequence a data rank and ``decode_32k`` at batch 8 over a seeded random
   cache at position 16,384, and ``long_500k`` at batch 1 over a seeded
@@ -52,6 +53,14 @@ mesh=...)``:
   216 GB of weights and 103 GB of cache pass the 320 GB of four cards):
   batch 1, the cache's sequence over data x model, `STEPS` timed steps at
   position 262,144.
+
+``--heads H [--kv-heads K]`` replaces the published head counts of
+every step (`heads.head_override`), so that a "model" of four cards gets
+heads it does not divide: ``--arch minicpm3-4b --period-layers 2
+--heads 38`` (10, 10, 9 and 9 MLA heads a rank; its ``long_500k`` is a
+skipped cell of the registry and is left out), or llama4-scout with
+``--heads 10 --kv-heads 2`` (3, 3, 2 and 2 query heads, rank 1's reading
+both KV heads).
 
 Rank 0 prints one JSON line a (part, mesh) with the card's name and power
 limit; ``--out`` also writes them there, after each one.  A part that
@@ -83,6 +92,7 @@ from torch.distributed.device_mesh import init_device_mesh
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT / "src"))
 
+from heads import described, head_override  # noqa: E402
 from repro_torch.distributed import parallel  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -113,8 +123,12 @@ class Run:
     """The rank's device, mesh and sizes, and the helpers every part
     uses."""
 
-    def __init__(self, device: str, reduced: bool, mesh_shape: tuple):
+    def __init__(self, device: str, reduced: bool, mesh_shape: tuple,
+                 arch: str = LLAMA4, over: dict | None = None,
+                 period: int | None = None):
         self.device, self.reduced = device, reduced
+        # the period part's arch, depth and the head override of every step
+        self.arch, self.over, self.period = arch, dict(over or {}), period
         self.cuda = device == "cuda"
         self.dev = torch.device(device, torch.cuda.current_device()) \
             if self.cuda else torch.device("cpu")
@@ -158,6 +172,7 @@ class Run:
         reduced config), on the mesh or unsharded; ``cfg_over`` replaces
         more fields of the config."""
         kw = {"mesh": self.mesh} if mesh else {}
+        cfg_over = {**self.over, **(cfg_over or {})} or None
         if self.reduced:
             return steps.build_step(arch, shape, reduced=True,
                                     cfg_override=cfg_over, **kw)
@@ -169,7 +184,9 @@ class Run:
             **kw)
 
     def cfg(self, arch, shape, layers):
-        cfg = steps.get_arch(arch).make_config(shape, self.reduced)
+        cfg = dataclasses.replace(
+            steps.get_arch(arch).make_config(shape, self.reduced),
+            **self.over)
         if self.reduced:
             return dataclasses.replace(cfg, max_seq=64)
         return dataclasses.replace(cfg, n_layers=layers)
@@ -426,20 +443,24 @@ def part_period(run: Run) -> dict:
     over the same bfloat16 weights (the check: bfloat16 moves single
     tokens across the top-1 router's near ties, and each such token's
     later keys and values with it)."""
-    z, dp = run.size, run.shape[0]
-    layers = z["period"]
-    rec = {"part": "period", "arch": LLAMA4, "layers": layers or 4}
-    cells = (("prefill_32k", dp), ("decode_32k", z["decode_batch"]),
-             ("long_500k", 1))
+    z, dp, arch = run.size, run.shape[0], run.arch
+    layers = None if run.reduced else (run.period or z["period"])
+    rec = {"part": "period", "arch": arch,
+           "layers": layers or run.cfg(arch, "prefill_32k", None).n_layers,
+           "heads": described(run.over)}
+    skip = steps.get_arch(arch).skip_shapes
+    cells = tuple((shape, batch) for shape, batch in (
+        ("prefill_32k", dp), ("decode_32k", z["decode_batch"]),
+        ("long_500k", 1)) if shape not in skip)
     for shape, batch in cells:
         if run.reduced:
             batch = 4
-        sds = {v: run.step(LLAMA4, shape, layers, batch=batch, cfg_over=o)
+        sds = {v: run.step(arch, shape, layers, batch=batch, cfg_over=o)
                for v, o in VARIANTS.items()}
-        plains = {v: run.step(LLAMA4, shape, layers, batch=batch,
+        plains = {v: run.step(arch, shape, layers, batch=batch,
                               mesh=False, cfg_over=o)
                   for v, o in VARIANTS.items()}
-        cfg = run.cfg(LLAMA4, shape, layers)
+        cfg = run.cfg(arch, shape, layers)
         long = shape == "long_500k"
         run.reset_peak()
         args = sds["bf16"].init_args(device=run.device)
@@ -449,7 +470,7 @@ def part_period(run: Run) -> dict:
             cspec = steps.lm_cache_spec(tf.init_cache(
                 cfg, batch, s, device="meta"), "prefill_32k")
         else:
-            s = sds["bf16"].arg_specs[1]["k"].shape[2]
+            s = next(iter(sds["bf16"].arg_specs[1].values())).shape[2]
             toks = run.tokens(cfg, batch, 1, SEED + 4)[:, 0]
             cspec = sds["bf16"].in_shardings[1]
         got = {}
@@ -473,7 +494,7 @@ def part_period(run: Run) -> dict:
             rec.update({f"{tag}_{k}": v for k, v in ref.items()})
         if run.cuda:
             torch.cuda.empty_cache()
-    rec.update(longer_prefill_at(run, LLAMA4, layers))
+    rec.update(longer_prefill_at(run, arch, layers))
     return rec
 
 
@@ -636,7 +657,13 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--arch", default=LLAMA4,
+                    help="the period part's arch")
+    ap.add_argument("--period-layers", type=int, default=None)
+    ap.add_argument("--heads", type=int, default=None)
+    ap.add_argument("--kv-heads", type=int, default=None)
     args = ap.parse_args()
+    over = head_override(args.arch, args.heads, args.kv_heads, args.reduced)
     local_rank = int(os.environ["LOCAL_RANK"])
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -657,7 +684,8 @@ def main() -> None:
             for m in meshes:
                 shape = tuple(int(v) for v in m.split("x"))
                 t = time.perf_counter()
-                rec = PARTS[part](Run(args.device, args.reduced, shape))
+                rec = PARTS[part](Run(args.device, args.reduced, shape,
+                                      args.arch, over, args.period_layers))
                 rec.update(mesh=list(shape), card=card,
                            seconds=time.perf_counter() - t)
                 if dist.get_rank() == 0:

@@ -100,6 +100,33 @@ def _pad_for_shards(index: _snn.SNNIndex, nshards: int, block: int = 512):
     return xs, al, hn, od, pj, npad // nshards
 
 
+def shard_block(index: _snn.SNNIndex, nshards: int, k: int,
+                block: int = 512):
+    """Shard ``k`` of `_pad_for_shards`' padded arrays, cut from the index
+    without padding a copy of all of it: (xs, alphas, half_norms, order)
+    of padded sorted rows ``[k*n_pad/D, (k+1)*n_pad/D)``, views of the
+    index's rows where the block holds no padding, else the block's real
+    rows with the padding rows (+BIG alpha and half norm, order -1, zero
+    rows) after them.  For an index too large to copy whole (a host
+    index of 51.5 GB cut into one card's shard at a time)."""
+    unit = nshards * block
+    n, d = index.xs.shape
+    per = max(-(-n // unit), 1) * unit // nshards
+    lo = min(k * per, n)
+    hi = min((k + 1) * per, n)
+    pad = per - (hi - lo)
+    xs, al = index.xs[lo:hi], index.alphas[lo:hi]
+    hn, od = index.half_norms[lo:hi], index.order[lo:hi]
+    if pad:
+        dev = index.device
+        big = torch.full((pad,), _BIG, dtype=torch.float32, device=dev)
+        xs = torch.cat([xs, torch.zeros((pad, d), dtype=torch.float32,
+                                        device=dev)])
+        al, hn = torch.cat([al, big]), torch.cat([hn, big])
+        od = np.concatenate([od, np.full(pad, -1, np.int64)])
+    return xs, al, hn, od
+
+
 def shard_index(index: _snn.SNNIndex, mesh, axis: str = "data",
                 block: int = 512, device=None):
     """This rank's shard of the padded sorted database.
@@ -107,14 +134,14 @@ def shard_index(index: _snn.SNNIndex, mesh, axis: str = "data",
     Returns (xs (n_pad/D, d), alphas, half_norms, order) on ``device``
     (default: the mesh's device of this rank), rank k of ``axis`` holding
     padded sorted rows ``[k*n_pad/D, (k+1)*n_pad/D)``.  Padding rows carry
-    +BIG alpha and half norm and order -1.
+    +BIG alpha and half norm and order -1.  The shard is cut from the
+    index (`shard_block`); no padded copy of the whole index is made.
     """
     nshards, k = _axis_size(mesh, axis), _axis_rank(mesh, axis)
     dev = _mesh_device(mesh) if device is None else torch.device(device)
-    xs, al, hn, od, _, per = _pad_for_shards(index, nshards, block)
-    rows = slice(k * per, (k + 1) * per)
-    return (xs[rows].to(dev).contiguous(), al[rows].to(dev).contiguous(),
-            hn[rows].to(dev).contiguous(), torch.from_numpy(od[rows]).to(dev))
+    xs, al, hn, od = shard_block(index, nshards, k, block)
+    return (xs.to(dev).contiguous(), al.to(dev).contiguous(),
+            hn.to(dev).contiguous(), torch.from_numpy(od).to(dev))
 
 
 def _local_filter(xs, alphas, half_norms, xq, aq, r, thresh):

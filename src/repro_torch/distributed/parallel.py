@@ -50,6 +50,21 @@ axes ("data", "model") or ("pod", "data", "model").
   their run and its gradient reduce-scattered back
   (`ParallelContext.replicate_kv`), as Megatron replicates KV heads; the
   storage layout stays the reference's even column split.
+* **Query heads that "model" does not divide** (40 over 16, or GQA KV
+  heads that neither divide "model" nor are divided by it;
+  `ParallelContext.split_heads`): storage stays the reference's equal
+  column (``wo``: row) blocks over "model", and each rank uses whole
+  heads, ``H // tp`` of them and one more on the first ``H % tp`` ranks
+  (`head_split`).  The head leaves are gathered over "model" as well as
+  the data axes and this rank's heads' columns kept (a ``"regroup"``
+  step of `_Gather`: its backward puts the slice's gradient into a zero
+  leaf and reduce-scatters it over "model" in float32).  A GQA rank
+  computes the KV heads its query heads read (`kv_span`), maps each
+  query head to its KV head by an index (``kv_index``), and a KV head
+  that several ranks read gets their gradients summed by that
+  reduce-scatter.  Decode gathers the ranks' unequal head counts padded
+  to the largest (`gather_heads`), and keeps one copy of each KV head,
+  its first owner's (`gather_kv_heads`, `cache_block`).
 * **Data parallelism.**  A data rank holds its rows of every microbatch,
   the loss divides by the microbatch's global label count, and the MoE
   aux losses are means over the microbatch's global groups, so that the
@@ -112,7 +127,6 @@ from __future__ import annotations
 
 import collections
 import math
-import weakref
 
 import numpy as np
 import torch
@@ -148,7 +162,11 @@ def _groups_of(mesh, axes: tuple):
         size, pos = size * n, pos * n + coord[names.index(a)]
     if len(axes) == 1:
         return mesh.get_group(axes[0]), size, pos
-    cache = _FLAT_GROUPS.setdefault(mesh, {})
+    # held by the mesh object itself: two meshes of one shape compare
+    # equal, also over different process groups, so a mapping keyed by
+    # the mesh would hand one the other's groups (or lose them when the
+    # other is freed)
+    cache = mesh.__dict__.setdefault("_flat_groups", {})
     if axes not in cache:
         grid = mesh.mesh
         dims = [names.index(a) for a in axes]
@@ -159,8 +177,23 @@ def _groups_of(mesh, axes: tuple):
     return cache[axes], size, pos
 
 
-# a mesh's groups over several axes, made once (as the mesh lives)
-_FLAT_GROUPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+def head_split(n_heads: int, tp: int) -> list:
+    """Each model rank's query heads ``[h0, h1)``, balanced: ``n_heads //
+    tp`` a rank and one more on the first ``n_heads % tp`` ranks (40 over
+    16: three on ranks 0-7, two on ranks 8-15)."""
+    q, extra = divmod(n_heads, tp)
+    spans, h0 = [], 0
+    for r in range(tp):
+        h1 = h0 + q + (r < extra)
+        spans.append((h0, h1))
+        h0 = h1
+    return spans
+
+
+def kv_span(h0: int, h1: int, group: int) -> tuple:
+    """The KV heads ``[k0, k1)`` that query heads ``[h0, h1)`` read, with
+    ``group`` query heads a KV head."""
+    return h0 // group, (h1 - 1) // group + 1
 
 
 def _block(n: int, parts: int, name: str) -> int:
@@ -299,26 +332,48 @@ def _reduce_scatter(g, dim: int, group, n: int):
     return out.movedim(0, dim)
 
 
+def _pad_to(x, dim: int, width: int):
+    """``x`` zero-padded along ``dim`` to ``width`` entries."""
+    pad = width - x.shape[dim]
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:dim] + (pad,)
+                                     + x.shape[dim + 1:])], dim)
+
+
 class _Gather(torch.autograd.Function):
     """A shard cast to ``dtype`` and gathered along ``plan``'s dimensions:
-    (dim, group, size, position, kind) in order.  Backward, in the shard's
-    dtype: a ``"sum"`` step reduce-scatters (the data ranks' partial
-    gradients), a ``"same"`` step takes this rank's block (a gradient the
-    same on every rank of the group)."""
+    (dim, group, size, position, kind) in order; a ``"regroup"`` step then
+    keeps columns ``[lo, hi)`` of the gathered ``full`` (its position is
+    ``(lo, hi, full)``).  Backward, in the shard's dtype: a ``"sum"`` step
+    reduce-scatters (the data ranks' partial gradients), a ``"same"`` step
+    takes this rank's block (a gradient the same on every rank of the
+    group), a ``"regroup"`` step puts the kept columns' gradient into a
+    zero leaf and reduce-scatters it (the ranks' columns, a column that
+    several ranks keep summed)."""
 
     @staticmethod
     def forward(ctx, local, dtype, plan):
         ctx.plan, ctx.dtype = plan, local.dtype
         x = local if dtype is None else local.to(dtype)
-        for dim, group, n, _, _ in plan:
+        for dim, group, n, pos, kind in plan:
             x = _all_gather(x, dim, group, n)
+            if kind == "regroup":
+                x = x.narrow(dim, pos[0], pos[1] - pos[0]).contiguous()
         return x
 
     @staticmethod
     def backward(ctx, g):
         g = g.to(ctx.dtype)
         for dim, group, n, pos, kind in reversed(ctx.plan):
-            if kind == "sum":
+            if kind == "regroup":
+                lo, hi, full = pos
+                shape = list(g.shape)
+                shape[dim] = full
+                z = g.new_zeros(shape)
+                z.narrow(dim, lo, hi - lo).copy_(g)
+                g = _reduce_scatter(z, dim, group, n)
+            elif kind == "sum":
                 g = _reduce_scatter(g, dim, group, n)
             else:
                 b = g.shape[dim] // n
@@ -486,6 +541,13 @@ class ParallelContext:
         self.seq_group, self.seq_size, self.seq_pos = (
             self.tp_group, self.tp_size, self.tp_rank)
         self.tokens_replicated = False
+        # query heads that "model" does not divide (`split_heads`): every
+        # model rank's heads and KV heads, this rank's head columns of
+        # each head leaf, and its query heads' local KV heads
+        self.head_spans = self.kv_spans = None
+        self.head_cols: dict = {}
+        self.kv_index = None
+        self._indices: dict = {}
         self.layout = layout
         # the residual stream cut along the sequence over "model" between
         # layers (``act_btd``): the LMs' training and prefill steps
@@ -523,6 +585,48 @@ class ParallelContext:
                 for row in rows for h in range(n_kv_heads)]
         self.kv_group = dist.new_subgroups_by_enumeration(runs)[0]
         self.kv_rep, self.kv_pos = rep, self.tp_rank % rep
+
+    def split_heads(self, n_heads: int, widths: dict,
+                    group: int | None = None) -> None:
+        """Whole heads a model rank where "model" does not divide them:
+        ``n_heads`` query heads by `head_split`; ``widths`` maps each head
+        leaf to (its columns a head, ``"q"`` or ``"kv"``): ``"q"`` columns
+        follow the rank's query heads, ``"kv"`` columns (GQA's ``wk``,
+        ``wv``, ``group`` query heads a KV head) the KV heads they read
+        (`kv_span`).  `gather_weight` then gathers those leaves over
+        "model" too and keeps the rank's columns."""
+        self.head_spans = head_split(n_heads, self.tp_size)
+        h0, h1 = self.head_spans[self.tp_rank]
+        if group is not None:
+            self.kv_spans = [kv_span(a, b, group)
+                             for a, b in self.head_spans]
+            k0 = self.kv_spans[self.tp_rank][0]
+            self.kv_index = tuple(h // group - k0 for h in range(h0, h1))
+        for name, (width, of) in widths.items():
+            lo, hi = (self.kv_spans[self.tp_rank] if of == "kv"
+                      else (h0, h1))
+            self.head_cols[name] = (lo * width, hi * width)
+
+    def _index_on(self, key, entries, device):
+        """The int64 index ``entries`` on ``device``, copied there once: a
+        host list copied to the card at each call would wait for the
+        card's stream every layer."""
+        t = self._indices.get((key, device))
+        if t is None:
+            t = torch.tensor(entries, dtype=torch.long).to(device)
+            self._indices[(key, device)] = t
+        return t
+
+    def kv_index_on(self, device):
+        """``kv_index`` (each local query head's local KV head) as a
+        tensor on ``device``."""
+        return self._index_on("kv_index", self.kv_index, device)
+
+    def own_heads(self, n_local: int) -> int:
+        """The first of this rank's ``n_local`` query heads."""
+        if self.head_spans is not None:
+            return self.head_spans[self.tp_rank][0]
+        return self.tp_rank * n_local
 
     # ---- the MoE's split (the step checked the divisions) ----
     def local_experts(self, n_experts: int) -> tuple:
@@ -596,6 +700,8 @@ class ParallelContext:
         alone."""
         want = gathered_spec(name, local.ndim)
         model_kind = "same"
+        if name in self.head_cols:
+            return self._gather_heads_of(name, local, dtype)
         if name in _WHOLE:
             want = Spec(*(None,) * local.ndim)
             model_kind = "sum" if self.seq_parallel else "same"
@@ -608,6 +714,19 @@ class ParallelContext:
                       self.kv_pos, "sum"),)
         if not plan:
             return local if dtype is None else local.to(dtype)
+        return _Gather.apply(local, dtype, plan)
+
+    def _gather_heads_of(self, name, local, dtype):
+        """A head leaf under `split_heads`: gathered whole over the data
+        axes and "model", this rank's head columns (rows of ``wo``)
+        kept."""
+        lo, hi = self.head_cols[name]
+        plan = tuple(
+            (dim, group, n, (lo, hi, n * local.shape[dim]), kind)
+            if kind == "regroup" else (dim, group, n, pos, kind)
+            for dim, group, n, pos, kind in self._plan(
+                self.spec_of(name, local.ndim), Spec(*(None,) * local.ndim),
+                local.ndim, "regroup"))
         return _Gather.apply(local, dtype, plan)
 
     def gather_vocab(self, name, local, dtype=None):
@@ -679,15 +798,47 @@ class ParallelContext:
 
     def gather_heads(self, x):
         """A decode step's per-head tensor (B, heads of this rank, ...)
-        gathered over "model" to every head, in head order."""
+        gathered over "model" to every head, in head order; under
+        `split_heads` each rank's heads padded to the largest count and
+        the padding dropped."""
         if self.tp_size == 1:
             return x
-        return _all_gather(x, 1, self.tp_group, self.tp_size)
+        if self.head_spans is None:
+            return _all_gather(x, 1, self.tp_group, self.tp_size)
+        return self._gather_spans(x, self.head_spans, 1)
+
+    def _gather_spans(self, x, spans, dim: int):
+        """``x``'s entries ``spans[r]`` (an unequal count a rank) along
+        ``dim`` gathered over "model": each rank's padded to the largest
+        count, then one copy of each entry kept, its first owner's."""
+        width = max(b - a for a, b in spans)
+        got = _all_gather(_pad_to(x, dim, width), dim, self.tp_group,
+                          self.tp_size)
+        return got.index_select(dim, self._owners_on(spans, width,
+                                                     got.device))
+
+    def _owners_on(self, spans, width: int, device):
+        return self._index_on(("owners", tuple(spans), width),
+                              self._first_owners(spans, width), device)
+
+    @staticmethod
+    def _first_owners(spans, width: int) -> list:
+        """Each entry's place in the padded gather: its first owning
+        rank's slot."""
+        idx, seen = [], 0
+        for r, (a, b) in enumerate(spans):
+            for j in range(max(a, seen), b):
+                idx.append(r * width + j - a)
+            seen = max(seen, b)
+        return idx
 
     def gather_kv_heads(self, x):
         """The new token's (B, KV heads of this rank, D) over "model" to
         (B, Hkv, D): under `replicate_kv` a run of ranks holds one head,
-        of which one copy is kept."""
+        under `split_heads` neighbouring ranks may share one; one copy of
+        each is kept."""
+        if self.kv_spans is not None:
+            return self._gather_spans(x, self.kv_spans, 1)
         x = self.gather_heads(x)
         return x[:, ::self.kv_rep] if self.kv_rep > 1 else x
 
@@ -722,10 +873,17 @@ class ParallelContext:
         blk = _block(s, n, "the prefill's sequence")
         if t.ndim == 3:
             return t[:, self.tp_rank * blk:(self.tp_rank + 1) * blk]
+        spans = self.kv_spans
+        if spans is not None:        # (`split_heads`) unequal KV heads
+            width = max(k1 - k0 for k0, k1 in spans)
+            t = _pad_to(t, 2, width)
         send = t.reshape(b, n, blk, *t.shape[2:]).movedim(1, 0).contiguous()
         got = torch.empty_like(send)
         dist.all_to_all_single(got, send, group=self.tp_group)
         got = got.movedim(0, 2).reshape(b, blk, -1, t.shape[-1])
+        if spans is not None:
+            return got.index_select(2, self._owners_on(spans, width,
+                                                       got.device))
         return got[:, :, ::self.kv_rep] if self.kv_rep > 1 else got
 
     # ---- the recsys and GAT steps ----

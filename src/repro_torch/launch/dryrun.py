@@ -24,9 +24,12 @@ Every cell of the registry runs on a mesh: the five LMs' ``train_4k``,
 ``train_batch``, ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``
 (the tables' rows over "model"), the GAT's four shapes (the full graph's
 edges, or the batch, over the data axes) and the paper's own
-``snn-service``.  A cell the port cannot split (a step whose heads do not
-split over "model": llama4-scout's and minicpm3-4b's 40 over 16) is
-written as a ``{"skipped": "<why>"}`` record, not dropped.  On fake
+``snn-service``; llama4-scout's and minicpm3-4b's 40 heads, which the
+production "model" of 16 does not divide, are traced on rank 0, one of
+the ranks that hold three heads (`distributed.parallel.head_split`).  A
+cell the port cannot split (fewer heads than model ranks, experts or a
+vocabulary "model" does not divide; no production cell) is written as a
+``{"skipped": "<why>"}`` record, not dropped.  On fake
 tensors a table's row gradient takes every occurrence as valid and
 unique (`models.recsys.row_grad`), and `utils.top_k` skips its tie
 repair: the common path's costs, without data-dependent sizes.

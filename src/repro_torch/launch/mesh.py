@@ -10,11 +10,25 @@ world size and rank); the ranks are laid out row-major over the mesh's
 shape, as ``jax.make_mesh`` lays out devices.
 
 The device type is the card's (``"cuda"``) unless the caller passes
-``"cpu"``; asking for the card without one raises.
+``"cpu"``; asking for the card without one raises.  On the card each rank
+first makes its own card the current one (`local_card`): the shards of
+`core.sharded` and the collectives' operands live there.
 """
 from __future__ import annotations
 
+import os
+
 from ..kernels import registry as _registry
+
+
+def local_card(device_count: int) -> int:
+    """This process's card among the host's ``device_count``: torchrun's
+    ``LOCAL_RANK``, else the rank modulo the cards (one rank a card)."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    import torch.distributed as dist
+
+    return dist.get_rank() % device_count
 
 
 def _init_mesh(device_type, shape: tuple, names: tuple):
@@ -22,6 +36,10 @@ def _init_mesh(device_type, shape: tuple, names: tuple):
 
     dev = _registry.resolve_device("cuda" if device_type is None
                                    else device_type)
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(local_card(torch.cuda.device_count()))
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 

@@ -254,16 +254,53 @@ def _lm_leaf_spec(dp):
     return spec_of
 
 
-def _local_cfg(cfg: tf.TransformerConfig, tp: int) -> tf.TransformerConfig:
-    """``cfg`` with one of ``tp`` model ranks' heads (the MoE keeps its
-    global expert count: every rank routes over all of them); with fewer
-    KV heads than ranks, one whole KV head a rank (`ParallelContext.
-    replicate_kv`)."""
-    over = {"n_heads": cfg.n_heads // tp,
-            "n_kv_heads": max(cfg.n_kv_heads // tp, 1)}
+def _uneven_heads(cfg: tf.TransformerConfig, tp: int) -> bool:
+    """Does "model" fail to cut the heads into whole groups a rank: query
+    heads it does not divide, or (GQA) KV heads it neither divides nor is
+    a multiple of?"""
     if cfg.mla is not None:
-        over["mla"] = dataclasses.replace(cfg.mla,
-                                          n_heads=cfg.mla.n_heads // tp)
+        return cfg.mla.n_heads % tp != 0
+    return bool(cfg.n_heads % tp
+                or (cfg.n_kv_heads % tp and tp % cfg.n_kv_heads))
+
+
+def _head_widths(cfg: tf.TransformerConfig) -> dict:
+    """Each head leaf's columns (``wo``: rows) a head, and whether they
+    follow the query heads or the KV heads."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"wq_b": (m.qk_nope + m.qk_rope, "q"),
+                "wkv_b": (m.qk_nope + m.v_head, "q"), "wo": (m.v_head, "q")}
+    d = cfg.head_dim
+    return {"wq": (d, "q"), "wo": (d, "q"), "wk": (d, "kv"), "wv": (d, "kv")}
+
+
+def _local_cfg(cfg: tf.TransformerConfig, ctx) -> tf.TransformerConfig:
+    """``cfg`` with this model rank's heads, laying them out in ``ctx``
+    (the MoE keeps its global expert count: every rank routes over all
+    of them).  Where "model" divides them, ``H / tp`` a rank, and with
+    fewer KV heads than ranks one whole KV head a rank (`ParallelContext.
+    replicate_kv`); otherwise the balanced split of `ParallelContext.
+    split_heads` (GQA: the KV heads the rank's query heads read)."""
+    tp = ctx.tp_size
+    mla = cfg.mla
+    if not _uneven_heads(cfg, tp):
+        if mla is None:
+            ctx.replicate_kv(cfg.n_kv_heads)
+        heads, kv = cfg.n_heads // tp, max(cfg.n_kv_heads // tp, 1)
+        mla_heads = None if mla is None else mla.n_heads // tp
+    else:
+        ctx.split_heads(cfg.n_heads if mla is None else mla.n_heads,
+                        _head_widths(cfg), None if mla is not None
+                        else cfg.n_heads // cfg.n_kv_heads)
+        h0, h1 = ctx.head_spans[ctx.tp_rank]
+        heads = kv = mla_heads = h1 - h0
+        if mla is None:
+            k0, k1 = ctx.kv_spans[ctx.tp_rank]
+            kv = k1 - k0
+    over = {"n_heads": heads, "n_kv_heads": kv}
+    if mla is not None:
+        over["mla"] = dataclasses.replace(mla, n_heads=mla_heads)
     return dataclasses.replace(cfg, **over)
 
 
@@ -318,17 +355,28 @@ def check_lm_serving(cfg: tf.TransformerConfig, kind: str, b: int, s: int,
 
 
 def _check_heads(cfg: tf.TransformerConfig, tp: int) -> None:
-    heads = [("heads", cfg.n_heads), ("vocab", cfg.vocab)]
-    # fewer KV heads than model ranks: whole heads replicated over runs of
-    # tp / n_kv ranks (GQA only; MLA's latent KV is not split by heads)
-    if cfg.mla is not None or tp % cfg.n_kv_heads:
-        heads.append(("kv heads", cfg.n_kv_heads))
+    """The heads, their leaves' column blocks, the vocabulary and the
+    experts over "model".  Heads "model" does not divide are split
+    unevenly (`_local_cfg`), but every rank needs one, and each head
+    leaf's columns must cut into ``tp`` equal storage blocks."""
+    heads = [("heads", cfg.n_heads)]
     if cfg.mla is not None:
         heads.append(("MLA heads", cfg.mla.n_heads))
     for what, n in heads:
-        if n % tp:
-            raise ValueError(f"{what} ({n}) must be divisible by the "
-                             f"'model' axis size {tp}")
+        if n < tp:
+            raise ValueError(f"{what} ({n}) are fewer than the 'model' axis "
+                             f"size {tp}: a rank would hold none")
+    if cfg.vocab % tp:
+        raise ValueError(f"vocab ({cfg.vocab}) must be divisible by the "
+                         f"'model' axis size {tp}")
+    if _uneven_heads(cfg, tp):
+        n = cfg.mla.n_heads if cfg.mla is not None else cfg.n_heads
+        for name, (width, of) in _head_widths(cfg).items():
+            cols = width * (cfg.n_kv_heads if of == "kv" else n)
+            if cols % tp:
+                raise ValueError(f"{name}'s {cols} head columns do not "
+                                 f"split into {tp} equal blocks over "
+                                 "'model'")
     if cfg.moe is not None and cfg.moe.n_experts % tp:
         raise ValueError(f"experts ({cfg.moe.n_experts}) must be "
                          f"divisible by the 'model' axis size {tp}")
@@ -496,9 +544,7 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
     dp = _dp(multi_pod)
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
-    if cfg.mla is None:
-        ctx.replicate_kv(cfg.n_kv_heads)
-    lcfg = _local_cfg(cfg, n_tp)
+    lcfg = _local_cfg(cfg, ctx)
     rules = rules_for_family("lm", multi_pod=multi_pod)
 
     def grad_fn(params, batch):
@@ -559,9 +605,7 @@ def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
     ctx.serve_layout(long, kind == "prefill")
-    if cfg.mla is None:
-        ctx.replicate_kv(cfg.n_kv_heads)
-    lcfg = _local_cfg(cfg, n_tp)
+    lcfg = _local_cfg(cfg, ctx)
     rules = rules_for_family("lm", multi_pod=multi_pod)
     rows = (np.arange(b) if long else
             parallel.data_rows(b, 1, ctx.dp_size, ctx.dp_rank))

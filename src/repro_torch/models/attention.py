@@ -46,7 +46,11 @@ entry at ``pos - offset``, the masks are over global positions, every
 head is scored over the block, the partial softmaxes are combined over
 the sequence group (`ParallelContext.seq_attend`), and the rank's own
 heads go on into ``wo``.  Without a context, or at a sequence group of
-one rank, the unsharded code runs.
+one rank, the unsharded code runs.  Where "model" does not divide the
+heads (`ParallelContext.split_heads`), a rank's query heads need not be
+whole groups of its KV heads: the prefill and training attention read
+one KV head a query head by the context's index (`_kv_of_heads`), and
+decode gathers the ranks' unequal head counts.
 """
 from __future__ import annotations
 
@@ -224,14 +228,27 @@ def gqa_forward(p, x, cos, sin, positions, *, n_heads, n_kv_heads, head_dim,
         k = apply_rope(k, positions, cos, sin)
     q = constrain(q, "act_bthd")
     scale = softmax_scale(head_dim, x.dtype)
+    ka, va = _kv_of_heads(k, v)
     if local_window is not None and local_window < s:
-        out = local_chunked_attention(q, k, v, window=local_window,
+        out = local_chunked_attention(q, ka, va, window=local_window,
                                       scale=scale)
     else:
         # a window of at least the sequence is full causal attention
-        out = full_attention(q, k, v, causal=causal, scale=scale,
+        out = full_attention(q, ka, va, causal=causal, scale=scale,
                              chunk_q=chunk_q)
     return out.reshape(b, s, n_heads * head_dim) @ p["wo"], (k, v)
+
+
+def _kv_of_heads(k, v):
+    """k, v (B, S, KV heads, D) as the attention reads them: as they are,
+    or, where the sharded step gave this rank query heads that are not
+    whole groups of its KV heads (`ParallelContext.split_heads`), one KV
+    head a query head, picked by the context's ``kv_index``."""
+    ctx = current_context()
+    if getattr(ctx, "kv_index", None) is None:
+        return k, v
+    idx = ctx.kv_index_on(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def gqa_decode(p, x, cache_k, cache_v, pos: int, cos, sin, *, n_heads,
@@ -306,7 +323,7 @@ def _gqa_decode_block(ctx, q, k, v, cache_k, cache_v, pos: int,
     scores = torch.where(valid, scores, NEG_INF)
     out = ctx.seq_attend(
         scores, lambda w: torch.einsum("bkgqs,bskv->bkgqv", w, cv))
-    lo = ctx.tp_rank * hl
+    lo = ctx.own_heads(hl)
     return out.reshape(b, h, d)[:, lo:lo + hl].reshape(b, hl * d)
 
 
@@ -417,6 +434,6 @@ def _mla_decode_block(ctx, p, q_nope, q_pe, c_kv_new, k_pe_new, cache_ckv,
     scores = torch.where((kpos <= pos)[None, None], scores * scale, NEG_INF)
     o_lat = ctx.seq_attend(scores,
                            lambda w: torch.einsum("bhs,bsr->bhr", w, ckv))
-    lo = ctx.tp_rank * h
+    lo = ctx.own_heads(h)
     return torch.einsum("bhr,rhv->bhv", o_lat[:, lo:lo + h],
                         w_uv).reshape(b, h * dv)

@@ -160,13 +160,20 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
     row gradient's occurrences gathered over the data ranks, its dense
     gradients all-reduced) and ``dlrm-mlperf:serve_p99`` (the lookups
     summed over "model", the outputs gathered) at (2, 2) are records with
-    terms; a cell the port cannot split stays a ``skipped`` record
-    (minicpm3-4b's 40 MLA heads over the production "model" of 16)."""
+    terms, and so is minicpm3-4b's ``train_4k`` at the production (16,
+    16), whose 40 MLA heads "model" does not divide (three heads on this
+    rank, rank 0); a cell the port cannot split stays a ``skipped``
+    record (the reduced nemotron-4-15b's 4 heads over a "model" of 8: a
+    rank would hold none)."""
     recs = [dryrun.run_cell("mind", "train_batch", mesh_shape=(2, 2),
                             out_dir=str(tmp_path), verbose=False),
             dryrun.run_cell("dlrm-mlperf", "serve_p99",
                             mesh_shape=(2, 2), verbose=False),
-            dryrun.run_cell("minicpm3-4b", "train_4k", verbose=False)]
+            dryrun.run_cell("minicpm3-4b", "train_4k", verbose=False),
+            dryrun.run_cell("nemotron-4-15b", "prefill_32k",
+                            mesh_shape=(1, 8),
+                            cfg_override=_reduced("nemotron-4-15b"),
+                            shape_override=SMALL, verbose=False)]
     for rec, step in zip(recs[:2], ("mind:train_batch:train",
                                     "dlrm-mlperf:serve_p99:serve")):
         assert "skipped" not in rec and rec["step"] == step
@@ -176,11 +183,68 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
         assert 0 < rec["memory_analysis"]["argument_size_in_bytes"] \
             <= rec["peak_memory_bytes"]
         assert rec["bottleneck"] in ("compute", "memory", "collective")
-    assert set(recs[2]) >= {"arch", "shape", "mesh", "skipped"}
-    assert "'model' axis size 16" in recs[2]["skipped"]
+    mla = recs[2]
+    assert "skipped" not in mla and mla["step"] == "minicpm3-4b:train_4k:train"
+    assert mla["mesh"] == (16, 16) and mla["n_devices"] == 256
+    assert min(mla["t_compute_s"], mla["t_memory_s"],
+               mla["t_collective_s"]) > 0
+    assert {"all-gather", "reduce-scatter"} <= set(
+        mla["collective_breakdown"])
+    assert 0 < mla["peak_memory_bytes"] < 80e9
+    assert set(recs[3]) >= {"arch", "shape", "mesh", "skipped"}
+    assert "fewer than the 'model' axis size 8" in recs[3]["skipped"]
     saved = json.loads((tmp_path / "mind__train_batch__single.json")
                        .read_text())
     assert saved["flops_per_device"] == recs[0]["flops_per_device"]
+    assert not dist.is_initialized()
+
+
+def test_a_meshs_groups_over_several_axes_are_its_own():
+    """Two meshes of one shape compare equal, also over two process
+    groups: the ("pod", "data") group of the second must be its own, and
+    stay made while it lives after the first is freed (a cache keyed by
+    the mesh handed the second the first's group, then lost it, and
+    made a group inside ``--all``'s trace of llama4-scout's multi-pod
+    ``train_4k``)."""
+    import gc
+
+    from repro_torch.distributed import parallel
+
+    with dryrun.fake_world(8):
+        first = dryrun._cpu_mesh((2, 2, 2))
+        g1 = parallel._groups_of(first, ("pod", "data"))[0]
+    with dryrun.fake_world(8):
+        second = dryrun._cpu_mesh((2, 2, 2))
+        assert second == first
+        g2 = parallel._groups_of(second, ("pod", "data"))[0]
+        assert g2 is not g1
+        del first
+        gc.collect()
+        assert parallel._groups_of(second, ("pod", "data"))[0] is g2
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_every_cell_builds_at_the_production_mesh(multi_pod):
+    """``--all`` writes a ``skipped`` record for a cell whose step does
+    not build on the production mesh (a ``ValueError`` or
+    ``NotImplementedError`` of `steps.build_step`): none does now, the
+    40-head cells of llama4-scout and minicpm3-4b included.  (The
+    registry's own skips, the full-attention archs' ``long_500k``, are
+    printed and write no record.)"""
+    from repro_torch.configs.registry import all_cells
+
+    shape = dryrun.production_shape(multi_pod)
+    cells = [(a, s) for a, s, skip in all_cells(include_skipped=True)
+             if not skip]
+    assert {("llama4-scout-17b-a16e", "train_4k"),
+            ("minicpm3-4b", "decode_32k")} <= set(cells)
+    with dryrun.fake_world(256 * (2 if multi_pod else 1)):
+        mesh = dryrun._cpu_mesh(shape)
+        for arch, shape_name in cells:
+            step = tsteps.build_step(arch, shape_name, multi_pod=multi_pod,
+                                     mesh=mesh)
+            assert step.name.startswith(f"{arch}:{shape_name}")
     assert not dist.is_initialized()
 
 

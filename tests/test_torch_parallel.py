@@ -31,8 +31,9 @@ Losses, gradient norms, parameters and AdamW moments are held within
 `_torch_train`'s tolerances; each case's sharded ``init_args`` must gather
 to the unsharded init bit for bit, and its batch be the rank's rows of
 each microbatch.  The mesh checks (data ranks dividing the microbatch and
-the MoE groups, heads and experts dividing "model", the sequence
-splitting over "model") raise ``ValueError`` before any collective.
+the MoE groups, a query head for every model rank, experts dividing
+"model", the sequence splitting over "model") raise ``ValueError`` before
+any collective.
 """
 import dataclasses
 import json
@@ -274,12 +275,13 @@ def test_mesh_checks_raise_before_any_collective():
     with pytest.raises(ValueError, match="microbatches of 4"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
                           mesh=_mesh(8, 1))
-    # 3 kv heads neither divide "model" of 2 nor are divided by it (the
-    # reduced internlm2's 2 kv heads over 4 model ranks are replicated)
-    with pytest.raises(ValueError, match="kv heads"):
+    # 4 query heads over 8 model ranks: a rank would hold none (heads that
+    # "model" does not divide are split unevenly,
+    # `test_torch_parallel_heads.py`)
+    with pytest.raises(ValueError, match="heads .4. are fewer"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
-                          cfg_override={"n_heads": 6, "n_kv_heads": 3},
-                          mesh=_mesh(1, 2))
+                          cfg_override={"n_heads": 4, "n_kv_heads": 2},
+                          mesh=_mesh(1, 8))
     # 4 data ranks divide a microbatch of 4 sequences but not 2 MoE groups
     over = _torch_over("qwen3-moe-235b-a22b")
     over["moe"] = dataclasses.replace(over["moe"], dispatch_groups=2)

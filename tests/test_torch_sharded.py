@@ -146,6 +146,41 @@ def test_shard_padding_is_the_references():
     assert tsharded._axis_size(WORLD, "data") == WORLD
 
 
+@pytest.mark.parametrize("nshards,block", [(4, 64), (3, 128), (8, 64)])
+def test_shard_blocks_are_the_padded_copys_blocks(nshards, block):
+    """`shard_block` cuts a shard straight from the index (a host index of
+    51.5 GB is never padded whole): every shard equals the block of
+    `_pad_for_shards`' padded copy, padding included, on an index of
+    1,000 rows that needs it; a shard without padding is a view of the
+    index's rows."""
+    x, _ = _csr_data()
+    tidx = _port_index(jsnn.build_index(x[:1000]))
+    xs, al, hn, od, _, per = tsharded._pad_for_shards(tidx, nshards, block)
+    assert xs.shape[0] > tidx.n
+    for k in range(nshards):
+        rows = slice(k * per, (k + 1) * per)
+        got = tsharded.shard_block(tidx, nshards, k, block)
+        for g, w in zip(got[:3], (xs, al, hn)):
+            assert torch.equal(g, w[rows])
+        np.testing.assert_array_equal(got[3], od[rows])
+    whole = tsharded.shard_block(_port_index(jsnn.build_index(x[:1024])), 2,
+                                 0, 64)
+    assert whole[0].shape[0] == 512 and whole[0]._base is not None
+
+
+def test_each_rank_takes_its_own_card(monkeypatch):
+    """A mesh on the card first makes the rank's card current: torchrun's
+    LOCAL_RANK, else the rank modulo the cards (`core.sharded`'s shards
+    and NCCL's operands go to ``torch.cuda.current_device()``)."""
+    import torch.distributed as dist
+
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert tmesh.local_card(4) == 3
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.setattr(dist, "get_rank", lambda: 6)
+    assert tmesh.local_card(4) == 2
+
+
 # --------------------------------------------------------------------------- #
 # The sharded graph builder                                                    #
 # --------------------------------------------------------------------------- #
