@@ -162,14 +162,17 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
     summed over "model", the outputs gathered) at (2, 2) are records with
     terms, and so is minicpm3-4b's ``train_4k`` at the production (16,
     16), whose 40 MLA heads "model" does not divide (three heads on this
-    rank, rank 0); a cell the port cannot split stays a ``skipped``
+    rank, rank 0; traced at 2 of its 62 layers, the depth fit is
+    `test_depth_fit_equals_a_full_depth_trace`'s); a cell the port cannot
+    split stays a ``skipped``
     record (the reduced nemotron-4-15b's 4 heads over a "model" of 8: a
     rank would hold none)."""
     recs = [dryrun.run_cell("mind", "train_batch", mesh_shape=(2, 2),
                             out_dir=str(tmp_path), verbose=False),
             dryrun.run_cell("dlrm-mlperf", "serve_p99",
                             mesh_shape=(2, 2), verbose=False),
-            dryrun.run_cell("minicpm3-4b", "train_4k", verbose=False),
+            dryrun.run_cell("minicpm3-4b", "train_4k", fit_lm=False,
+                            cfg_override={"n_layers": 2}, verbose=False),
             dryrun.run_cell("nemotron-4-15b", "prefill_32k",
                             mesh_shape=(1, 8),
                             cfg_override=_reduced("nemotron-4-15b"),
