@@ -12,14 +12,18 @@
         --one-card step --f32           # heads "model" does not divide
 
     torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
+        --arch nemotron-4-15b --layers 2 --meshes 4x1 --batch 12 \
+        --one-card grads --f32          # microbatches of 6 over 4 ranks
+
+    torchrun --standalone --nproc-per-node 4 experiments/sharded_lm/run.py \
         --device cpu --reduced          # a rehearsal: gloo, the reduced config
 
 Each rank joins one NCCL group (torchrun's rendezvous on this host) on its
 own card and, for each ``--meshes`` entry (data x model), builds
 ``launch.steps.build_step(arch, "train_4k", mesh=...)`` at full width and
 ``--layers`` layers (0: the config's own depth) with a global batch of
-``--batch`` sequences of 4,096
-tokens (by default one sequence a data rank in each of the config's
+``--batch`` sequences of ``--seq`` tokens (4,096
+by default; by default one sequence a data rank in each of the config's
 microbatches: 8 for an MoE model, 2 dense), makes its
 shards with ``init_args`` (one full leaf at a time), runs one untimed step
 and ``--steps`` timed ones (host clock, every card synchronized and the
@@ -40,13 +44,23 @@ reduced config, 4 sequences of 32 tokens).
 ``--heads H [--kv-heads K]`` replaces the published head counts
 (`heads.head_override`): 38 MLA heads over a "model" of 4 give its ranks
 10, 10, 9 and 9 whole heads, 10 query heads over 2 KV heads 3, 3, 2 and
-2, rank 1's reading both KV heads.  ``--f32`` computes in float32 (the
+2, rank 1's reading both KV heads, 2 query heads 1, 1, 0 and 0.  The
+splits GSPMD pads: ``--seq 4094`` cuts the sequence over a "model" of 4
+into 1,024, 1,024, 1,024 and 1,022 (with ``--chunk-q 2047``: the query
+chunk must divide it); ``--batch 12`` gives a dense model's two
+microbatches of 6 sequences, 2, 2, 2 and 0 rows over 4 data ranks;
+``--dispatch-groups G`` sets an MoE's ``dispatch_groups`` (4,094 tokens a microbatch: gcd(4094, 32) = 2
+groups over 4 data ranks); ``--xent-chunk N`` sets the cross-entropy's
+tokens a chunk (one card's reference holds a chunk's float32 logits).
+``--f32`` computes in float32 (the
 parameters are float32 either way).  ``--one-card`` first runs one card's
 reference on rank 0 from the same seeded init and batch (the other ranks
-wait): ``step``, the unsharded step (its loss and gradient norm), or
-``loss``, the loss alone under ``no_grad`` (a model whose training state
-one card cannot hold); the record then holds the sharded step-0 loss
-(and norm) beside it.  Imports no JAX.
+wait): ``step``, the unsharded step (its loss and gradient norm),
+``grads``, the same loss and norm from the step's ``grad_fn`` (no
+optimizer state: half the memory), or ``loss``, the loss alone under
+``no_grad`` (a model whose gradients one card cannot hold); the record
+then holds the sharded step-0 loss (and norm) beside it.  Imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -70,6 +84,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT / "src"))
 
 from heads import described, head_override  # noqa: E402
+from repro_torch.distributed import parallel  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
@@ -82,19 +97,27 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def one_card_reference(arch: str, over: dict, batch: int, mode: str,
+def one_card_reference(arch: str, over: dict, shape: dict, mode: str,
                        device: str, reduced: bool) -> dict:
     """Rank 0's unsharded reference from the step's seeded init and batch:
-    ``step`` runs the unsharded step once (loss, gradient norm), ``loss``
-    the loss alone under ``no_grad`` (the parameters alone on the card,
-    as `steps.build_step`'s ``init_args`` makes them)."""
+    ``step`` runs the unsharded step once (loss, gradient norm), ``grads``
+    its ``grad_fn`` (the same loss and norm, without optimizer state),
+    ``loss`` the loss alone under ``no_grad`` (the parameters alone on the
+    card, as `steps.build_step`'s ``init_args`` makes them)."""
     kw = (dict(reduced=True, cfg_override=over) if reduced else
-          dict(cfg_override=over, shape_override={"global_batch": batch}))
+          dict(cfg_override=over, shape_override=shape))
     plain = steps.build_step(arch, "train_4k", **kw)
-    if mode == "step":
+    if mode in ("step", "grads"):
         params, state, data = plain.init_args(device=device)
+        if mode == "grads":
+            del state
+            loss, grads = plain.grad_fn(params, data)
+            gn = torch.sqrt(sum(torch.sum(torch.square(g))
+                                for g in tree_leaves(grads)))
+            return {"loss": float(loss), "grad_norm": float(gn)}
         m = plain.fn(params, state, data)
         return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    batch = shape["global_batch"]
     cfg = dataclasses.replace(
         steps.get_arch(arch).make_config("train_4k", reduced), **over)
     if reduced:
@@ -119,7 +142,7 @@ def one_card_reference(arch: str, over: dict, batch: int, mode: str,
 
 def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
              n_steps: int, device: str, reduced: bool, over: dict | None = None,
-             one_card: str | None = None) -> dict:
+             one_card: str | None = None, seq: int | None = None) -> dict:
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     mesh = init_device_mesh(device, shape, mesh_dim_names=("data", "model"))
@@ -133,11 +156,14 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
         batch = batch or steps.lm_accum(cfg, False) * shape[0]
         over["n_layers"] = cfg.n_layers
     cfg = dataclasses.replace(cfg, **over)
+    cell = {"global_batch": batch}
+    if seq:
+        cell["seq_len"] = seq
     ref = None
     if one_card:
         # before the shards: one card holds the reference alone
         if dist.get_rank() == 0:
-            ref = one_card_reference(arch, over, batch, one_card, device,
+            ref = one_card_reference(arch, over, cell, one_card, device,
                                      reduced)
         if cuda:
             torch.cuda.empty_cache()
@@ -147,8 +173,7 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
                               cfg_override=over or None)
     else:
         sd = steps.build_step(arch, "train_4k", mesh=mesh,
-                              cfg_override=over,
-                              shape_override={"global_batch": batch})
+                              cfg_override=over, shape_override=cell)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     where, state_gb = "init_args", 0.0
@@ -192,10 +217,17 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
     del params, state, data
     if cuda:
         torch.cuda.empty_cache()
-    data_tokens = batch * (
-        32 if reduced else steps.get_arch(arch).shapes["train_4k"]["seq_len"])
+    seq_len = sd.arg_specs[2]["tokens"].shape[1]
+    data_tokens = batch * seq_len
     mean_ms = sum(times) / len(times)
-    extra = {"heads": described(over), "compute_dtype": str(cfg.dtype)}
+    accum = steps.lm_accum(cfg, reduced)
+    extra = {"heads": described(over), "compute_dtype": str(cfg.dtype),
+             "seq_len": seq_len, "chunk_q": cfg.chunk_q,
+             # each data rank's rows of a microbatch
+             "rows_a_rank": [len(parallel.data_rows(batch, accum, shape[0], r))
+                             // accum for r in range(shape[0])]}
+    if cfg.moe is not None:
+        extra["dispatch_groups"] = cfg.moe.dispatch_groups
     if ref is not None:
         extra["one_card"] = ref
         extra["first_loss_rel"] = abs(losses[0] - ref["loss"]) / abs(
@@ -205,7 +237,7 @@ def run_mesh(arch: str, layers: int, shape: tuple, batch: int,
                 norms[0] - ref["grad_norm"]) / abs(ref["grad_norm"])
     return {**extra, "arch": arch, "layers": cfg.n_layers, "mesh": list(shape),
             "global_batch": batch, "tokens_a_step": data_tokens,
-            "accum": steps.lm_accum(cfg, reduced),
+            "accum": accum,
             "local_params_b": local / 1e9, "init_s": init_s,
             "step_ms": times, "tokens_per_s": data_tokens / (mean_ms / 1e3),
             "model_tflops_per_card": sd.model_flops / (mean_ms / 1e3) / 1e12
@@ -233,11 +265,25 @@ def main() -> None:
     ap.add_argument("--heads", type=int, default=None)
     ap.add_argument("--kv-heads", type=int, default=None)
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--one-card", choices=["step", "loss"], default=None)
+    ap.add_argument("--one-card", choices=["step", "grads", "loss"],
+                    default=None)
+    ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--chunk-q", type=int, default=None)
+    ap.add_argument("--xent-chunk", type=int, default=None)
+    ap.add_argument("--dispatch-groups", type=int, default=None)
     args = ap.parse_args()
     over = head_override(args.arch, args.heads, args.kv_heads, args.reduced)
     if args.f32:
         over["dtype"] = torch.float32
+    if args.chunk_q:
+        over["chunk_q"] = args.chunk_q
+    if args.xent_chunk:
+        over["xent_chunk"] = args.xent_chunk
+    if args.dispatch_groups:
+        moe = steps.get_arch(args.arch).make_config("train_4k",
+                                                    args.reduced).moe
+        over["moe"] = dataclasses.replace(
+            moe, dispatch_groups=args.dispatch_groups)
     local_rank = int(os.environ["LOCAL_RANK"])
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,7 +304,7 @@ def main() -> None:
             try:
                 rec = run_mesh(args.arch, args.layers, shape, args.batch,
                                args.steps, args.device, args.reduced, over,
-                               args.one_card)
+                               args.one_card, args.seq)
             except OutOfMemory as e:
                 rec = dict(e.args[0], card=card_line())
                 print(json.dumps(rec), flush=True)

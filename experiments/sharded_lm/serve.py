@@ -58,9 +58,13 @@ mesh=...)``:
 every step (`heads.head_override`), so that a "model" of four cards gets
 heads it does not divide: ``--arch minicpm3-4b --period-layers 2
 --heads 38`` (10, 10, 9 and 9 MLA heads a rank; its ``long_500k`` is a
-skipped cell of the registry and is left out), or llama4-scout with
+skipped cell of the registry and is left out), llama4-scout with
 ``--heads 10 --kv-heads 2`` (3, 3, 2 and 2 query heads, rank 1's reading
-both KV heads).
+both KV heads), or ``--heads 2 --kv-heads 1`` (1, 1, 0 and 0: two ranks
+with no head).  ``--seq 4094 --chunk-q 2047 --cells prefill_32k`` runs
+the period part's prefill alone at a prompt that "model" does not divide
+(blocks of 1,024, 1,024, 1,024 and 1,022; the query chunk must divide
+the prompt), its cache gathered from those blocks.
 
 Rank 0 prints one JSON line a (part, mesh) with the card's name and power
 limit; ``--out`` also writes them there, after each one.  A part that
@@ -125,10 +129,14 @@ class Run:
 
     def __init__(self, device: str, reduced: bool, mesh_shape: tuple,
                  arch: str = LLAMA4, over: dict | None = None,
-                 period: int | None = None):
+                 period: int | None = None, prompt: dict | None = None,
+                 cells: tuple | None = None):
         self.device, self.reduced = device, reduced
         # the period part's arch, depth and the head override of every step
         self.arch, self.over, self.period = arch, dict(over or {}), period
+        # the period part's prefill: its length and query chunk ("seq",
+        # "chunk_q"), and the cells it runs (None: all)
+        self.prompt, self.cells = dict(prompt or {}), cells
         self.cuda = device == "cuda"
         self.dev = torch.device(device, torch.cuda.current_device()) \
             if self.cuda else torch.device("cpu")
@@ -427,11 +435,15 @@ def serve_once(run: Run, sd, params, toks, cache=None, pos=None,
                rows=slice(None), timer=None):
     """One call of ``sd``, a prefill of ``toks`` or (with a ``cache``) a
     decode step at ``pos``, after an untimed one (a prefill of the first
-    2,048 tokens; the decode step itself, which writes the same entry):
+    2,048 tokens, or of all of a prompt up to 8,192; the decode step
+    itself, which writes the same entry):
     (its outputs, its ms by ``timer``, `Run.timed` by default)."""
     timer = timer or run.timed
     if cache is None:
-        sd.fn(params, toks[rows, :run.size["warm"] or toks.shape[1]])
+        warm = run.size["warm"]
+        # (a short prompt warms up whole: its query chunk divides it alone)
+        sd.fn(params, toks[rows, :warm if warm and toks.shape[1] > 4 * warm
+                           else toks.shape[1]])
         return timer(lambda: sd.fn(params, toks[rows]))
     sd.fn(params, cache, toks[rows], pos)
     return timer(lambda: sd.fn(params, cache, toks[rows], pos))
@@ -451,14 +463,21 @@ def part_period(run: Run) -> dict:
     skip = steps.get_arch(arch).skip_shapes
     cells = tuple((shape, batch) for shape, batch in (
         ("prefill_32k", dp), ("decode_32k", z["decode_batch"]),
-        ("long_500k", 1)) if shape not in skip)
+        ("long_500k", 1)) if shape not in skip
+        and shape in (run.cells or (shape,)))
     for shape, batch in cells:
         if run.reduced:
             batch = 4
-        sds = {v: run.step(arch, shape, layers, batch=batch, cfg_over=o)
+        seq, chunk = None, {}
+        if shape == "prefill_32k":
+            seq = run.prompt.get("seq")
+            if run.prompt.get("chunk_q"):
+                chunk = {"chunk_q": run.prompt["chunk_q"]}
+        sds = {v: run.step(arch, shape, layers, batch=batch, seq=seq,
+                           cfg_over={**(o or {}), **chunk})
                for v, o in VARIANTS.items()}
-        plains = {v: run.step(arch, shape, layers, batch=batch,
-                              mesh=False, cfg_over=o)
+        plains = {v: run.step(arch, shape, layers, batch=batch, seq=seq,
+                              mesh=False, cfg_over={**(o or {}), **chunk})
                   for v, o in VARIANTS.items()}
         cfg = run.cfg(arch, shape, layers)
         long = shape == "long_500k"
@@ -479,9 +498,10 @@ def part_period(run: Run) -> dict:
                 run, args[1], cache_shapes(cfg, batch, s), cspec, SEED + 3)
             out, ms = serve_once(run, sd, args[0], toks, cache, s // 2,
                                  rows=run.rows(batch, long))
-            got[v] = (out[0], ms, parallel.gather_tree(out[1], cspec,
-                                                       run.mesh)
-                      if v == "f32" else None)
+            # (a prompt that "model" does not divide: unequal blocks)
+            got[v] = (out[0], ms, parallel.gather_tree(
+                out[1], cspec, run.mesh, cache_shapes(cfg, batch, s))
+                if v == "f32" else None)
             del out, cache
         peaks = run.peaks()
         del args
@@ -489,7 +509,8 @@ def part_period(run: Run) -> dict:
                                               batch, s, toks, got))
         del got
         tag = "long" if long else shape.split("_")[0]
-        rec.update({f"{tag}_batch": batch, f"{tag}_peak_gb": peaks})
+        rec.update({f"{tag}_batch": batch, f"{tag}_tokens": s,
+                    f"{tag}_peak_gb": peaks})
         if ref is not None:
             rec.update({f"{tag}_{k}": v for k, v in ref.items()})
         if run.cuda:
@@ -662,6 +683,12 @@ def main() -> None:
     ap.add_argument("--period-layers", type=int, default=None)
     ap.add_argument("--heads", type=int, default=None)
     ap.add_argument("--kv-heads", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None,
+                    help="the period part's prompt length")
+    ap.add_argument("--chunk-q", type=int, default=None,
+                    help="the period part's prefill query chunk")
+    ap.add_argument("--cells", nargs="+", default=None,
+                    help="the period part's cells (default: all)")
     args = ap.parse_args()
     over = head_override(args.arch, args.heads, args.kv_heads, args.reduced)
     local_rank = int(os.environ["LOCAL_RANK"])
@@ -685,7 +712,10 @@ def main() -> None:
                 shape = tuple(int(v) for v in m.split("x"))
                 t = time.perf_counter()
                 rec = PARTS[part](Run(args.device, args.reduced, shape,
-                                      args.arch, over, args.period_layers))
+                                      args.arch, over, args.period_layers,
+                                      {"seq": args.seq,
+                                       "chunk_q": args.chunk_q},
+                                      args.cells))
                 rec.update(mesh=list(shape), card=card,
                            seconds=time.perf_counter() - t)
                 if dist.get_rank() == 0:

@@ -69,6 +69,24 @@ axes ("data", "model") or ("pod", "data", "model").
   the loss divides by the microbatch's global label count, and the MoE
   aux losses are means over the microbatch's global groups, so that the
   sum over data ranks of the rank losses is the global loss.
+* **Splits that the ranks do not divide**, which the reference's GSPMD
+  pads: a sequence over "model" (training and prefill), a microbatch over
+  the data ranks and the MoE groups over them are cut into `block`'s
+  blocks, ``ceil(n / ranks)`` a rank and the last ranks short or empty.
+  The sequence's gathers and reduce-scatters pad each block to that width
+  and drop the padding (`_AllGather`, `_ReduceScatter`), so no padded row
+  reaches a norm, the router, the loss or the cache (`cache_block`), and
+  `last_token` reads the rank that holds the last token.  A data rank
+  without rows runs every microbatch empty and joins every collective
+  (an empty tensor moves nothing: its whole group holds none).  MoE
+  groups that the data ranks do not hold as their own tokens move there
+  and back (`moe_groups`, `to_groups`, `from_groups`), and a rank's aux
+  values are its sum over all the groups.  Query heads fewer than the
+  "model" ranks leave the last ranks none (`head_split`): they compute no
+  attention, add a zero block to the row-parallel sums and join every
+  gather with zero-width pieces.  What the reference's jit refuses (an
+  argument that an axis does not divide) the step refuses before any
+  collective (`launch.steps.check_args`).
 * **Serving** (`ParallelContext.serve_layout`): the KV cache is the
   reference's ``kv_cache``/``mla_cache`` layout, (L, B / dp, S / tp, ...)
   (batch over the data axes, sequence over "model"), or for
@@ -127,6 +145,7 @@ from __future__ import annotations
 
 import collections
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -192,8 +211,20 @@ def head_split(n_heads: int, tp: int) -> list:
 
 def kv_span(h0: int, h1: int, group: int) -> tuple:
     """The KV heads ``[k0, k1)`` that query heads ``[h0, h1)`` read, with
-    ``group`` query heads a KV head."""
+    ``group`` query heads a KV head (none for no query head)."""
+    if h1 == h0:
+        return h0 // group, h0 // group
     return h0 // group, (h1 - 1) // group + 1
+
+
+def block(total: int, parts: int, pos: int) -> tuple:
+    """GSPMD's block of a dimension of ``total`` entries cut over ``parts``
+    ranks: ``ceil(total / parts)`` entries a rank, the last ranks short or
+    empty (30 over 4: 8, 8, 8, 6; 5 over 4: 2, 2, 1, 0).  (the block's
+    width, rank ``pos``'s first entry, its count)."""
+    width = -(-total // parts)
+    lo = min(total, pos * width)
+    return width, lo, min(total, lo + width) - lo
 
 
 def _block(n: int, parts: int, name: str) -> int:
@@ -245,17 +276,21 @@ def shard_tree(full, specs, mesh):
     return _map_path(one, full)
 
 
-def gather_tree(local, specs, mesh):
+def gather_tree(local, specs, mesh, shapes=None):
     """The full tensors of a tree of shards (`shard_tree`'s inverse), on
-    every rank: each a DTensor of its spec's placements, ``full_tensor``."""
+    every rank: each a DTensor of its spec's placements, ``full_tensor``.
+    ``shapes`` (a tree of the full shapes) is needed where a dimension is
+    cut into unequal blocks (`block`: a prefill's cache of a prompt that
+    "model" does not divide)."""
     from torch.distributed.tensor import DTensor
 
     def one(path, t):
         spec = _spec_at(specs, path)
         if not any(spec.axes(d) for d in range(t.ndim)):
             return t.clone()
-        shape = [n * _groups_of(mesh, spec.axes(d))[1] if spec.axes(d) else n
-                 for d, n in enumerate(t.shape)]
+        shape = (list(_spec_at(shapes, path)) if shapes is not None else
+                 [n * _groups_of(mesh, spec.axes(d))[1] if spec.axes(d)
+                  else n for d, n in enumerate(t.shape)])
         dt = DTensor.from_local(t.contiguous(), mesh,
                                 to_placements(spec, mesh),
                                 shape=torch.Size(shape),
@@ -314,21 +349,29 @@ def _collective(name: str, old: str):
     return getattr(dist, name, None) or getattr(dist, old)
 
 
-def _all_gather(x, dim: int, group, n: int):
+def _all_gather(x, dim: int, group, n: int, keep: int | None = None):
     """``x`` gathered along ``dim`` over ``group``, contiguous (the layout
-    of the unsharded weight, so that a product takes the same GEMM)."""
+    of the unsharded weight, so that a product takes the same GEMM); with
+    ``keep``, its first ``keep`` entries along ``dim`` (the ranks' blocks
+    padded to one width, the padding at the end).  An empty ``x`` (every
+    rank of the group holds none: a data rank without rows) moves
+    nothing."""
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    _collective("all_gather_single", "all_gather_into_tensor")(
-        out, x, group=group)
+    if out.numel():
+        _collective("all_gather_single", "all_gather_into_tensor")(
+            out, x, group=group)
+    if keep is not None and keep != out.shape[0]:
+        out = out[:keep]
     return out.movedim(0, dim).contiguous()
 
 
 def _reduce_scatter(g, dim: int, group, n: int):
     g = g.movedim(dim, 0).contiguous()
     out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
-    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
-        out, g, op=dist.ReduceOp.SUM, group=group)
+    if out.numel():
+        _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+            out, g, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
 
 
@@ -385,37 +428,54 @@ class _AllGather(torch.autograd.Function):
     """Blocks gathered along ``dim`` over ``group`` (``n`` ranks, this one
     at ``pos``); the backward reduce-scatters the ranks' partial
     gradients, or with ``same`` takes this rank's block of a gradient the
-    same on every rank."""
+    same on every rank.  With ``width`` and ``full`` the blocks are
+    unequal (`block`): each is padded to ``width``, and the first ``full``
+    entries of the gather kept."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n, pos, same):
-        ctx.args = (dim, group, n, pos, same)
-        return _all_gather(x, dim, group, n)
+    def forward(ctx, x, dim, group, n, pos, same, width=None, full=None):
+        ctx.args = (dim, group, n, pos, same, width, x.shape[dim])
+        if width is not None:
+            x = _pad_to(x, dim, width)
+        return _all_gather(x, dim, group, n, full)
 
     @staticmethod
     def backward(ctx, g):
-        dim, group, n, pos, same = ctx.args
+        dim, group, n, pos, same, width, count = ctx.args
+        none = (None,) * 7
+        b = g.shape[dim] // n if width is None else width
         if same:
-            b = g.shape[dim] // n
-            return g.narrow(dim, pos * b, b), None, None, None, None, None
-        return (_reduce_scatter(g, dim, group, n).contiguous(), None, None,
-                None, None, None)
+            # (an empty trailing block may start past the kept entries)
+            lo = min(pos * b, g.shape[dim])
+            return (g.narrow(dim, lo, count),) + none
+        g = _reduce_scatter(_pad_to(g, dim, n * b), dim, group, n)
+        if count != b:
+            g = g.narrow(dim, 0, count)
+        return (g.contiguous(),) + none
 
 
 class _ReduceScatter(torch.autograd.Function):
     """The ranks' partial sums reduce-scattered along ``dim``: this rank's
-    block of the sum, contiguous (as the unsharded tensor is, so that the
-    reductions that read it sum in its order); the backward all-gathers."""
+    block of the sum (``pos``'s of `block`: a dimension that ``n`` does
+    not divide is padded to ``n`` blocks of its width), contiguous (as the
+    unsharded tensor is, so that the reductions that read it sum in its
+    order); the backward all-gathers."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n):
-        ctx.args = (dim, group, n)
-        return _reduce_scatter(x, dim, group, n).contiguous()
+    def forward(ctx, x, dim, group, n, pos):
+        full = x.shape[dim]
+        width, _, count = block(full, n, pos)
+        ctx.args = (dim, group, n, width, full)
+        out = _reduce_scatter(_pad_to(x, dim, n * width), dim, group, n)
+        if count != width:
+            out = out.narrow(dim, 0, count)
+        return out.contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        dim, group, n = ctx.args
-        return _all_gather(g, dim, group, n), None, None, None
+        dim, group, n, width, full = ctx.args
+        return (_all_gather(_pad_to(g, dim, width), dim, group, n, full),
+                None, None, None, None)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -445,6 +505,19 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class MoEGroups(NamedTuple):
+    """A rank's MoE groups (`ParallelContext.moe_groups`): ``count`` groups
+    of ``size`` tokens of the ``total`` global ones; the rank's part of a
+    mean over the groups is its own mean times ``share``, or with ``share``
+    None its sum over ``total``; ``move``, where not None, the layout
+    `ParallelContext.to_groups` and `from_groups` move its tokens by."""
+    count: int
+    size: int
+    share: float | None
+    total: int
+    move: tuple | None
 
 
 def _tensor_parallel(ctx) -> bool:
@@ -535,7 +608,12 @@ class ParallelContext:
         self.tp_group, self.tp_size, self.tp_rank = _groups_of(
             mesh, ("model",))
         self.spec_of = spec_of
-        self.moe_global_groups = None    # set by the step a microbatch
+        # the global rows of the batch the data ranks split (`data_rows`),
+        # a microbatch's in training; set by the step
+        self.batch_rows = None
+        # the sequence the residual stream is cut along (`gather_seq`,
+        # `last_token`); set by the step from its tokens
+        self.seq_len = None
         self.kv_rep, self.kv_group, self.kv_pos = 1, None, 0
         # the serving cache's sequence axes (`serve_layout`)
         self.seq_group, self.seq_size, self.seq_pos = (
@@ -633,16 +711,58 @@ class ParallelContext:
         el = n_experts // self.tp_size
         return self.tp_rank * el, el
 
-    def moe_groups(self, t_local: int, dispatch_groups: int) -> tuple:
-        """(this rank's groups, its share of the global mean): the
-        reference's ``gcd(T, dispatch_groups)`` groups over the
-        microbatch's global tokens, split over the data ranks; tokens
-        replicated over the data ranks (``long_500k``) are all the global
-        tokens, and every rank runs all their groups."""
+    def moe_groups(self, shape: tuple, dispatch_groups: int) -> MoEGroups:
+        """This rank's part of the reference's ``gcd(T, dispatch_groups)``
+        MoE groups over the T global tokens of the batch (`batch_rows`
+        rows, ``shape`` = (this rank's rows, ..., d) its tokens), as
+        GSPMD cuts them over the data ranks (`block`: ``ceil(G / dp)`` a
+        rank, the last ranks fewer or none).  Where the data ranks divide
+        the rows and the groups, a rank's tokens are its groups and its
+        aux values are its mean times ``1 / dp``; otherwise the tokens
+        move to the ranks of their groups (`to_groups`) unless they are
+        there already, and a rank's part of the global mean is its sum
+        over G.  Tokens replicated over the data ranks (``long_500k``)
+        are all the global tokens: every rank runs all their groups."""
+        t = math.prod(shape[:-1])
+        dg = max(dispatch_groups, 1)
         if self.tokens_replicated:
-            return math.gcd(t_local, max(dispatch_groups, 1)), 1.0
-        g = math.gcd(t_local * self.dp_size, max(dispatch_groups, 1))
-        return g // self.dp_size, 1.0 / self.dp_size
+            g = math.gcd(t, dg)
+            return MoEGroups(g, t // g, 1.0, g, None)
+        dp, rows = self.dp_size, self.batch_rows
+        per_row = math.prod(shape[1:-1])
+        total = rows * per_row
+        g = math.gcd(total, dg)
+        size = total // g
+        if rows % dp == 0 and g % dp == 0:
+            return MoEGroups(g // dp, size, 1.0 / dp, g, None)
+        tokens = [tuple(v * per_row for v in block(rows, dp, r)[1:])
+                  for r in range(dp)]
+        groups = [tuple(v * size for v in block(g, dp, r)[1:])
+                  for r in range(dp)]
+        count = groups[self.dp_rank][1] // size
+        move = None if tokens == groups else (
+            block(rows, dp, 0)[0] * per_row, block(g, dp, 0)[0] * size,
+            total, tokens[self.dp_rank], groups[self.dp_rank])
+        return MoEGroups(count, size, None, g, move)
+
+    def to_groups(self, x, move):
+        """A rank's tokens (t, ...) as the tokens of its MoE groups: every
+        data rank's gathered (padded to the widest rank's), and this
+        rank's groups' kept; the backward reduce-scatters the groups'
+        gradients back to the ranks that hold their tokens."""
+        width, _, total, _, (lo, count) = move
+        x = _AllGather.apply(x, 0, self.dp_group, self.dp_size,
+                             self.dp_rank, False, width, total)
+        return x.narrow(0, lo, count)
+
+    def from_groups(self, y, move):
+        """`to_groups`' inverse: every rank's groups' outputs gathered
+        (padded to the most groups a rank), and this rank's tokens'
+        kept."""
+        _, width, total, (lo, count), _ = move
+        y = _AllGather.apply(y, 0, self.dp_group, self.dp_size,
+                             self.dp_rank, False, width, total)
+        return y.narrow(0, lo, count)
 
     # ---- the model's hooks ----
     def constrain(self, x, name, spec):
@@ -656,27 +776,37 @@ class ParallelContext:
         """The rank's block of the sequence, (B, S / tp, ...), gathered
         over "model" to (B, S, ...); the backward reduce-scatters the
         model ranks' partial gradients, or with ``same`` (a gradient the
-        same on every model rank) takes the rank's block."""
+        same on every model rank) takes the rank's block.  A sequence that
+        "model" does not divide is cut as GSPMD pads it (`block`): each
+        block padded to ``ceil(S / tp)`` for the gather, the padding
+        dropped."""
         OP_COUNTS["gather_seq"] += 1
+        width = block(self.seq_len, self.tp_size, 0)[0]
         return _AllGather.apply(x, 1, self.tp_group, self.tp_size,
-                                self.tp_rank, same)
+                                self.tp_rank, same, width, self.seq_len)
 
     def scatter_seq(self, x):
         """A row-parallel product's partial output (B, S, ...) summed over
-        "model" into the rank's block of the sequence, (B, S / tp, ...);
-        the backward all-gathers."""
+        "model" into the rank's block of the sequence, (B, S / tp, ...),
+        or its `block` where "model" does not divide S; the backward
+        all-gathers."""
         OP_COUNTS["scatter_seq"] += 1
-        return _ReduceScatter.apply(x, 1, self.tp_group, self.tp_size)
+        return _ReduceScatter.apply(x, 1, self.tp_group, self.tp_size,
+                                    self.tp_rank)
 
     def last_token(self, x):
-        """The last token's rows (B, d) of the residual (B, S / tp, d),
-        which the last model rank's block holds, on every rank; the whole
-        residual's last row without sequence parallelism."""
+        """The last token's rows (B, d) of the residual (B, S / tp, d), on
+        every rank: each rank's last row gathered (zeros from an empty
+        block), the one of the rank whose block holds token S - 1 kept
+        (the last rank's where "model" divides S); the whole residual's
+        last row without sequence parallelism."""
         if not self.seq_parallel:
             return x[:, -1, :]
         OP_COUNTS["last_token"] += 1
-        return _all_gather(x[:, -1:, :], 1, self.tp_group,
-                           self.tp_size)[:, -1, :]
+        row = x[:, -1:, :] if x.shape[1] else x.new_zeros(
+            (x.shape[0], 1) + tuple(x.shape[2:]))
+        owner = (self.seq_len - 1) // block(self.seq_len, self.tp_size, 0)[0]
+        return _all_gather(row, 1, self.tp_group, self.tp_size)[:, owner, :]
 
     def _plan(self, storage: Spec, gathered: Spec, ndim: int,
               model_kind: str = "same") -> tuple:
@@ -866,21 +996,27 @@ class ParallelContext:
         the decode layout: (B, S / tp, Hkv, D) through an all-to-all over
         "model" (sequence block j of this rank's heads to rank j; under
         `replicate_kv` one copy of each head kept), or MLA's block of the
-        latents, which every model rank holds whole."""
+        latents, which every model rank holds whole.  A prompt that
+        "model" does not divide gives the blocks of `block` (the prompt
+        padded for the all-to-all, the padding dropped)."""
         if self.tp_size == 1:
             return t
         b, s, n = t.shape[0], t.shape[1], self.tp_size
-        blk = _block(s, n, "the prefill's sequence")
+        blk, lo, count = block(s, n, self.tp_rank)
         if t.ndim == 3:
-            return t[:, self.tp_rank * blk:(self.tp_rank + 1) * blk]
+            return t[:, lo:lo + count]
         spans = self.kv_spans
         if spans is not None:        # (`split_heads`) unequal KV heads
             width = max(k1 - k0 for k0, k1 in spans)
             t = _pad_to(t, 2, width)
+        # a prompt that "model" does not divide: blocks of ceil(S / tp)
+        t = _pad_to(t, 1, n * blk)
         send = t.reshape(b, n, blk, *t.shape[2:]).movedim(1, 0).contiguous()
         got = torch.empty_like(send)
         dist.all_to_all_single(got, send, group=self.tp_group)
         got = got.movedim(0, 2).reshape(b, blk, -1, t.shape[-1])
+        if count != blk:
+            got = got[:, :count]
         if spans is not None:
             return got.index_select(2, self._owners_on(spans, width,
                                                        got.device))
@@ -988,7 +1124,8 @@ class ParallelContext:
         """The ranks' partial sums over their edges of a node tensor,
         reduce-scattered into the rank's rows; the backward all-gathers."""
         OP_COUNTS["node_scatter"] += 1
-        return _ReduceScatter.apply(x, 0, self.dp_group, self.dp_size)
+        return _ReduceScatter.apply(x, 0, self.dp_group, self.dp_size,
+                                    self.dp_rank)
 
     def edge_sum(self, x):
         """The ranks' partial sums over their edges of a node tensor,
@@ -1074,13 +1211,13 @@ def data_rows(batch_rows: int, accum: int, dp_size: int, dp_rank: int
               ) -> np.ndarray:
     """The global batch rows a data rank holds: its block of each of the
     ``accum`` microbatches (consecutive rows of the global batch, as the
-    reference reshapes it), microbatch after microbatch."""
+    reference reshapes it), microbatch after microbatch; a microbatch that
+    the data ranks do not divide is cut as GSPMD pads it (`block`: the
+    last ranks hold fewer rows or none)."""
     mb = batch_rows // accum
-    if batch_rows % accum or mb % dp_size:
-        raise ValueError(f"{dp_size} data ranks do not split microbatches "
-                         f"of {mb} sequences ({accum} of a batch of "
-                         f"{batch_rows})")
-    per = mb // dp_size
-    return np.concatenate([np.arange(i * mb + dp_rank * per,
-                                     i * mb + (dp_rank + 1) * per)
+    if batch_rows % accum:
+        raise ValueError(f"{accum} microbatches do not divide a batch of "
+                         f"{batch_rows}")
+    _, lo, count = block(mb, dp_size, dp_rank)
+    return np.concatenate([np.arange(i * mb + lo, i * mb + lo + count)
                            for i in range(accum)])

@@ -27,8 +27,9 @@ edges, or the batch, over the data axes) and the paper's own
 ``snn-service``; llama4-scout's and minicpm3-4b's 40 heads, which the
 production "model" of 16 does not divide, are traced on rank 0, one of
 the ranks that hold three heads (`distributed.parallel.head_split`).  A
-cell the port cannot split (fewer heads than model ranks, experts or a
-vocabulary "model" does not divide; no production cell) is written as a
+cell whose arguments the mesh does not divide (`steps.check_args`: a
+vocabulary or experts that "model" does not divide, ...; the reference's
+jit refuses the same, and no production cell is one) is written as a
 ``{"skipped": "<why>"}`` record, not dropped.  On fake
 tensors a table's row gradient takes every occurrence as valid and
 unique (`models.recsys.row_grad`), and `utils.top_k` skips its tie

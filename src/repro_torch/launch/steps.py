@@ -31,7 +31,11 @@ over "model" by the sequence too); the recsys steps with the tables' rows
 over "model" (through the embedding-bag kernel on the rank's block) and
 the batch, or the ranking archs' candidates, over the data axes; the
 GAT's with the full graph's edges and hidden node rows, or the batch,
-over the data axes (`build_rs_step`, `build_gnn_step`).  The batch
+over the data axes (`build_rs_step`, `build_gnn_step`).  An LM step on a
+mesh takes every split that the reference's GSPMD compiles, the uneven
+ones too (`distributed.parallel.block`), and refuses, before any
+collective, the arguments that the reference's jit refuses
+(`check_args`).  The batch
 or the tokens are the JAX package's numpy arrays for the same
 ``default_rng(0)``; the parameters are made on the device from a seeded
 ``torch.Generator`` (``params_from_jax`` of `models.recsys`,
@@ -220,9 +224,11 @@ def lm_grads(params, batch, cfg: tf.TransformerConfig, accum: int, *,
     if b % accum:
         raise ValueError(f"{accum} microbatches do not divide a batch of {b}")
     mb = b // accum
-    for i in range(0, b, mb):
-        loss = tf.loss_fn(view, {k: v[i:i + mb] for k, v in batch.items()},
-                          cfg, rope=rope)
+    # (a data rank may hold no row of a microbatch: it still runs each,
+    # empty, for the collectives of its forward and backward)
+    for i in range(accum):
+        loss = tf.loss_fn(view, {k: v[i * mb:(i + 1) * mb]
+                                 for k, v in batch.items()}, cfg, rope=rope)
         loss.backward()
         total = total + loss.detach()
     if accum == 1:
@@ -304,93 +310,53 @@ def _local_cfg(cfg: tf.TransformerConfig, ctx) -> tf.TransformerConfig:
     return dataclasses.replace(cfg, **over)
 
 
-def _check_mesh(mesh, multi_pod: bool):
-    """The mesh's axes; a mesh-like object (``mesh_dim_names`` and
+def _mesh_sizes(mesh, multi_pod: bool) -> dict:
+    """Each axis's ranks; a mesh-like object (``mesh_dim_names`` and
     ``size(i)``) is enough, so that the checks need no process group."""
     want = ("pod", "data", "model") if multi_pod else ("data", "model")
     if tuple(mesh.mesh_dim_names) != want:
         raise ValueError(f"the mesh's axes are {tuple(mesh.mesh_dim_names)}"
                          f", the step wants {want}")
-    sizes = dict(zip(want, (mesh.size(i) for i in range(len(want)))))
-    dp = int(np.prod([sizes[a] for a in want[:-1]]))
-    return dp, sizes["model"]
+    return dict(zip(want, (mesh.size(i) for i in range(len(want)))))
 
 
-def check_lm_sharding(cfg: tf.TransformerConfig, b: int, s: int, accum: int,
-                      dp: int, tp: int) -> None:
-    """What the sharded ``train_4k`` step needs of the mesh (``dp`` data
-    ranks, ``tp`` model ranks): the microbatch's sequences over the data
-    ranks, each sequence over "model" (sequence parallelism), the heads,
-    experts and vocabulary over "model" and the MoE groups over the data
-    ranks.  ValueError where it does not hold."""
-    mb = b // accum
-    if b % accum or mb % dp:
-        raise ValueError(f"{dp} data ranks do not divide microbatches of "
-                         f"{mb} sequences")
-    if s % tp:
-        raise ValueError(f"a sequence of {s} does not split into {tp} "
-                         "blocks over 'model'")
-    _check_heads(cfg, tp)
-    _check_moe_groups(cfg, mb * s, dp)
+def _check_mesh(mesh, multi_pod: bool) -> tuple:
+    """(data ranks, model ranks) of the mesh (`_mesh_sizes`)."""
+    sizes = _mesh_sizes(mesh, multi_pod)
+    return math.prod(sizes.values()) // sizes["model"], sizes["model"]
 
 
-def check_lm_serving(cfg: tf.TransformerConfig, kind: str, b: int, s: int,
-                     dp: int, tp: int, long: bool) -> None:
-    """What a sharded serving step needs of the mesh: the heads, experts
-    and vocabulary over "model", the batch over the data ranks (not for
-    ``long``, whose batch is replicated), the sequence (the prompt, or the
-    cache's length) over its sequence group ("model", or with ``long`` the
-    data axes and "model"), and the MoE groups over the data ranks.
-    ValueError where it does not hold."""
-    if not long and b % dp:
-        raise ValueError(f"{dp} data ranks do not divide a batch of {b} "
-                         "sequences")
-    _check_heads(cfg, tp)
-    parts = dp * tp if long else tp
-    if s % parts:
-        raise ValueError(f"a sequence of {s} does not split into {parts} "
-                         "cache blocks")
-    if not long:
-        _check_moe_groups(cfg, b * s if kind == "prefill" else b, dp)
-
-
-def _check_heads(cfg: tf.TransformerConfig, tp: int) -> None:
-    """The heads, their leaves' column blocks, the vocabulary and the
-    experts over "model".  Heads "model" does not divide are split
-    unevenly (`_local_cfg`), but every rank needs one, and each head
-    leaf's columns must cut into ``tp`` equal storage blocks."""
-    heads = [("heads", cfg.n_heads)]
-    if cfg.mla is not None:
-        heads.append(("MLA heads", cfg.mla.n_heads))
-    for what, n in heads:
-        if n < tp:
-            raise ValueError(f"{what} ({n}) are fewer than the 'model' axis "
-                             f"size {tp}: a rank would hold none")
-    if cfg.vocab % tp:
-        raise ValueError(f"vocab ({cfg.vocab}) must be divisible by the "
-                         f"'model' axis size {tp}")
-    if _uneven_heads(cfg, tp):
-        n = cfg.mla.n_heads if cfg.mla is not None else cfg.n_heads
-        for name, (width, of) in _head_widths(cfg).items():
-            cols = width * (cfg.n_kv_heads if of == "kv" else n)
-            if cols % tp:
-                raise ValueError(f"{name}'s {cols} head columns do not "
-                                 f"split into {tp} equal blocks over "
-                                 "'model'")
-    if cfg.moe is not None and cfg.moe.n_experts % tp:
-        raise ValueError(f"experts ({cfg.moe.n_experts}) must be "
-                         f"divisible by the 'model' axis size {tp}")
-
-
-def _check_moe_groups(cfg: tf.TransformerConfig, tokens: int,
-                      dp: int) -> None:
-    """The reference's ``gcd(T, dispatch_groups)`` MoE groups over the
-    ``tokens`` of a microbatch must split over the ``dp`` data ranks."""
-    if cfg.moe is not None:
-        g = math.gcd(tokens, max(cfg.moe.dispatch_groups, 1))
-        if g % dp:
-            raise ValueError(f"{g} MoE groups do not split over {dp} data "
-                             "ranks")
+def check_args(names: tuple, arg_specs: tuple, in_shardings: tuple,
+               sizes: dict) -> None:
+    """ValueError where a dimension of a step's argument (``names`` the
+    positional arguments') does not divide into the ranks of the mesh
+    axes its `Spec` names (``sizes``).  The reference's ``jax.jit``
+    refuses exactly such an argument ("... should be divisible by ...");
+    what the arguments leave to the step (query heads fewer than the
+    "model" ranks, a sequence, a microbatch or MoE groups that the ranks
+    do not divide) GSPMD pads and the port cuts as it does
+    (`distributed.parallel.block`).  So the vocabulary, the experts, the
+    head columns, the ZeRO dimensions, the batch, a decode or
+    ``long_500k`` cache: each must divide."""
+    def walk(path, arg, spec):
+        if isinstance(spec, Spec):
+            for dim, n in enumerate(arg.shape):
+                axes = spec.axes(dim)
+                parts = math.prod(sizes[a] for a in axes)
+                if n % parts:
+                    raise ValueError(
+                        f"{'/'.join(map(str, path))}: dimension {dim} ({n}) "
+                        f"does not divide over {' x '.join(axes)} ({parts} "
+                        "ranks); the reference's jit refuses such an "
+                        "argument too")
+        elif isinstance(spec, dict):     # in JAX's order of a pytree's keys
+            for k in sorted(spec):
+                walk(path + (k,), arg[k], spec[k])
+        else:
+            for i, v in enumerate(spec):
+                walk(path + (i,), arg[i], v)
+    for name, arg, spec in zip(names, arg_specs, in_shardings):
+        walk((name,), arg, spec)
 
 
 def build_lm_step(spec: ArchSpec, shape_name: str, *, reduced: bool,
@@ -535,19 +501,23 @@ def _sharded_lm_train(spec, shape_name, cfg, b, s, accum, opt, mesh,
                       multi_pod, pspec, flops, rope, shard_kw) -> StepDef:
     """``train_4k`` over ``mesh``: the parameters and the AdamW moments as
     this rank's shards of ``pspec``, the batch as its rows of each
-    microbatch; returns the global loss and gradient norm on every rank."""
+    microbatch; returns the global loss and gradient norm on every rank.
+    The step's arguments are checked (`check_args`) before its context
+    (groups, this rank's heads) is made."""
     from ..distributed import parallel
     from ..distributed.sharding import rules_for_family, sharding_rules
 
-    n_dp, n_tp = _check_mesh(mesh, multi_pod)
-    check_lm_sharding(cfg, b, s, accum, n_dp, n_tp)
+    check_args(("params", "opt_state", "batch"), shard_kw["arg_specs"],
+               shard_kw["in_shardings"], _mesh_sizes(mesh, multi_pod))
     dp = _dp(multi_pod)
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
+    ctx.batch_rows = b // accum
     lcfg = _local_cfg(cfg, ctx)
     rules = rules_for_family("lm", multi_pod=multi_pod)
 
     def grad_fn(params, batch):
+        ctx.seq_len = batch["tokens"].shape[1]
         with sharding_rules(rules, ctx):
             loss, grads = lm_grads(params, batch, lcfg, accum,
                                    rope=rope(batch["tokens"].device))
@@ -598,13 +568,15 @@ def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
     from ..distributed import parallel
     from ..distributed.sharding import rules_for_family, sharding_rules
 
-    n_dp, n_tp = _check_mesh(mesh, multi_pod)
     long = shape_name == "long_500k"
-    check_lm_serving(cfg, kind, b, s, n_dp, n_tp, long)
+    check_args(("params", "tokens") if kind == "prefill" else
+               ("params", "cache", "tokens", "pos"), shard_kw["arg_specs"],
+               shard_kw["in_shardings"], _mesh_sizes(mesh, multi_pod))
     dp = _dp(multi_pod)
     ctx = parallel.ParallelContext(mesh, multi_pod=multi_pod,
                                    spec_of=_lm_leaf_spec(dp))
     ctx.serve_layout(long, kind == "prefill")
+    ctx.batch_rows = b
     lcfg = _local_cfg(cfg, ctx)
     rules = rules_for_family("lm", multi_pod=multi_pod)
     rows = (np.arange(b) if long else
@@ -623,6 +595,7 @@ def _sharded_lm_serve(spec, shape_name, kind, cfg, b, s, mesh, multi_pod,
     if kind == "prefill":
         @torch.inference_mode()
         def step(params, tokens):
+            ctx.seq_len = tokens.shape[1]
             with sharding_rules(rules, ctx):
                 return tf.prefill(params, tokens, lcfg,
                                   rope=rope(tokens.device))

@@ -132,10 +132,10 @@ def _attend(q, k, v, scale, mask_rows):
     ``mask_rows(r0, r1)`` is the mask of query rows [r0, r1)."""
     b, sq, h, _ = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
     per = b * skv * 4                       # one (query, head) row's scores
     heads, rows = h, sq
-    if sq * h * per > SCORE_BYTES:
+    if sq * h * per > SCORE_BYTES:          # (a rank with no head: never)
+        g = h // hkv
         heads = max(g, SCORE_BYTES // (sq * per) // g * g)
         rows = max(1, min(sq, SCORE_BYTES // (heads * per)))
     if heads == h and rows == sq:

@@ -18,7 +18,9 @@ of dropped assignments, each the mean over the groups.
 In the sharded step (`distributed.parallel`) the group count is the
 reference's over the microbatch's global tokens, the data ranks each
 holding their share of the groups (an aux value is then the rank's part
-of the global mean), and under tensor parallelism a rank holds the
+of the global mean; where the data ranks do not divide the groups, a
+rank's tokens move to the ranks of their groups and back,
+`ParallelContext.moe_groups`), and under tensor parallelism a rank holds the
 experts of its block: it routes every token (the router whole), fills
 and runs its own experts' capacity slots and returns its partial combined
 output, which the caller sums over "model" (``act_btd``).  Under sequence
@@ -36,7 +38,7 @@ import math
 
 import torch
 
-from ..distributed.parallel import copy_to_model, gather_seq
+from ..distributed.parallel import MoEGroups, copy_to_model
 from ..distributed.sharding import constrain, current_context
 from ..utils import top_k
 from .layers import ACTIVATIONS, uniform_init
@@ -95,21 +97,32 @@ def moe_apply(p, x, cfg: MoEConfig):
         x = ctx.gather_seq(x)
     shape = x.shape
     x = x.reshape(-1, d)
-    t = x.shape[0]
     if ctx is None:
-        g, share = math.gcd(t, max(cfg.dispatch_groups, 1)), 1.0
+        t = x.shape[0]
+        g = math.gcd(t, max(cfg.dispatch_groups, 1))
+        grp = MoEGroups(g, t // g, 1.0, g, None)
         experts = (0, cfg.n_experts)
     else:
-        g, share = ctx.moe_groups(t, cfg.dispatch_groups)
+        grp = ctx.moe_groups(tuple(shape), cfg.dispatch_groups)
         experts = ctx.local_experts(cfg.n_experts)
-    xg = constrain(x.reshape(g, t // g, d), "moe_gtd")
+    if grp.move is not None:
+        x = ctx.to_groups(x, grp.move)
+        if logits is not None:
+            logits = ctx.to_groups(logits.reshape(-1, logits.shape[-1]),
+                                   grp.move)
+    xg = constrain(x.reshape(grp.count, grp.size, d), "moe_gtd")
     if logits is not None:
-        logits = logits.reshape(g, t // g, -1)
+        logits = logits.reshape(grp.count, grp.size, logits.shape[-1])
     y, aux = _moe_apply_groups(p, xg, cfg, experts, logits)
     y = constrain(y, "moe_gtd")
-    aux = {k: v.mean() for k, v in aux.items()}
-    if share != 1.0:
-        aux = {k: v * share for k, v in aux.items()}
+    if grp.share is None:
+        aux = {k: v.sum() / grp.total for k, v in aux.items()}
+    else:
+        aux = {k: v.mean() for k, v in aux.items()}
+        if grp.share != 1.0:
+            aux = {k: v * grp.share for k, v in aux.items()}
+    if grp.move is not None:
+        y = ctx.from_groups(y.reshape(-1, d), grp.move)
     return y.reshape(shape), aux
 
 
@@ -157,7 +170,7 @@ def _moe_apply_groups(p, x, cfg: MoEConfig, experts: tuple, logits=None):
     cgrid = torch.arange(c, device=dev)
     slot_pos = starts[:, lo:lo + el, None] + cgrid           # (G, el, C)
     slot_valid = (cgrid < counts[:, lo:lo + el, None]) & (slot_pos < n)
-    slot_tok = st.gather(1, slot_pos.clamp_max(n - 1).reshape(g, -1))
+    slot_tok = st.gather(1, slot_pos.clamp_max(n - 1).reshape(g, el * c))
     buf = xb[gi, slot_tok].reshape(g, el, c, d) * \
         slot_valid[..., None].to(x.dtype)
     buf = constrain(buf, "moe_ecd_local")

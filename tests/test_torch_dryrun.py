@@ -163,10 +163,12 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
     terms, and so is minicpm3-4b's ``train_4k`` at the production (16,
     16), whose 40 MLA heads "model" does not divide (three heads on this
     rank, rank 0; traced at 2 of its 62 layers, the depth fit is
-    `test_depth_fit_equals_a_full_depth_trace`'s); a cell the port cannot
-    split stays a ``skipped``
-    record (the reduced nemotron-4-15b's 4 heads over a "model" of 8: a
-    rank would hold none)."""
+    `test_depth_fit_equals_a_full_depth_trace`'s), and the reduced
+    nemotron-4-15b's ``prefill_32k`` at (1, 8), whose 4 query heads are
+    fewer than the model ranks (rank 0 holds one; ranks 4-7 none, as
+    GSPMD replicates them).  A cell that the reference's jit refuses stays
+    a ``skipped`` record: the reduced nemotron-4-15b with a vocabulary of
+    500 over a "model" of 8."""
     recs = [dryrun.run_cell("mind", "train_batch", mesh_shape=(2, 2),
                             out_dir=str(tmp_path), verbose=False),
             dryrun.run_cell("dlrm-mlperf", "serve_p99",
@@ -174,8 +176,13 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
             dryrun.run_cell("minicpm3-4b", "train_4k", fit_lm=False,
                             cfg_override={"n_layers": 2}, verbose=False),
             dryrun.run_cell("nemotron-4-15b", "prefill_32k",
-                            mesh_shape=(1, 8),
+                            mesh_shape=(1, 8), fit_lm=False,
                             cfg_override=_reduced("nemotron-4-15b"),
+                            shape_override=SMALL, verbose=False),
+            dryrun.run_cell("nemotron-4-15b", "prefill_32k",
+                            mesh_shape=(1, 8),
+                            cfg_override=_reduced("nemotron-4-15b",
+                                                  vocab=500),
                             shape_override=SMALL, verbose=False)]
     for rec, step in zip(recs[:2], ("mind:train_batch:train",
                                     "dlrm-mlperf:serve_p99:serve")):
@@ -194,8 +201,16 @@ def test_cells_not_run_on_a_mesh_are_skipped_records(tmp_path):
     assert {"all-gather", "reduce-scatter"} <= set(
         mla["collective_breakdown"])
     assert 0 < mla["peak_memory_bytes"] < 80e9
-    assert set(recs[3]) >= {"arch", "shape", "mesh", "skipped"}
-    assert "fewer than the 'model' axis size 8" in recs[3]["skipped"]
+    few = recs[3]
+    assert "skipped" not in few
+    assert few["step"] == "nemotron-4-15b:prefill_32k:prefill"
+    assert few["mesh"] == (1, 8) and few["n_devices"] == 8
+    assert few["flops_per_device"] > 0 and few["hbm_bytes_per_device"] > 0
+    assert {"all-gather", "reduce-scatter"} <= set(
+        few["collective_breakdown"])
+    assert set(recs[4]) >= {"arch", "shape", "mesh", "skipped"}
+    assert recs[4]["skipped"].startswith(
+        "params/embed: dimension 0 (500) does not divide over model (8")
     saved = json.loads((tmp_path / "mind__train_batch__single.json")
                        .read_text())
     assert saved["flops_per_device"] == recs[0]["flops_per_device"]

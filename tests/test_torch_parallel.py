@@ -30,13 +30,16 @@ against ``jax.value_and_grad`` within `_torch_train`'s gradient bound.
 Losses, gradient norms, parameters and AdamW moments are held within
 `_torch_train`'s tolerances; each case's sharded ``init_args`` must gather
 to the unsharded init bit for bit, and its batch be the rank's rows of
-each microbatch.  The mesh checks (data ranks dividing the microbatch and
-the MoE groups, a query head for every model rank, experts dividing
-"model", the sequence splitting over "model") raise ``ValueError`` before
-any collective.
+each microbatch.  The mesh check raises ``ValueError`` before any
+collective where the reference's jit refuses an argument (a batch that
+the data ranks do not divide, FFN columns that "model" does not); the
+splits it pads (query heads fewer than the "model" ranks, MoE groups that
+the data ranks do not divide) build (their steps, and sequences that
+"model" does not divide: `test_torch_parallel_heads.py`).
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +55,7 @@ import torch
 from repro.configs import registry as jreg
 from repro.launch import steps as jsteps
 from repro.models import transformer as jt
+from repro_torch.launch import dryrun
 from repro_torch.launch import steps as tsteps
 
 from _torch_train import (GRAD_REL, LOSS_REL, NORM_REL, scalar_close,
@@ -270,34 +274,48 @@ def _mesh(*sizes, multi_pod=False):
                                  size=lambda i: sizes[i])
 
 
+def _built(name, sizes, arch, shape, **kw):
+    """The step built on a `DeviceMesh` of ``sizes`` over a fake process
+    group (`dryrun.fake_world`, rank 0): its checks passed and its context
+    was made, with nothing moved."""
+    with dryrun.fake_world(math.prod(sizes)):
+        sd = tsteps.build_step(arch, shape, mesh=dryrun._cpu_mesh(sizes),
+                               **kw)
+    assert isinstance(sd, tsteps.StepDef) and sd.name == name
+
+
 def test_mesh_checks_raise_before_any_collective():
-    # 8 data ranks do not divide a microbatch of 4 sequences
-    with pytest.raises(ValueError, match="microbatches of 4"):
+    # 8 data ranks do not divide a batch of 4 sequences: the reference's
+    # jit refuses the batch argument, and so does the port
+    with pytest.raises(ValueError, match=r"batch/labels: dimension 0 \(4\) "
+                       r"does not divide over data \(8"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
                           mesh=_mesh(8, 1))
-    # 4 query heads over 8 model ranks: a rank would hold none (heads that
-    # "model" does not divide are split unevenly,
-    # `test_torch_parallel_heads.py`)
-    with pytest.raises(ValueError, match="heads .4. are fewer"):
-        tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
-                          cfg_override={"n_heads": 4, "n_kv_heads": 2},
-                          mesh=_mesh(1, 8))
-    # 4 data ranks divide a microbatch of 4 sequences but not 2 MoE groups
+    # 4 query heads over 8 model ranks: ranks 4-7 hold none, as GSPMD
+    # replicates them (the steps: `test_torch_parallel_heads.py`)
+    _built("internlm2-20b:train_4k:train", (1, 8), "internlm2-20b",
+           "train_4k", reduced=True,
+           cfg_override={"n_heads": 4, "n_kv_heads": 2})
+    # 4 data ranks divide a microbatch of 4 sequences but not its 2 MoE
+    # groups: ranks 0 and 1 hold one group each, 2 and 3 none
     over = _torch_over("qwen3-moe-235b-a22b")
     over["moe"] = dataclasses.replace(over["moe"], dispatch_groups=2)
-    with pytest.raises(ValueError, match="MoE groups"):
-        tsteps.build_step("qwen3-moe-235b-a22b", "train_4k",
-                          shape_override={"seq_len": 8, "global_batch": 32},
-                          cfg_override=over, mesh=_mesh(4, 1))
-    # 32 tokens a sequence do not split into 3 blocks over "model" (the
-    # heads and the vocabulary do)
-    with pytest.raises(ValueError, match="sequence of 32"):
+    _built("qwen3-moe-235b-a22b:train_4k:train", (4, 1),
+           "qwen3-moe-235b-a22b", "train_4k",
+           shape_override={"seq_len": 8, "global_batch": 32},
+           cfg_override=over)
+    # 32 tokens a sequence over 3 model ranks would be blocks of 11, 11
+    # and 10, and the heads and the vocabulary divide, but the FFN's 128
+    # columns do not: the reference's jit refuses ``w1``
+    with pytest.raises(ValueError, match=r"params/layers/ffn/w1: dimension "
+                       r"3 \(128\) does not divide over model \(3"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
                           cfg_override={"n_heads": 6, "n_kv_heads": 3,
                                         "vocab": 513},
                           mesh=_mesh(1, 3))
     # the data axes of a multi-pod mesh are ("pod", "data")
-    with pytest.raises(ValueError, match="microbatches"):
+    with pytest.raises(ValueError, match=r"batch/labels: dimension 0 \(4\) "
+                       r"does not divide over pod x data \(8"):
         tsteps.build_step("internlm2-20b", "train_4k", reduced=True,
                           multi_pod=True, mesh=_mesh(2, 4, 1,
                                                      multi_pod=True))

@@ -30,8 +30,10 @@ block boundary of these meshes crossed at 16) match JAX's ``prefill`` and
 magnitude (GEMM sums in another order; the partial softmaxes combined
 over the sequence group), bfloat16 caches within one
 bfloat16 ulp at their largest magnitude (a float32 value a few ulp from a
-rounding boundary goes either way).  The mesh checks raise ``ValueError``
-before any collective.
+rounding boundary goes either way).  The mesh check raises ``ValueError``
+before any collective where the reference's jit refuses an argument (a
+batch or a cache that does not divide, experts that "model" does not);
+the splits it pads build.
 """
 import dataclasses
 import json
@@ -51,6 +53,7 @@ from repro.configs import registry as jreg
 from repro.launch import steps as jsteps
 from repro.models import transformer as jt
 from repro_torch.launch import steps as tsteps
+from test_torch_parallel import _built
 
 from _torch_lm import bf16_ulp, match
 
@@ -232,41 +235,46 @@ def _mesh(*sizes, multi_pod=False):
 
 
 def test_serving_mesh_checks_raise_before_any_collective():
-    # 8 data ranks do not divide a batch of 4 sequences
-    with pytest.raises(ValueError, match="batch of 4"):
+    # 8 data ranks do not divide a batch of 4 sequences: the reference's
+    # jit refuses the cache's batch
+    with pytest.raises(ValueError, match=r"cache/k: dimension 1 \(4\) does "
+                       r"not divide over data \(8"):
         tsteps.build_step("internlm2-20b", "decode_32k", reduced=True,
                           mesh=_mesh(8, 1))
-    # heads over "model": 4 heads over 8 model ranks
-    with pytest.raises(ValueError, match="heads"):
-        tsteps.build_step("nemotron-4-15b", "prefill_32k", reduced=True,
-                          mesh=_mesh(1, 8))
-    # MLA heads and experts over "model"
-    with pytest.raises(ValueError, match="MLA heads"):
-        tsteps.build_step("minicpm3-4b", "decode_32k", reduced=True,
-                          cfg_override={"n_heads": 8, "n_kv_heads": 8},
-                          mesh=_mesh(1, 8))
-    with pytest.raises(ValueError, match="experts"):
+    # heads over "model": 4 heads over 8 model ranks, four ranks with none
+    # (the steps: `test_torch_parallel_heads.py`)
+    _built("nemotron-4-15b:prefill_32k:prefill", (1, 8), "nemotron-4-15b",
+           "prefill_32k", reduced=True)
+    # MLA heads fewer than the model ranks build; experts that "model"
+    # does not divide do not (the reference's jit refuses the router)
+    _built("minicpm3-4b:decode_32k:decode", (1, 8), "minicpm3-4b",
+           "decode_32k", reduced=True,
+           cfg_override={"n_heads": 8, "n_kv_heads": 8})
+    with pytest.raises(ValueError, match="ffn/router: dimension 3"):
         tsteps.build_step("llama4-scout-17b-a16e", "decode_32k",
                           reduced=True, cfg_override={"n_heads": 8,
                                                       "n_kv_heads": 8},
                           mesh=_mesh(1, 8))
-    # a prompt of 6 over 4 cache blocks; long_500k's sequence over data x
-    # model (the full widths, whose heads split; nothing is allocated)
-    with pytest.raises(ValueError, match="into 4 cache blocks"):
-        tsteps.build_step("internlm2-20b", "prefill_32k",
-                          shape_override={"seq_len": 6, "global_batch": 4},
-                          mesh=_mesh(1, 4))
-    with pytest.raises(ValueError, match="into 8 cache blocks"):
+    # a prompt of 6 over 4 model ranks: blocks of 2, 2, 2 and 0 (the full
+    # widths, whose heads split; nothing is allocated); long_500k's cache
+    # of 4 over data x model does not divide
+    _built("internlm2-20b:prefill_32k:prefill", (1, 4), "internlm2-20b",
+           "prefill_32k", shape_override={"seq_len": 6, "global_batch": 4})
+    with pytest.raises(ValueError, match=r"cache/k: dimension 2 \(4\) does "
+                       r"not divide over data x model \(8"):
         tsteps.build_step("llama4-scout-17b-a16e", "long_500k",
                           shape_override={"seq_len": 4}, mesh=_mesh(4, 2))
-    # 3 data ranks divide a batch of 6 but not its gcd(6, 32) = 2 MoE
-    # groups
-    with pytest.raises(ValueError, match="2 MoE groups"):
+    # 3 data ranks divide a batch of 6 and would hold its gcd(6, 32) = 2
+    # MoE groups as 1, 1 and 0, but not the model's width of 4,096: the
+    # reference's jit refuses the embedding's ZeRO split
+    with pytest.raises(ValueError, match=r"params/embed: dimension 1 "
+                       r"\(4096\) does not divide over data \(3"):
         tsteps.build_step("qwen3-moe-235b-a22b", "decode_32k",
                           shape_override={"global_batch": 6},
                           mesh=_mesh(3, 1))
     # the data axes of a multi-pod mesh are ("pod", "data")
-    with pytest.raises(ValueError, match="batch of 4"):
+    with pytest.raises(ValueError, match=r"cache/k: dimension 1 \(4\) does "
+                       r"not divide over pod x data \(8"):
         tsteps.build_step("internlm2-20b", "decode_32k", reduced=True,
                           multi_pod=True, mesh=_mesh(2, 4, 1,
                                                      multi_pod=True))
